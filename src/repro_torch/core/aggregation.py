@@ -1,0 +1,217 @@
+"""Robust, trust-aware aggregation A(.) of per-client updates (paper
+Eq. 11) — port of ``repro/core/aggregation.py``.
+
+Updates are trees whose leaves carry a leading client axis (K, ...).
+Every aggregator takes a float mask (K,) — only masked-in clients count.
+
+  fedavg        weighted mean
+  median        coordinate-wise masked median
+  trimmed_mean  coordinate-wise masked trimmed mean
+  krum          (multi-)Krum by pairwise distances
+
+plus the trust machinery (EWMA trust, gradient-cosine outlier gating) and
+the aggregation-boundary guard.  ``aggregate`` runs the Eq.-11 pipeline
+through the fused CUDA kernels (``kernels/robust_pipeline.py``) unless
+``cfg.fused_agg`` is False; the multi-pass plain-torch functions here are
+the reference (``aggregate_ref``).  Empty cohorts give a zero update and a
+lone Krum survivor passes through, as in the JAX package.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch import tree
+
+_BIG = 1e30
+
+
+def _rows(leaf):
+    return leaf.reshape(leaf.shape[0], -1).float()
+
+
+def _bcast(v, leaf):
+    """(K,) -> broadcastable against a (K, ...) leaf."""
+    return v.reshape((leaf.shape[0],) + (1,) * (leaf.dim() - 1))
+
+
+def normalize_weights(weights, mask):
+    w = weights * mask
+    return w / torch.clamp(w.sum(), min=1e-12)
+
+
+def _lo_hi(n):
+    """Middle rank indices of n sorted entries, clamped to n >= 1."""
+    h = torch.clamp(n - 1, min=0) / 2
+    return torch.floor(h).long(), torch.ceil(h).long()
+
+
+def _take(s, i):
+    """s[i] along axis 0 for a 0-d index tensor, without a host sync."""
+    return s.index_select(0, i.reshape(1))[0]
+
+
+def sanitize_updates(updates, mask, *, norm_mult=1e4):
+    """Reject non-finite or absurd-norm client deliveries before any
+    aggregator sees them: a masked-in row is rejected if any coordinate is
+    non-finite, or (``norm_mult`` > 0) if its tree-wide L2 norm exceeds
+    ``norm_mult`` x the masked median norm of the finite rows.  Returns
+    ``(clean_updates, clean_mask, rejected)``; rejected rows are zeroed and
+    masked out.  Sane inputs pass through bit-identical."""
+    k = mask.shape[0]
+    finite = torch.ones(k, dtype=torch.bool, device=mask.device)
+    sq = torch.zeros(k, device=mask.device)
+    for leaf in tree.leaves(updates):
+        f = _rows(leaf)
+        ok = torch.isfinite(f)
+        finite = finite & ok.all(dim=1)
+        sq = sq + torch.sum(torch.where(ok, f, 0.0) ** 2, dim=1)
+    norm = torch.sqrt(sq)
+    good = finite & (mask > 0)
+    if norm_mult and norm_mult > 0:
+        s = torch.sort(torch.where(good, norm,
+                                   torch.full_like(norm, float("inf")))).values
+        n_good = good.sum()
+        lo, hi = _lo_hi(n_good)
+        med = 0.5 * (_take(s, lo) + _take(s, hi))
+        med = torch.where(n_good > 0, med, torch.zeros_like(med))
+        ok_row = finite & (norm <= norm_mult * torch.clamp(med, min=1e-12))
+    else:
+        ok_row = finite
+    rejected = ((mask > 0) & ~ok_row).float()
+    okf = ok_row.float()
+    clean = tree.map(
+        lambda l: torch.where(_bcast(okf, l) > 0, l, torch.zeros_like(l)),
+        updates)
+    return clean, mask * okf, rejected
+
+
+def weighted_mean(updates, weights, mask):
+    w = normalize_weights(weights, mask)
+    return tree.map(lambda l: torch.tensordot(w.to(l.dtype), l, dims=1),
+                    updates)
+
+
+def _masked_sorted(leaf, mask):
+    """Sort clients per coordinate, masked-out clients pushed to _BIG."""
+    xm = torch.where(_bcast(mask, leaf) > 0, leaf.float(),
+                     torch.full_like(leaf, _BIG, dtype=torch.float32))
+    return torch.sort(xm, dim=0, stable=True).values
+
+
+def median(updates, mask):
+    """Coordinate-wise median over masked-in clients; an empty cohort
+    gives a zero update."""
+    n = mask.sum()
+    lo, hi = _lo_hi(n)
+
+    def agg(leaf):
+        s = _masked_sorted(leaf, mask)
+        out = 0.5 * (_take(s, lo) + _take(s, hi))
+        return torch.where(n > 0, out, torch.zeros_like(out)).to(leaf.dtype)
+
+    return tree.map(agg, updates)
+
+
+def trimmed_mean(updates, mask, trim_frac):
+    """Coordinate-wise mean after dropping trim_frac per side (of n)."""
+    n = mask.sum()
+    t = torch.floor(trim_frac * n)
+
+    def agg(leaf):
+        s = _masked_sorted(leaf, mask)
+        k = leaf.shape[0]
+        idx = _bcast(torch.arange(k, device=leaf.device), leaf)
+        keep = (idx >= t) & (idx < n - t)
+        cnt = torch.clamp(n - 2 * t, min=1.0)
+        return (torch.where(keep, s, 0.0).sum(0) / cnt).to(leaf.dtype)
+
+    return tree.map(agg, updates)
+
+
+def pairwise_sq_dists(updates, mask):
+    """(K, K) squared distances between flattened client updates; masked
+    pairs pushed to +_BIG."""
+    d = 0.0
+    for leaf in tree.leaves(updates):
+        f = _rows(leaf)
+        sq = torch.sum(f * f, dim=1)
+        d = d + (sq[:, None] + sq[None, :] - 2.0 * (f @ f.T))
+    big = _BIG * (1 - mask[:, None] * mask[None, :])
+    return torch.clamp(d, min=0.0) + big
+
+
+def krum(updates, mask, f, *, multi_m=1):
+    """(Multi-)Krum [Blanchard et al. 2017]: score = sum of the n - f - 2
+    smallest distances to the other selected clients; mean of the multi_m
+    best.  Winners are restricted to masked-in clients."""
+    d = pairwise_sq_dists(updates, mask)
+    k = d.shape[0]
+    d = d + _BIG * torch.eye(k, device=d.device)
+    n = mask.sum()
+    closest = torch.sort(d, dim=1).values
+    j = torch.arange(k, dtype=torch.float32, device=d.device)[None, :]
+    take = torch.clamp(n - f - 2, min=1.0)
+    scores = torch.where(j < take, closest, 0.0).sum(1)
+    scores = torch.where(mask > 0, scores,
+                         torch.full_like(scores, float("inf")))
+    order = torch.argsort(scores, stable=True)
+    sel = torch.zeros(k, device=d.device).index_fill_(0, order[:multi_m],
+                                                      1.0) * mask
+    return weighted_mean(updates, sel, sel)
+
+
+def cosine_to_ref(updates, ref):
+    """Tree-wide cosine similarity (K,) of each client's update vs. a
+    reference direction tree."""
+    dots = n1 = n2 = 0.0
+    for leaf, rleaf in zip(tree.leaves(updates), tree.leaves(ref)):
+        f = _rows(leaf)
+        r = rleaf.reshape(-1).float()
+        dots = dots + f @ r
+        n1 = n1 + torch.sum(f * f, dim=1)
+        n2 = n2 + torch.sum(r * r)
+    return dots / torch.clamp(torch.sqrt(n1 * n2), min=1e-12)
+
+
+def cosine_outlier_mask(updates, ref, mask, thresh):
+    """0/1 (K,): masked-in clients whose cosine to ``ref`` is >= thresh."""
+    cos = cosine_to_ref(updates, ref)
+    return ((cos >= thresh) & (mask > 0)).float()
+
+
+def update_trust(trust, scores, mask, decay):
+    """EWMA trust: selected clients track their normalised score;
+    unselected clients drift toward neutral 0.5."""
+    smax = torch.clamp(torch.max(scores * mask), min=1e-12)
+    norm_score = torch.clamp(scores / smax, 0.0, 1.0)
+    upd = decay * trust + (1.0 - decay) * norm_score
+    hold = decay * trust + (1.0 - decay) * 0.5
+    return torch.where(mask > 0, upd, hold)
+
+
+def aggregate_ref(updates, weights, mask, cfg):
+    """Multi-pass reference of the Eq.-11 pipeline: median reference ->
+    cosine gate (never gating everyone out) -> the configured
+    aggregator."""
+    ref = median(updates, mask)
+    gate = cosine_outlier_mask(updates, ref, mask, cfg.cosine_outlier_thresh)
+    m = mask * gate
+    m = torch.where(m.sum() > 0, m, mask)
+    if cfg.aggregator == "fedavg":
+        return weighted_mean(updates, weights, m)
+    if cfg.aggregator == "median":
+        return median(updates, m)
+    if cfg.aggregator == "trimmed_mean":
+        return trimmed_mean(updates, m, cfg.trim_frac)
+    if cfg.aggregator == "krum":
+        return krum(updates, m, cfg.krum_f)
+    raise ValueError(cfg.aggregator)
+
+
+def aggregate(updates, weights, mask, cfg):
+    """Dispatch on cfg.fused_agg: the fused kernels
+    (``robust_pipeline.fused_aggregate_tree``) or ``aggregate_ref``."""
+    if cfg.fused_agg:
+        from repro_torch.kernels.robust_pipeline import fused_aggregate_tree
+        return fused_aggregate_tree(updates, weights, mask, cfg)
+    return aggregate_ref(updates, weights, mask, cfg)

@@ -1,0 +1,340 @@
+"""FedFiTS simulation engine — the paper-faithful synchronous round
+(Algorithm 1 + 2), port of ``repro/core/fedfits.py``.
+
+Every available client runs E local SGD epochs from the global model
+(``torch.func.vmap`` over ``grad``: the client axis is a batch dimension),
+then fitness, dynamic alpha, the threshold election, the slot state, the
+aggregation-boundary guard and the Eq.-11 aggregation (the fused CUDA
+kernels by default), and the trust / gate-trust EWMAs, fairness and
+billing.  Only the team is billed (FFA rounds bill every available client).
+
+Update layout: each client's ``w_k - w`` is written straight into per-leaf
+views of one (K, N) fp32 buffer, so the aggregation kernels stream one
+matrix without a concatenate.
+
+Randomness: ``FedState.rng`` is a ``torch.Generator`` on the device.  The
+round draws from it only where the policy is random (the election's floor
+and explore terms when their probabilities are > 0, FedRand, FedPow), so
+with ``participation_floor = explore_eps = 0`` and ``avail_prob = 1`` a
+round is a deterministic function of (state, batch), as in JAX.
+
+Not in this slice (``make_round``/``run`` raise ``NotImplementedError``):
+compressed uplink, population-scale async, attacks, faults, telemetry.
+"""
+from __future__ import annotations
+
+import time
+from typing import Any, NamedTuple
+
+import torch
+from torch.func import grad, vmap
+from torch.profiler import record_function
+
+from repro_torch import device as device_mod, tree
+from repro_torch.comm import codecs
+from repro_torch.core import aggregation, clientstore, fairness, fitness, \
+    selection, slots
+
+
+class FedState(NamedTuple):
+    """Round carry of the synchronous engine; per-client persistent
+    columns live in the nested ``clients`` store."""
+    params: Any                   # global model w(t-1)
+    team: torch.Tensor            # (K,) 0/1 mask S_t
+    alpha: torch.Tensor           # current alpha
+    slot: slots.SlotState
+    h: torch.Tensor               # bool: reselect this round?
+    rng: torch.Generator          # draws of the random policies
+    round: int                    # t (1-indexed)
+    cost_client_rounds: torch.Tensor
+    cost_bytes_up: torch.Tensor
+    cost_bytes_down: torch.Tensor
+    clients: clientstore.ClientStore
+
+    @property
+    def trust(self):
+        return self.clients.trust
+
+    @property
+    def gate_trust(self):
+        return self.clients.gate_trust
+
+    @property
+    def cum_selected(self):
+        return self.clients.cum_selected
+
+
+def init_state(params, n_clients, fed_cfg, rng: torch.Generator):
+    dev = tree.leaves(params)[0].device
+    zero = lambda: torch.zeros((), device=dev)
+    return FedState(
+        params=params,
+        team=torch.ones(n_clients, device=dev),
+        alpha=torch.tensor(fed_cfg.alpha, dtype=torch.float32, device=dev),
+        slot=slots.init_slot_state(dev),
+        h=torch.tensor(True, device=dev),
+        rng=rng,
+        round=1,
+        cost_client_rounds=zero(),
+        cost_bytes_up=zero(),
+        cost_bytes_down=zero(),
+        clients=clientstore.init_store(n_clients, device=dev),
+    )
+
+
+def make_client_update(model, fed_cfg):
+    """Algorithm 2 for all clients at once: E local SGD epochs from w(t-1)
+    on each client's batch; returns the (K, ...) local params and
+    (GL, GA, LL, LA), each (K,), on the clients' eval splits."""
+
+    def loss_fn(p, x, y, p0):
+        loss, _ = model.loss(p, {"x": x, "y": y})
+        if fed_cfg.prox_mu:
+            prox = sum(torch.sum(torch.square(a - b)) for a, b in
+                       zip(tree.leaves(p), tree.leaves(p0)))
+            loss = loss + 0.5 * fed_cfg.prox_mu * prox
+        return loss
+
+    def eval_fn(p, x, y):
+        loss, m = model.loss(p, {"x": x, "y": y})
+        return loss, m["acc"]
+
+    client_grad = vmap(grad(loss_fn), in_dims=(0, 0, 0, None))
+    eval_global = vmap(eval_fn, in_dims=(None, 0, 0))
+    eval_local = vmap(eval_fn, in_dims=(0, 0, 0))
+
+    def client_update(params, data):
+        k = data["x"].shape[0]
+        local = tree.map(lambda w: w.expand(k, *w.shape), params)
+        for _ in range(fed_cfg.local_epochs):
+            g = client_grad(local, data["x"], data["y"], params)
+            local = tree.map(lambda w, gw: w - fed_cfg.local_lr * gw,
+                             local, g)
+        gl, ga = eval_global(params, data["eval_x"], data["eval_y"])
+        ll, la = eval_local(local, data["eval_x"], data["eval_y"])
+        return local, (gl, ga, ll, la)
+
+    return client_update
+
+
+def _check_supported(fed_cfg, *, data_attack, update_attack, malicious,
+                     faults):
+    if fed_cfg.compress != "none":
+        raise NotImplementedError(
+            f"compress={fed_cfg.compress!r}: the compressed uplink comes "
+            "with ROADMAP queue 1 item 9")
+    if fed_cfg.population > 0:
+        raise NotImplementedError(
+            "population > 0: the population-scale async engine comes with "
+            "ROADMAP queue 1 item 11")
+    if (data_attack, update_attack, malicious, faults) != (None,) * 4:
+        raise NotImplementedError(
+            "attacks and faults come with ROADMAP queue 1 item 10")
+    if fed_cfg.agg_blk is not None:
+        raise NotImplementedError(
+            "agg_blk is the TPU kernels' VMEM block size; the CUDA kernels "
+            "fix their own tiles")
+    if fed_cfg.algorithm not in ("fedfits", "fedavg", "fedrand", "fedpow"):
+        raise ValueError(fed_cfg.algorithm)
+
+
+def make_round(model, fed_cfg, *, data_attack=None, update_attack=None,
+               malicious=None, faults=None):
+    """Builds the one-round function ``round_fn(state, data) -> (state,
+    metrics)``.  data: client-stacked {x: (K, B, ...), y: (K, B), eval_x,
+    eval_y, n: (K,)} plus optional {avail: (K,)}, on the state's device."""
+    _check_supported(fed_cfg, data_attack=data_attack,
+                     update_attack=update_attack, malicious=malicious,
+                     faults=faults)
+    client_update = make_client_update(model, fed_cfg)
+    K = fed_cfg.n_clients
+    decay = fed_cfg.trust_decay
+
+    def select(state, scores, gl, avail, n, t):
+        rng = state.rng
+        if fed_cfg.algorithm == "fedfits":
+            if fed_cfg.participation_floor > 0 or fed_cfg.explore_eps > 0:
+                floor_u, explore_u = selection.draw_fedfits(K, rng)
+            else:                       # u < 0 never holds: nothing to draw
+                floor_u = explore_u = torch.zeros_like(scores)
+            new_team = selection.fedfits_select(
+                scores, fed_cfg.beta, avail, floor_u, explore_u,
+                floor_prob=fed_cfg.participation_floor,
+                explore_eps=fed_cfg.explore_eps)
+            if t == 1:
+                new_team = avail
+            return torch.where(state.h, new_team, state.team * avail)
+        if fed_cfg.algorithm == "fedavg":
+            return selection.fedavg_select(avail)
+        if fed_cfg.algorithm == "fedrand":
+            return selection.fedrand_select(
+                avail, fed_cfg.fedrand_c, selection.draw_fedrand(K, rng))
+        d = fed_cfg.fedpow_d or K
+        m = fed_cfg.fedpow_m or max(K // 2, 1)
+        return selection.fedpow_select(gl, avail, d, m,
+                                       selection.draw_fedpow(K, rng), n=n)
+
+    def round_fn(state: FedState, data):
+        t = state.round
+        params = state.params
+        dev = state.team.device
+        avail = data.get("avail")
+        if avail is None:
+            avail = torch.ones(K, device=dev)
+
+        # ---- local training, updates written into one (K, N) buffer ----
+        with record_function("client_update"):
+            locals_, (gl, ga, ll, la) = client_update(params, data)
+            n_params = sum(p.numel() for p in tree.leaves(params))
+            flat = torch.empty(K, n_params, device=dev)
+            views = tree.row_views(flat, params)
+            for v, w_k, w in zip(tree.leaves(views), tree.leaves(locals_),
+                                 tree.leaves(params)):
+                torch.sub(w_k, w, out=v)
+        bytes_up_pc = codecs.dense_bytes_per_client(views)
+        bytes_down_pc = codecs.param_bytes(params)
+
+        # ---- fitness ----------------------------------------------------
+        q = fitness.data_quality(data["n"], avail)
+        th = torch.zeros(K, device=dev) if t == 1 else \
+            fitness.theta(gl, ga, ll, la)
+        if fed_cfg.dynamic_alpha:
+            alpha = fitness.dynamic_alpha(q, th, avail)
+        else:
+            alpha = torch.tensor(fed_cfg.alpha, dtype=torch.float32,
+                                 device=dev)
+        scores = fitness.score(q, th, alpha)
+        if fed_cfg.trust_in_fitness:
+            scores = scores * state.gate_trust
+
+        # ---- selection ----------------------------------------------------
+        with record_function("selection"):
+            team = select(state, scores, gl, avail, data["n"], t)
+        delivered = team
+
+        # ---- aggregation boundary: stale catch-up, then the guard --------
+        stale = fed_cfg.stale_weight * state.team * (1.0 - avail)
+        part = torch.clamp(delivered + stale, 0.0, 1.0)
+        part_pre, stale_pre = part, stale
+        rejected = torch.zeros(K, device=dev)
+        if fed_cfg.update_guard:
+            with record_function("sanitize"):
+                clean, _, rejected = aggregation.sanitize_updates(
+                    {"u": flat}, (part > 0).float(),
+                    norm_mult=fed_cfg.guard_norm_mult)
+            flat = clean["u"]
+            delivered = delivered * (1.0 - rejected)
+            stale = stale * (1.0 - rejected)
+            part = torch.clamp(delivered + stale, 0.0, 1.0)
+
+        n_k = data["n"].float()
+        with record_function("aggregate"):
+            if fed_cfg.paper_exact_agg:
+                w = n_k * delivered
+                agg_flat = (w / torch.clamp(w.sum(), min=1e-12)) @ flat
+            else:
+                weights = n_k * state.trust * (delivered + stale)
+                agg_flat = aggregation.aggregate(
+                    {"u": flat}, weights, (part > 0).float(), fed_cfg)["u"]
+        with record_function("writeback"):
+            new_params = tree.map(lambda p, u: p + u.to(p.dtype), params,
+                                  tree.row_views(agg_flat, params))
+
+        # ---- slot & trust state ------------------------------------------
+        theta_team = fitness.team_theta(th, team)
+        new_slot, h_next = slots.update(state.slot, theta_team, t,
+                                        fed_cfg.msl, fed_cfg.pft)
+        new_trust = aggregation.update_trust(state.trust, scores, team,
+                                             decay)
+        cos = aggregation.cosine_to_ref({"u": flat}, {"u": agg_flat})
+        gated = ((cos < fed_cfg.cosine_outlier_thresh) & (part > 0)).float()
+        bad = torch.maximum(gated, rejected)
+        new_gate_trust = torch.where(
+            part_pre > 0,
+            decay * state.gate_trust + (1.0 - decay) * (1.0 - bad),
+            state.gate_trust)
+
+        # billing: FFA rounds bill every available client, slot rounds the
+        # team, plus the stale catch-up contributors in both
+        billed = torch.where(state.h, avail.sum(), team.sum())
+        if not fed_cfg.paper_exact_agg:
+            billed = billed + (stale_pre > 0).sum()
+
+        cs = state.clients
+        new_clients = cs._replace(
+            fitness=decay * cs.fitness + (1.0 - decay) * scores,
+            trust=new_trust,
+            gate_trust=new_gate_trust,
+            staleness=torch.where(part > 0, torch.zeros_like(cs.staleness),
+                                  cs.staleness + 1),
+            failures=cs.failures + rejected,
+            cum_selected=cs.cum_selected + team)
+        new_state = FedState(
+            params=new_params, team=team, alpha=alpha, slot=new_slot,
+            h=h_next, rng=state.rng, round=t + 1,
+            cost_client_rounds=state.cost_client_rounds + billed,
+            cost_bytes_up=state.cost_bytes_up + billed * bytes_up_pc,
+            cost_bytes_down=state.cost_bytes_down + billed * bytes_down_pc,
+            clients=new_clients)
+        n_avail = torch.clamp(avail.sum(), min=1.0)
+        metrics = {
+            "theta": th, "score": scores, "team": team, "alpha": alpha,
+            "theta_team": theta_team, "h_next": h_next,
+            "global_loss_mean": (gl * avail).sum() / n_avail,
+            "local_loss_mean": (ll * avail).sum() / n_avail,
+            "team_size": team.sum(),
+            "gate_trust": new_gate_trust,
+            "gated_frac": gated.sum() / torch.clamp(part.sum(), min=1.0),
+            "guard_rejected": rejected.sum(),
+            **fairness.round_fairness(ga, avail, cs.cum_selected + team),
+        }
+        return new_state, metrics
+
+    return round_fn
+
+
+def _host(v):
+    return v.detach().cpu().numpy() if isinstance(v, torch.Tensor) else v
+
+
+def run(model, fed_cfg, data_fn, n_rounds, seed=0, *, eval_fn=None,
+        device=None, data_attack=None, update_attack=None, malicious=None,
+        faults=None, telemetry=None):
+    """Drives n_rounds of FL with a per-round Python loop (the counterpart
+    of the JAX package's ``driver="python"``).
+
+    data_fn(round, generator) -> client-stacked batch on the device;
+    eval_fn(params) -> dict of server-side metrics (optional, per round).
+    ``seed`` seeds the init, round, data and availability generators.
+    Runs on the card unless ``device="cpu"``.  Returns (final_state,
+    history), each history row on the host with ``wall_ms``: host time
+    from the round call until its metrics reached the host."""
+    dev = device_mod.resolve(device)
+    if telemetry is not None:
+        raise NotImplementedError(
+            "telemetry comes with ROADMAP queue 1 item 12")
+    round_fn = make_round(model, fed_cfg, data_attack=data_attack,
+                          update_attack=update_attack, malicious=malicious,
+                          faults=faults)
+    gen = lambda s: torch.Generator(device=dev).manual_seed(s)
+    K = fed_cfg.n_clients
+    params = model.init(gen(seed))
+    state = init_state(params, K, fed_cfg, gen(seed + 1))
+    g_data, g_avail = gen(seed + 2), gen(seed + 3)
+    history = []
+    for t in range(1, n_rounds + 1):
+        batch = dict(data_fn(t, g_data))
+        if fed_cfg.avail_prob < 1.0:
+            a = (torch.rand(K, generator=g_avail, device=dev)
+                 < fed_cfg.avail_prob).float()
+            a[0] = 1.0                                # never an empty round
+            batch["avail"] = a if t > 1 else torch.ones(K, device=dev)
+        t0 = time.perf_counter()
+        state, metrics = round_fn(state, batch)
+        row = {k: _host(v) for k, v in metrics.items()}
+        row["wall_ms"] = (time.perf_counter() - t0) * 1e3
+        if eval_fn is not None:
+            row.update({k: _host(v) for k, v in eval_fn(state.params).items()})
+        row["round"] = t
+        history.append(row)
+    return state, history

@@ -1,0 +1,26 @@
+"""Device resolution for the port's entry points.
+
+``resolve(None)`` means the card: it raises when CUDA is absent instead of
+carrying on on the CPU.  The CPU is used only when the caller asks for it
+(the tests do).  On the card the fp32 numerics are pinned: cuDNN's default
+TF32 convolutions would move the fitness scores of the reference fp32
+round and flip threshold decisions, so both TF32 switches are turned off
+here, at the entry point.
+"""
+from __future__ import annotations
+
+import torch
+
+
+def resolve(device=None) -> torch.device:
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "repro_torch runs on a CUDA device by default and none is "
+                "available; pass device='cpu' to run on the CPU")
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    elif dev.type != "cpu":
+        raise ValueError(f"unsupported device {dev}")
+    return dev

@@ -1,0 +1,313 @@
+"""Fused robust-aggregation pipeline (paper Eq. 11) — the port of
+``repro/kernels/robust_pipeline.py`` onto hand-written CUDA kernels
+(``csrc/robust_pipeline.cu``).
+
+  pass 1   K1 ``cosine_gate_partials``: per cohort, the coordinate-median
+           reference by the stable-rank network and the per-client cosine
+           partials dot(x_i, med), ||x_i||^2, ||med||^2, in one read.
+  gate     ``_resolve_gate``: O(G*C) scalars in torch, on the device.
+  pass 2   K2 ``gated_combine``: weighted mean, trimmed mean or median
+           under the gated mask, one more read.
+  krum     K3 ``pairwise_gram``: the Gram matrix in one more read; the
+           distances and the O(G*C^2) Krum scoring stay in torch, as they
+           stay in jnp in the JAX package.
+
+Layout: the kernels take one (G, C, N) fp32 matrix.  The round writes each
+client's update straight into per-leaf views of one preallocated (C, N)
+buffer, so there is no concatenate and no segment table (the TPU segment
+table exists only to avoid XLA's concatenate).
+
+Dispatch: each wrapper launches its kernel for a CUDA tensor (and raises if
+it cannot) and runs its plain PyTorch version, defined beside it, only for
+a CPU tensor.  Each wrapper counts its launches in ``.launches``; the plain
+versions are not counted.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch import tree
+from repro_torch.kernels import _build
+from repro_torch.kernels.robust_agg import _BIG, stable_ranks
+
+COLS = 128              # K1/K2: columns per block, one thread each
+GRAM_CHUNK = 2048       # K3: columns per block
+PLAIN_CHUNK = 8192      # plain versions: columns per step (bounds the
+                        # (C, C, chunk) compare tensor)
+SMEM_LIMIT = 232448     # bytes of shared memory a Hopper block may use
+GRAM_MAX_C = 64
+MODES = {"mean": 0, "trimmed": 1, "median": 2}
+
+
+def _cdiv(a, b):
+    return -(-a // b)
+
+
+def _check_cuda(x, *small):
+    if x.dtype != torch.float32:
+        raise TypeError(f"CUDA kernels take float32 updates, got {x.dtype}")
+    if not x.is_contiguous():
+        raise ValueError("CUDA kernels take a contiguous (G, C, N) matrix")
+    if x.dim() != 3 or x.shape[-1] >= 2 ** 31:
+        raise ValueError(f"CUDA kernels take (G, C, N < 2^31), got "
+                         f"{tuple(x.shape)}")
+    return [s.to(device=x.device, dtype=torch.float32).contiguous()
+            for s in small]
+
+
+def _launch(fn, *args):
+    rc = fn(*args, torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"{fn.__name__} failed: CUDA error {rc}")
+
+
+def _dispatch(x):
+    if x.device.type == "cuda":
+        return True
+    if x.device.type == "cpu":
+        return False
+    raise ValueError(f"no kernel for device {x.device}")
+
+
+# ---------------------------------------------------------------------------
+# plain versions (the CPU path, and the card's yardstick of correctness)
+# ---------------------------------------------------------------------------
+
+def _median_cols(x, m, n):
+    """Masked coordinate median of a fp32 (G, C, n_cols) block, as the TPU
+    kernel's ``_median_block``: rows ranked lo and hi, picked and summed."""
+    rank = stable_ranks(torch.where(m > 0, x, _BIG))
+    lo = torch.floor((n - 1.0) / 2.0)
+    hi = torch.ceil((n - 1.0) / 2.0)
+    pick_lo = (rank == lo).float() * m
+    pick_hi = (rank == hi).float() * m
+    return 0.5 * ((x * pick_lo).sum(1, keepdim=True)
+                  + (x * pick_hi).sum(1, keepdim=True))      # (G, 1, n)
+
+
+def cosine_gate_partials_plain(x, mask):
+    G, C, N = x.shape
+    m = mask.float()[:, :, None]
+    n = m.sum(1, keepdim=True)
+    dots = torch.zeros(G, C, device=x.device)
+    sqn = torch.zeros(G, C, device=x.device)
+    refsq = torch.zeros(G, 1, device=x.device)
+    for s in range(0, N, PLAIN_CHUNK):
+        xc = x[:, :, s:s + PLAIN_CHUNK].float()
+        med = _median_cols(xc, m, n)
+        dots += (xc * med).sum(-1)
+        sqn += (xc * xc).sum(-1)
+        refsq += (med * med).sum(-1)
+    return dots, sqn, refsq
+
+
+def gated_combine_plain(x, gated_mask, weights, *, mode, trim_frac=0.2):
+    G, C, N = x.shape
+    m = gated_mask.float()[:, :, None]
+    w = weights.float()[:, :, None]
+    n = m.sum(1, keepdim=True)
+    out = torch.empty(G, N, device=x.device)
+    for s in range(0, N, PLAIN_CHUNK):
+        xc = x[:, :, s:s + PLAIN_CHUNK].float()
+        if mode == "mean":
+            r = (xc * w).sum(1)
+        elif mode == "median":
+            r = _median_cols(xc, m, n)[:, 0]
+        elif mode == "trimmed":
+            rank = stable_ranks(torch.where(m > 0, xc, _BIG))
+            t = torch.floor(trim_frac * n)
+            keep = ((rank >= t) & (rank < n - t)).float() * m
+            r = (xc * keep).sum(1) / torch.clamp(n - 2.0 * t, min=1.0)[:, 0]
+        else:
+            raise ValueError(mode)
+        out[:, s:s + PLAIN_CHUNK] = r
+    return out
+
+
+def pairwise_gram_plain(x):
+    G, C, N = x.shape
+    gram = torch.zeros(G, C, C, device=x.device)
+    for s in range(0, N, PLAIN_CHUNK):
+        xc = x[:, :, s:s + PLAIN_CHUNK].float()
+        gram += xc @ xc.transpose(1, 2)
+    return gram
+
+
+# ---------------------------------------------------------------------------
+# kernel wrappers
+# ---------------------------------------------------------------------------
+
+def cosine_gate_partials(x, mask):
+    """K1.  x: (G, C, N), mask: (G, C) 0/1 -> (dots (G, C), sqnorms (G, C),
+    refsq (G, 1)): the per-client cosine partials against the masked
+    coordinate median, in one read of x.
+
+    Replaces ``repro/kernels/robust_pipeline.py:cosine_gate_partials_leafwise``.
+    Bound: bytes (one read of x; the C^2 compares per column stay under
+    it for C <= 64).  Design: one thread per column ranks its column from
+    a (C, 128) shared-memory tile; per-block row sums are written as
+    partials and summed in a fixed order by a second launch.
+    """
+    if not _dispatch(x):
+        return cosine_gate_partials_plain(x, mask)
+    (mask,) = _check_cuda(x, mask)
+    G, C, N = x.shape
+    if 4 * (C * COLS + COLS + C) > SMEM_LIMIT:
+        raise ValueError(f"C={C}: the (C, {COLS}) tile exceeds shared memory")
+    nblk = _cdiv(N, COLS)
+    part = torch.empty(G, nblk, 2 * C + 1, device=x.device)
+    out = torch.empty(G, 2 * C + 1, device=x.device)
+    lib = _build.load()
+    _launch(lib.rp_pass1, x.data_ptr(), mask.data_ptr(), part.data_ptr(),
+            out.data_ptr(), G, C, N, COLS)
+    cosine_gate_partials.launches += 1
+    return out[:, :C], out[:, C:2 * C], out[:, 2 * C:]
+
+
+def gated_combine(x, gated_mask, weights, *, mode, trim_frac=0.2):
+    """K2.  x: (G, C, N); gated_mask: (G, C); weights: (G, C), normalised,
+    read by ``mean`` only -> (G, N) fp32.  ``mode``: mean | trimmed |
+    median.
+
+    Replaces ``repro/kernels/robust_pipeline.py:gated_combine_leafwise``.
+    Bound: bytes (one read of x, one write of the row).  Design: the K1
+    tiling; ``mean`` skips the rank network; each thread writes its
+    column.  ``.launches`` counts by mode.
+    """
+    if mode not in MODES:
+        raise ValueError(mode)
+    if not _dispatch(x):
+        return gated_combine_plain(x, gated_mask, weights, mode=mode,
+                                   trim_frac=trim_frac)
+    gated_mask, weights = _check_cuda(x, gated_mask, weights)
+    G, C, N = x.shape
+    if 4 * (C * COLS + 2 * C) > SMEM_LIMIT:
+        raise ValueError(f"C={C}: the (C, {COLS}) tile exceeds shared memory")
+    out = torch.empty(G, N, device=x.device)
+    lib = _build.load()
+    _launch(lib.rp_combine, x.data_ptr(), gated_mask.data_ptr(),
+            weights.data_ptr(), out.data_ptr(), G, C, N, COLS, MODES[mode],
+            float(trim_frac))
+    gated_combine.launches[mode] += 1
+    return out
+
+
+def pairwise_gram(x):
+    """K3.  x: (G, C, N) -> the Gram matrix X X^T (G, C, C) in fp32 FMA
+    (not TF32).
+
+    Replaces ``repro/kernels/robust_pipeline.py:pairwise_sq_dists_leafwise``
+    (its Gram accumulation; the distances are formed in torch).  Bound:
+    bytes (one read of x; 2 C^2 flops per column).  Design: each block
+    accumulates its 2048-column chunk from a padded shared-memory stage,
+    partials summed in a fixed order by a second launch.
+    """
+    if not _dispatch(x):
+        return pairwise_gram_plain(x)
+    _check_cuda(x)
+    G, C, N = x.shape
+    if C > GRAM_MAX_C:
+        raise ValueError(f"C={C}: the Gram kernel takes C <= {GRAM_MAX_C}")
+    nsplit = _cdiv(N, GRAM_CHUNK)
+    part = torch.empty(G, nsplit, C * C, device=x.device)
+    out = torch.empty(G, C, C, device=x.device)
+    lib = _build.load()
+    _launch(lib.rp_gram, x.data_ptr(), part.data_ptr(), out.data_ptr(),
+            G, C, N, GRAM_CHUNK)
+    pairwise_gram.launches += 1
+    return out
+
+
+def reset_launch_counts():
+    cosine_gate_partials.launches = 0
+    gated_combine.launches = {m: 0 for m in MODES}
+    pairwise_gram.launches = 0
+
+
+def launch_counts():
+    """{kernel name: launches since the last reset}."""
+    out = {"cosine_gate_partials": cosine_gate_partials.launches,
+           "pairwise_gram": pairwise_gram.launches}
+    for m, n in gated_combine.launches.items():
+        out[f"gated_combine[{m}]"] = n
+    return out
+
+
+reset_launch_counts()
+
+
+# ---------------------------------------------------------------------------
+# the pipeline
+# ---------------------------------------------------------------------------
+
+def pairwise_sq_dists(x, mask):
+    """(G, C, C) squared distances from the K3 Gram; masked pairs pushed to
+    +_BIG (the contract of ``aggregation.pairwise_sq_dists``)."""
+    gram = pairwise_gram(x)
+    sqn = torch.diagonal(gram, dim1=1, dim2=2)
+    d = sqn[:, :, None] + sqn[:, None, :] - 2.0 * gram
+    big = _BIG * (1.0 - mask[:, :, None] * mask[:, None, :])
+    return torch.clamp(d, min=0.0) + big
+
+
+def _krum_weights(d, mask, f, multi_m):
+    """Krum selection weights from (G, C, C) distances (mirrors
+    ``aggregation.krum``): score = sum of the n-f-2 smallest distances,
+    the multi_m best averaged, winners only among masked-in clients."""
+    C = d.shape[1]
+    d = d + _BIG * torch.eye(C, device=d.device)[None]
+    n = mask.sum(1, keepdim=True)
+    closest = torch.sort(d, dim=2).values
+    j = torch.arange(C, dtype=torch.float32, device=d.device)[None, None, :]
+    take = torch.clamp(n - f - 2, min=1.0)[:, :, None]
+    scores = torch.where(j < take, closest, 0.0).sum(2)
+    scores = torch.where(mask > 0, scores,
+                         torch.full_like(scores, float("inf")))
+    pos = torch.argsort(torch.argsort(scores, dim=1, stable=True), dim=1,
+                        stable=True)
+    sel = (pos < multi_m).float() * (mask > 0)
+    return sel / torch.clamp(sel.sum(1, keepdim=True), min=1e-12)
+
+
+def _resolve_gate(dots, sqn, refsq, mask, cosine_thresh):
+    """Cosine outlier gate from the pass-1 partials; never gates everyone
+    out, and an incoming all-zero row passes through unchanged."""
+    cos = dots / torch.clamp(torch.sqrt(sqn * refsq), min=1e-12)
+    m = mask * ((cos >= cosine_thresh) & (mask > 0)).float()
+    return torch.where(m.sum(1, keepdim=True) > 0, m, mask)
+
+
+def fused_pipeline(x, weights, mask, *, aggregator="trimmed_mean",
+                   trim_frac=0.2, cosine_thresh=-0.5, krum_f=1):
+    """Full Eq.-11 pipeline over a cohort batch x (G, C, N) with weights
+    and mask (G, C) -> (G, N) fp32 aggregated rows."""
+    mask = mask.float()
+    dots, sqn, refsq = cosine_gate_partials(x, mask)
+    m = _resolve_gate(dots, sqn, refsq, mask, cosine_thresh)
+    if aggregator == "fedavg":
+        w = weights * m
+        w = w / torch.clamp(w.sum(1, keepdim=True), min=1e-12)
+        return gated_combine(x, m, w, mode="mean")
+    if aggregator == "trimmed_mean":
+        return gated_combine(x, m, m, mode="trimmed", trim_frac=trim_frac)
+    if aggregator == "median":
+        return gated_combine(x, m, m, mode="median")
+    if aggregator == "krum":
+        w = _krum_weights(pairwise_sq_dists(x, m), m, krum_f, 1)
+        return gated_combine(x, m, w, mode="mean")
+    raise ValueError(aggregator)
+
+
+def fused_aggregate_tree(updates, weights, mask, cfg):
+    """Single-cohort Eq.-11 aggregation of a tree of (C, ...) leaves; the
+    counterpart of ``aggregation.aggregate_ref``.  A one-leaf tree of a
+    contiguous (C, N) buffer streams in place; several leaves are
+    concatenated first.  Each output leaf is cast to its dtype once."""
+    flat = tree.flatten_rows(updates)
+    out = fused_pipeline(
+        flat[None], weights[None], mask[None],
+        aggregator=cfg.aggregator, trim_frac=cfg.trim_frac,
+        cosine_thresh=cfg.cosine_outlier_thresh, krum_f=cfg.krum_f)[0]
+    like = tree.map(lambda l: l[0], updates)
+    return tree.map(lambda o, l: o.to(l.dtype), tree.row_views(out, like),
+                    like)

@@ -1,0 +1,72 @@
+"""Nested dict/list parameter trees with JAX's flatten order.
+
+Parameters keep the JAX package's layout: plain nested dicts and lists of
+tensors.  ``leaves`` walks them in ``jax.tree_util`` order (dict keys
+sorted, lists in order), so leaf ``i`` here is leaf ``i`` there and
+interop is a plain copy.
+"""
+from __future__ import annotations
+
+from typing import Any, Callable, List
+
+import torch
+
+
+def leaves(tree) -> List[Any]:
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [x for t in tree for x in leaves(t)]
+    return [tree]
+
+
+def map(fn: Callable, tree, *rest):
+    """``fn`` over matching leaves of trees with the same structure."""
+    if isinstance(tree, dict):
+        return {k: map(fn, tree[k], *(r[k] for r in rest)) for k in tree}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(map(fn, t, *(r[i] for r in rest))
+                          for i, t in enumerate(tree))
+    return fn(tree, *rest)
+
+
+def unflatten(like, flat_leaves):
+    """Rebuild ``like``'s structure from leaves in ``leaves(like)`` order."""
+    it = iter(flat_leaves)
+
+    def build(t):
+        if isinstance(t, dict):
+            return {k: build(t[k]) for k in sorted(t)}
+        if isinstance(t, (list, tuple)):
+            return type(t)(build(x) for x in t)
+        return next(it)
+
+    out = build(like)
+    if next(it, None) is not None:
+        raise ValueError("more leaves than the tree holds")
+    return out
+
+
+def flatten_rows(tree) -> torch.Tensor:
+    """(C, N) matrix of a tree of (C, ...) leaves.  A one-leaf tree of a
+    contiguous matrix comes back as a view (the round's update buffer);
+    several leaves are concatenated."""
+    ls = leaves(tree)
+    c = ls[0].shape[0]
+    if len(ls) == 1:
+        return ls[0].reshape(c, -1)
+    return torch.cat([l.reshape(c, -1) for l in ls], dim=1)
+
+
+def row_views(flat: torch.Tensor, like):
+    """Per-leaf views of the rows of ``flat`` (..., N), shaped like the
+    leaves of ``like`` behind the leading axes: no copy."""
+    lead = flat.shape[:-1]
+    out, off = [], 0
+    for l in leaves(like):
+        n = l.numel()
+        out.append(flat[..., off:off + n].view(*lead, *l.shape))
+        off += n
+    if off != flat.shape[-1]:
+        raise ValueError(f"row width {flat.shape[-1]} != tree size {off}")
+    return unflatten(like, out)

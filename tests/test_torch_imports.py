@@ -1,0 +1,92 @@
+"""The port stands alone and runs on the card unless asked otherwise:
+no repro_torch module (nor chip_smoke.py) imports jax or anything of the
+JAX package, the entry points raise without CUDA, and chip_smoke.py
+prints no result and exits non-zero without CUDA or outside the repo."""
+import os
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+
+_PROBE = r"""
+import importlib, pkgutil, sys
+import repro_torch
+names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
+                                               "repro_torch.")]
+for name in names:
+    importlib.import_module(name)
+import chip_smoke
+chip_smoke.bound(1, 1); chip_smoke.kernel_work("pairwise_gram", 1, 2, 3)
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith("jax.") or m == "repro"
+             or m.startswith("repro."))
+print(len(names), bad)
+"""
+
+
+def _env():
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join([str(ROOT / "src"), str(ROOT)])
+    return env
+
+
+def test_port_imports_no_jax_and_no_repro():
+    out = subprocess.run([sys.executable, "-c", _PROBE], env=_env(),
+                         capture_output=True, text=True, timeout=120,
+                         check=True).stdout.split()
+    assert int(out[0]) >= 20, out            # every module was imported
+    assert out[1:] == ["[]"], out
+
+
+def test_entry_points_raise_without_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is available")
+    from repro_torch.configs.base import FedConfig
+    from repro_torch.configs.paper_models import MLP_CONFIG
+    from repro_torch.core import fedfits
+    from repro_torch.data.pipeline import build_federation
+    from repro_torch.models.model import build
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        fedfits.run(build(MLP_CONFIG), FedConfig(n_clients=2),
+                    lambda t, g: None, 1)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        build_federation(0, n=40, n_clients=2)
+
+
+def test_unported_options_raise():
+    from repro_torch.configs.base import FedConfig
+    from repro_torch.configs.paper_models import MLP_CONFIG
+    from repro_torch.core import fedfits
+    from repro_torch.models.model import build
+    model = build(MLP_CONFIG)
+    for kw in [dict(compress="int8"), dict(population=64),
+               dict(agg_blk=512)]:
+        with pytest.raises(NotImplementedError):
+            fedfits.make_round(model, FedConfig(**kw))
+    with pytest.raises(NotImplementedError):
+        fedfits.make_round(model, FedConfig(), faults=object())
+    with pytest.raises(NotImplementedError):
+        fedfits.run(model, FedConfig(), None, 1, device="cpu",
+                    telemetry=object())
+
+
+@pytest.mark.parametrize("alone", [False, True])
+def test_chip_smoke_fails_without_cuda_or_repo(alone, tmp_path):
+    if torch.cuda.is_available() and not alone:
+        pytest.skip("a CUDA device is available")
+    script = ROOT / "chip_smoke.py"
+    cwd = ROOT
+    if alone:
+        cwd = tmp_path
+        script = Path(shutil.copy(script, tmp_path / "chip_smoke.py"))
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    proc = subprocess.run([sys.executable, str(script)], cwd=cwd, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode != 0
+    assert '"ok"' not in proc.stdout

@@ -1,0 +1,163 @@
+"""The port's robust-aggregation kernels (repro_torch/kernels/) against the
+JAX package's Pallas kernels, run in interpret mode on the same numpy
+inputs.
+
+On the CPU each wrapper runs its plain PyTorch version; the CUDA kernels
+are held against those plain versions on the card
+(tests/test_torch_cuda.py and ``chip_smoke.py``).
+
+Tolerances: the median picks one or two entries, so it is compared
+bitwise; sum-based outputs (cosine partials, means, trimmed means, Gram
+distances) at rtol 1e-5 / atol 1e-6, because the two packages sum in
+different orders.  Ranks, gate masks and Krum winners are exact.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import robust_agg as jrobust_agg
+from repro.kernels import robust_pipeline as jrp
+from repro_torch.kernels import robust_agg, robust_pipeline as rp
+
+RTOL, ATOL = 1e-5, 1e-6
+SHAPES = [(c, n) for c in (1, 2, 5, 16) for n in (1000, 3001)]
+
+
+def _inputs(c, n, g=1, seed=0):
+    rng = np.random.default_rng(seed + 97 * c + n)
+    x = rng.standard_normal((g, c, n)).astype(np.float32)
+    mask = np.ones((g, c), np.float32)
+    if c > 2:
+        mask[:, 1] = 0.0                     # a masked-out client
+    w = rng.uniform(0.1, 1.0, (g, c)).astype(np.float32) * mask
+    w /= w.sum(axis=1, keepdims=True)
+    return x, mask, w
+
+
+def _jax_kw(c, n):
+    return dict(blk=jrp.auto_blk(c, (n,), backend="cpu"), interpret=True)
+
+
+def _t(a):
+    return torch.from_numpy(np.asarray(a))
+
+
+def test_stable_ranks_bitwise_with_ties():
+    rng = np.random.default_rng(1)
+    xm = rng.integers(0, 4, (7, 300)).astype(np.float32)   # many ties
+    xm[2] = 1e30                                           # masked row
+    ref = np.asarray(jrobust_agg.stable_ranks(jnp.asarray(xm), 7))
+    np.testing.assert_array_equal(robust_agg.stable_ranks(_t(xm)).numpy(),
+                                  ref)
+
+
+@pytest.mark.parametrize("c,n", SHAPES)
+def test_cosine_gate_partials_matches_pallas(c, n):
+    x, mask, _ = _inputs(c, n)
+    ref = jrp.cosine_gate_partials_leafwise(
+        [jnp.asarray(x)], jnp.asarray(mask), leaf_scale=jnp.ones((1,)),
+        **_jax_kw(c, n))
+    out = rp.cosine_gate_partials(_t(x), _t(mask))
+    for o, r in zip(out, ref):
+        np.testing.assert_allclose(o.numpy(), np.asarray(r), rtol=RTOL,
+                                   atol=ATOL)
+
+
+@pytest.mark.parametrize("mode", ["mean", "trimmed", "median"])
+@pytest.mark.parametrize("c,n", SHAPES)
+def test_gated_combine_matches_pallas(c, n, mode):
+    x, mask, w = _inputs(c, n)
+    weights = w if mode == "mean" else mask
+    (ref,) = jrp.gated_combine_leafwise(
+        [jnp.asarray(x)], jnp.asarray(mask), jnp.asarray(weights),
+        mode=mode, trim_frac=0.2, out_dtypes=[jnp.float32], **_jax_kw(c, n))
+    out = rp.gated_combine(_t(x), _t(mask), _t(weights), mode=mode,
+                           trim_frac=0.2).numpy()
+    if mode == "median":
+        np.testing.assert_array_equal(out, np.asarray(ref))
+    else:
+        np.testing.assert_allclose(out, np.asarray(ref), rtol=RTOL,
+                                   atol=ATOL)
+
+
+@pytest.mark.parametrize("c,n", SHAPES)
+def test_pairwise_sq_dists_matches_pallas(c, n):
+    x, mask, _ = _inputs(c, n, g=2)
+    ref = np.asarray(jrp.pairwise_sq_dists_leafwise(
+        [jnp.asarray(x)], jnp.asarray(mask), leaf_scale=jnp.ones((1,)),
+        **_jax_kw(c, n)))
+    out = rp.pairwise_sq_dists(_t(x), _t(mask)).numpy()
+    off = ~np.eye(c, dtype=bool)[None].repeat(2, 0)
+    np.testing.assert_allclose(out[off], ref[off], rtol=RTOL, atol=ATOL)
+    # the diagonal is exactly 0 here (norms are the Gram's diagonal), and
+    # rounding-level on the TPU side, where the norms are summed apart
+    diag = np.diagonal(out, axis1=1, axis2=2)
+    np.testing.assert_array_equal(diag,
+                                  np.where(mask > 0, 0.0, np.float32(1e30)))
+
+
+@pytest.mark.parametrize("c,n", [(5, 1000), (16, 3001)])
+def test_resolve_gate_exact(c, n):
+    x, mask, _ = _inputs(c, n)
+    x[0, 0] *= -1.0                          # one client points away
+    dots, sqn, refsq = rp.cosine_gate_partials(_t(x), _t(mask))
+    for thresh in (-0.5, 0.0, 0.3):
+        ref = jrp._resolve_gate(jnp.asarray(dots.numpy()),
+                                jnp.asarray(sqn.numpy()),
+                                jnp.asarray(refsq.numpy()),
+                                jnp.asarray(mask), thresh)
+        out = rp._resolve_gate(dots, sqn, refsq, _t(mask), thresh)
+        np.testing.assert_array_equal(out.numpy(), np.asarray(ref))
+    empty = np.zeros_like(mask)
+    np.testing.assert_array_equal(
+        rp._resolve_gate(dots, sqn, refsq, _t(empty), -0.5).numpy(), empty)
+
+
+@pytest.mark.parametrize("c", [1, 2, 5, 16])
+@pytest.mark.parametrize("case", ["partial", "empty", "lone"])
+def test_krum_weights_exact(c, case):
+    x, mask, _ = _inputs(c, 1000, g=2)
+    if case == "empty":
+        mask[:] = 0.0
+    elif case == "lone":
+        mask[:] = 0.0
+        mask[:, c // 2] = 1.0
+    d = rp.pairwise_sq_dists(_t(x), _t(mask))
+    for f in (0, 1):
+        ref = jrp._krum_weights(jnp.asarray(d.numpy()), jnp.asarray(mask),
+                                f, 1)
+        out = rp._krum_weights(d, _t(mask), f, 1)
+        np.testing.assert_array_equal(out.numpy(), np.asarray(ref))
+
+
+@pytest.mark.parametrize("mode", ["mean", "trimmed", "median"])
+def test_empty_and_lone_cohorts(mode):
+    """G=3 cohorts: full, empty (zero row) and one member (its row)."""
+    x, _, _ = _inputs(5, 1000, g=3)
+    mask = np.ones((3, 5), np.float32)
+    mask[1] = 0.0
+    mask[2] = 0.0
+    mask[2, 3] = 1.0
+    w = mask / np.maximum(mask.sum(1, keepdims=True), 1.0)
+    (ref,) = jrp.gated_combine_leafwise(
+        [jnp.asarray(x)], jnp.asarray(mask), jnp.asarray(w), mode=mode,
+        out_dtypes=[jnp.float32], **_jax_kw(5, 1000))
+    out = rp.gated_combine(_t(x), _t(mask), _t(w), mode=mode).numpy()
+    np.testing.assert_allclose(out, np.asarray(ref), rtol=RTOL, atol=ATOL)
+    assert np.all(out[1] == 0.0)
+    np.testing.assert_allclose(out[2], x[2, 3], rtol=RTOL, atol=ATOL)
+
+
+def test_wrappers_count_only_kernel_launches():
+    """On a CPU tensor the plain version runs and no launch is counted."""
+    rp.reset_launch_counts()
+    x, mask, w = _inputs(5, 1000)
+    rp.fused_pipeline(_t(x), _t(w), _t(mask), aggregator="krum")
+    assert set(rp.launch_counts().values()) == {0}
+
+
+def test_wrappers_refuse_other_devices():
+    x = torch.zeros(1, 2, 8, device="meta")
+    with pytest.raises(ValueError):
+        rp.cosine_gate_partials(x, torch.ones(1, 2, device="meta"))
