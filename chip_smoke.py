@@ -9,12 +9,25 @@ Phases, one line each (a failure raises, so the exit code is not 0):
   2. kernels  each kernel against its plain PyTorch version on the card,
               at the main path's shape (G=1, C=16, N=421,642) and at
               (G=2, C=64, N=65,573) with ragged N, an empty cohort and a
-              one-member cohort; times by CUDA events.
+              one-member cohort.  The fused-dequant kernels K6a-c read
+              int8 codes made by the port's own codec, over paper-cnn's 8
+              leaves (and 4 ragged leaves at the wide shape); they are also
+              held bitwise against K1-K3 on the masked decode, and a
+              masked-out client whose scale is inf must leave the outputs
+              finite.  Times by CUDA events.
   3. round    the port's main path: the full-width paper-cnn FedFiTS round
               through ``fedfits.run``, 10 rounds under fedavg, then 2 each
               under trimmed_mean, median and krum; every kernel must have
               launched; round 1 is run again through the CPU port and must
               give the same team and the same params.
+  4. compressed round
+              the same round with ``compress="int8"`` and error feedback:
+              4 rounds under fedavg, then 2 each under trimmed_mean, median
+              and krum, through K6a-c (each must have launched); it must
+              bill 434,830 B per client-round and the dense path's
+              client-rounds; round 1 again on the CPU must give the same
+              team and params within one quantisation step.  Then one
+              trimmed_mean round each of int4, signsgd, topk and randk.
 The last three lines are the nvidia-smi line, the kernels JSON and the
 result JSON.  Without a CUDA device, or without the repository's
 src/repro_torch beside this file, it exits non-zero and prints no result.
@@ -48,13 +61,24 @@ ROUND1_ATOL = 1e-5
 TIMED_CALLS = 20
 SLICE_SHAPE = (1, 16, 421_642)
 WIDE_SHAPE = (2, 64, 65_573)
+QBLK = 128
+# paper-cnn's wire record under int8: 421,642 codes + 3,297 fp32 scales
+INT8_BYTES_PER_CLIENT = 434_830
+WIDE_LEAVES = (1000, 33, 64_000, 540)          # ragged leaves of WIDE_SHAPE
 TPU_KERNELS = {   # name -> (file:line of the Pallas kernel it replaces)
     "cosine_gate_partials":
         "src/repro/kernels/robust_pipeline.py:280",
     "gated_combine": "src/repro/kernels/robust_pipeline.py:398",
     "pairwise_gram": "src/repro/kernels/robust_pipeline.py:494",
+    "dequant_gate_partials": "src/repro/comm/kernels/comm_codecs.py:125",
+    "dequant_gated_combine": "src/repro/comm/kernels/comm_codecs.py:188",
+    "dequant_pairwise_gram": "src/repro/comm/kernels/comm_codecs.py:248",
 }
+DEQUANT_OF = {"dequant_gate_partials": "cosine_gate_partials",
+              "dequant_gated_combine": "gated_combine",
+              "dequant_pairwise_gram": "pairwise_gram"}
 CUDA_SOURCE = "src/repro_torch/csrc/robust_pipeline.cu"
+CUDA_SOURCE_K6 = "src/repro_torch/csrc/comm_codecs.cu"
 
 
 def bound(bytes_moved, ops):
@@ -65,18 +89,26 @@ def bound(bytes_moved, ops):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def kernel_work(name, g, c, n, mode=None):
+def kernel_work(name, g, c, n, mode=None, nq=0, n_leaves=0):
     """Bytes each kernel must move (inputs read once, outputs written once)
     and the operations it does: C^2 compares per column for the rank
-    network, 2 flops per multiply-add."""
-    x = 4 * g * c * n
+    network, 2 flops per multiply-add.  A fused-dequant kernel reads one
+    byte a code, the (G, C, nq) fp32 scales, its mask and the leaf table
+    in place of the fp32 matrix, and adds one multiply a code."""
+    x, deq = 4 * g * c * n, 0
+    if name in DEQUANT_OF:
+        name = DEQUANT_OF[name]
+        x = g * c * n + 4 * g * c * nq + 4 * (2 * n_leaves + 2)
+        deq = g * c * n
+        if name == "pairwise_gram":
+            x += 4 * g * c                         # the mask
     if name == "cosine_gate_partials":
         return x + 4 * g * c + 4 * g * (2 * c + 1), \
-            g * n * (c * c + 4 * c + 2)
+            g * n * (c * c + 4 * c + 2) + deq
     if name == "pairwise_gram":
-        return x + 4 * g * c * c, 2 * g * c * c * n
+        return x + 4 * g * c * c, 2 * g * c * c * n + deq
     ops = 2 * g * c * n if mode == "mean" else g * n * (c * c + 2 * c)
-    return x + 8 * g * c + 4 * g * n, ops
+    return x + 8 * g * c + 4 * g * n, ops + deq
 
 
 def time_ms(fn):
@@ -151,10 +183,91 @@ def _inputs(shape, seed, masks):
     return x.cuda(), mask.cuda(), w.cuda()
 
 
-def _kernels():
-    """Phase 2: every kernel against its plain version; returns the report
-    entries (times at the main path's shape)."""
+def _bitwise(name, out, ref):
+    """Bitwise equality, NaN equal to NaN."""
     import torch
+    same = (out.view(torch.int32) == ref.view(torch.int32)) \
+        | (out.isnan() & ref.isnan())
+    if not bool(same.all()):
+        raise AssertionError(f"{name}: not bitwise equal to K1-K3 on the "
+                             "masked decode")
+
+
+def _encode(x, sizes):
+    """int8 codes (G, C, N) and scales (G, C, NQ) of x by the port's own
+    codec, over leaves of the given sizes."""
+    from repro_torch.comm import codecs
+    g, c, n = x.shape
+    layout = codecs.WireLayout(sizes, QBLK)
+    enc = codecs.Codec("int8", qblk=QBLK).encode_flat(x.reshape(g * c, n),
+                                                      layout)
+    return enc.q.view(g, c, n), enc.s.view(g, c, -1), layout
+
+
+def _dequant_checks(label, x, m, w, sizes, errs):
+    """K6a-c against their plain versions, and bitwise against K1-K3 on
+    the masked decode where(m, q * s, 0)."""
+    from repro_torch.comm.kernels import comm_codecs as cc
+    from repro_torch.kernels import robust_pipeline as rp
+    q, s, layout = _encode(x, sizes)
+    xm = cc.dequant_masked(q, s, layout, m)
+
+    def note(key, e):
+        errs[key] = max(errs.get(key, 0.0), e)
+
+    outs = cc.dequant_gate_partials(q, s, layout, m)
+    plain = cc.dequant_gate_partials_plain(q, s, layout, m)
+    for part, o, p, d in zip(("dots", "sqnorms", "refsq"), outs, plain,
+                             rp.cosine_gate_partials(xm, m)):
+        key = "dequant_gate_partials"
+        note(key, _check(f"{key}/{part} {label}", o, p, rel=NSUM_REL))
+        _bitwise(f"{key}/{part} {label}", o, d)
+    for mode in rp.MODES:
+        key = f"dequant_gated_combine[{mode}]"
+        o = cc.dequant_gated_combine(q, s, layout, m, w, mode=mode)
+        p = cc.dequant_gated_combine_plain(q, s, layout, m, w, mode=mode)
+        note(key, _check(f"{key} {label}", o, p, exact=mode == "median"))
+        _bitwise(f"{key} {label}", o, rp.gated_combine(xm, m, w, mode=mode))
+    key = "dequant_pairwise_gram"
+    o = cc.dequant_pairwise_gram(q, s, layout, m)
+    note(key, _check(f"{key} {label}", o,
+                     cc.dequant_pairwise_gram_plain(q, s, layout, m),
+                     rel=NSUM_REL))
+    _bitwise(f"{key} {label}", o, rp.pairwise_gram(xm))
+
+
+def _inf_scale_check(masks):
+    """A masked-out client whose scales are inf (a non-finite update): the
+    partials of the masked-in rows, refsq, every combine, Krum's masked-in
+    distances and the four aggregates stay finite."""
+    import torch
+    from repro_torch.comm.kernels import comm_codecs as cc
+    from repro_torch.kernels import robust_pipeline as rp
+    x, m, w = _inputs(WIDE_SHAPE, 7, masks)
+    q, s, layout = _encode(x, WIDE_LEAVES)
+    out = m == 0
+    s[out] = float("inf")
+    keep = m > 0
+    dots, sqn, refsq = cc.dequant_gate_partials(q, s, layout, m)
+    vals = [dots[keep], sqn[keep], refsq]
+    vals += [cc.dequant_gated_combine(q, s, layout, m, w, mode=mode)
+             for mode in rp.MODES]
+    d = rp.sq_dists_from_gram(cc.dequant_pairwise_gram(q, s, layout, m), m)
+    vals.append(d[keep[:, :, None] & keep[:, None, :]])
+    vals += [cc.fused_dequant_pipeline(q, s, layout, w, m, aggregator=a)
+             for a in ("fedavg", "trimmed_mean", "median", "krum")]
+    if not all(bool(torch.isfinite(v).all()) for v in vals):
+        raise AssertionError("a masked-out client with inf scales made a "
+                             "fused-dequant output non-finite")
+    print(f"[kernels] {WIDE_SHAPE} inf scales on {int(out.sum())} masked-out "
+          "rows: partials, combines, Krum distances and aggregates finite")
+
+
+def _kernels(cnn_sizes):
+    """Phase 2: every kernel against its plain version (K6 also against
+    K1-K3); returns the report entries (times at the main path's shape)."""
+    import torch
+    from repro_torch.comm.kernels import comm_codecs as cc
     from repro_torch.kernels import robust_pipeline as rp
 
     g, c, n = WIDE_SHAPE
@@ -189,12 +302,17 @@ def _kernels():
         e = _check(f"pairwise_gram {shape}", rp.pairwise_gram(x),
                    rp.pairwise_gram_plain(x), rel=NSUM_REL)
         errs["pairwise_gram"] = max(errs.get("pairwise_gram", 0.0), e)
+        sizes = cnn_sizes if shape == SLICE_SHAPE else WIDE_LEAVES
+        _dequant_checks(str(shape), x, m, w, sizes, errs)
         torch.cuda.synchronize()
         print(f"[kernels] {shape} masks={[int(sum(r)) for r in masks]}: "
-              "all kernels agree with their plain versions")
+              "all kernels agree with their plain versions; K6a-c on "
+              f"{len(sizes)} leaves are bitwise K1-K3 on the masked decode")
+    _inf_scale_check([normal, normal])
 
     g, c, n = SLICE_SHAPE
     x, m, w = _inputs(SLICE_SHAPE, 0, [[1.0] * c])
+    q, s, layout = _encode(x, cnn_sizes)
     calls = {
         "cosine_gate_partials": (
             lambda: rp.cosine_gate_partials(x, m),
@@ -213,13 +331,28 @@ def _kernels():
             lambda: rp.pairwise_gram(x),
             lambda: rp.pairwise_gram_plain(x),
             lambda: torch.bmm(x, x.transpose(1, 2))),
+        "dequant_gate_partials": (
+            lambda: cc.dequant_gate_partials(q, s, layout, m),
+            lambda: cc.dequant_gate_partials_plain(q, s, layout, m), None),
+        "dequant_pairwise_gram": (
+            lambda: cc.dequant_pairwise_gram(q, s, layout, m),
+            lambda: cc.dequant_pairwise_gram_plain(q, s, layout, m), None),
     }
+    for mode, wm in (("mean", w), ("trimmed", m), ("median", m)):
+        calls[f"dequant_gated_combine[{mode}]"] = (
+            lambda mode=mode, wm=wm: cc.dequant_gated_combine(
+                q, s, layout, m, wm, mode=mode),
+            lambda mode=mode, wm=wm: cc.dequant_gated_combine_plain(
+                q, s, layout, m, wm, mode=mode), None)
     report = []
     for name, (kern, plain, lib) in calls.items():
         base, _, mode = name.partition("[")
-        b, ops = kernel_work(base, g, c, n, mode.rstrip("]") or None)
+        b, ops = kernel_work(base, g, c, n, mode.rstrip("]") or None,
+                             nq=layout.n_scales, n_leaves=len(cnn_sizes))
         bound_ms, bound_by = bound(b, ops)
-        entry = {"name": name, "route": "cuda", "source": CUDA_SOURCE,
+        entry = {"name": name, "route": "cuda",
+                 "source": CUDA_SOURCE_K6 if base in DEQUANT_OF
+                 else CUDA_SOURCE,
                  "replaces": TPU_KERNELS[base], "launches": None,
                  "max_abs_err": errs[name], "ms": time_ms(kern),
                  "plain_ms": time_ms(plain), "bound_ms": bound_ms,
@@ -232,27 +365,20 @@ def _kernels():
     return report
 
 
-def _round():
-    """Phase 3: the port's main path; returns the launch counts."""
-    import numpy as np
+def _fed_cfg(aggregator, **kw):
+    from repro_torch.configs.base import FedConfig
+    return FedConfig(n_clients=16, algorithm="fedfits", local_epochs=2,
+                     local_lr=0.05, msl=4, pft=2, aggregator=aggregator, **kw)
+
+
+def _drive(label, model, fed, evaluate, schedule, make_cfg, cap):
+    """Runs ``schedule`` [(aggregator, rounds)] through ``fedfits.run`` from
+    seed 0; the first run keeps round 1's init, batch and params in
+    ``cap``.  Returns {aggregator: (state, history)}."""
     import torch
     from repro_torch import tree
-    from repro_torch.configs.base import FedConfig
-    from repro_torch.configs.paper_models import CNN_CONFIG
     from repro_torch.core import fedfits
-    from repro_torch.data.pipeline import build_federation
-    from repro_torch.kernels import robust_pipeline as rp
-    from repro_torch.models.model import build
 
-    model = build(CNN_CONFIG)
-    fed, test = build_federation(0, kind="images", n=4000, n_clients=16,
-                                 batch_size=32)
-
-    def evaluate(params):
-        _, met = model.loss(params, test)
-        return {"test_acc": met["acc"]}
-
-    cap = {}
     clone = lambda p: tree.map(lambda t: t.detach().clone(), p)
 
     def init(gen):
@@ -268,56 +394,149 @@ def _round():
         cap.setdefault("params1", clone(params))
         return evaluate(params)
 
-    cfg = lambda agg: FedConfig(n_clients=16, algorithm="fedfits",
-                                local_epochs=2, local_lr=0.05, msl=4,
-                                pft=2, aggregator=agg)
-    rp.reset_launch_counts()
-    first = None
-    for agg, rounds in [("fedavg", 10), ("trimmed_mean", 2), ("median", 2),
-                        ("krum", 2)]:
-        if agg == "fedavg":
+    runs = {}
+    for i, (agg, rounds) in enumerate(schedule):
+        if i == 0:
             state, hist = fedfits.run(
-                dataclasses.replace(model, init=init), cfg(agg), data_fn,
+                dataclasses.replace(model, init=init), make_cfg(agg), data_fn,
                 rounds, 0, eval_fn=eval_first)
-            first = hist
         else:
-            state, hist = fedfits.run(model, cfg(agg), fed.data_fn, rounds,
-                                      0, eval_fn=evaluate)
+            state, hist = fedfits.run(model, make_cfg(agg), fed.data_fn,
+                                      rounds, 0, eval_fn=evaluate)
         for h in hist:
             team = "".join("#" if v else "." for v in h["team"])
-            print(f"[round] {agg:<12} {h['round']:>2} team[{team}] "
+            print(f"[{label}] {agg:<12} {h['round']:>2} team[{team}] "
                   f"alpha={float(h['alpha']):.3f} "
                   f"test_acc={float(h['test_acc']):.4f} "
                   f"wall_ms={h['wall_ms']:.2f}")
         if not all(bool(torch.isfinite(l).all())
                    for l in tree.leaves(state.params)):
-            raise AssertionError(f"{agg}: non-finite params")
+            raise AssertionError(f"{label} {agg}: non-finite params")
+        runs[agg] = (state, hist)
     torch.cuda.synchronize()
-    counts = rp.launch_counts()
-    print(f"[round] launches {json.dumps(counts)}")
+    return runs
+
+
+def _round1_on_cpu(label, model, cfg, cap, first_row, atol):
+    """Round 1 again through the CPU port from the same params and batch:
+    the same team, params within ``atol``."""
+    import numpy as np
+    import torch
+    from repro_torch import tree
+    from repro_torch.core import fedfits
+    cpu = lambda p: tree.map(lambda t: t.cpu(), p)
+    state = fedfits.init_state(cpu(cap["init"]), 16, cfg,
+                               torch.Generator().manual_seed(1))
+    state, met = fedfits.make_round(model, cfg)(state, cpu(cap["batch"]))
+    if not np.array_equal(met["team"].numpy(), first_row["team"]):
+        raise AssertionError(f"{label} round 1: CPU and card teams differ")
+    diff = max(float((a - b.cpu()).abs().max()) for a, b in zip(
+        tree.leaves(state.params), tree.leaves(cap["params1"])))
+    print(f"[{label}] round 1 on the CPU port: same team, params max abs diff "
+          f"{diff:.3e} (atol {atol:.3e})")
+    if diff > atol:
+        raise AssertionError(f"{label} round 1: CPU and card params differ")
+
+
+def _launched(label, counts):
+    print(f"[{label}] launches {json.dumps(counts)}")
     missing = [k for k, v in counts.items() if v == 0]
     if missing:
-        raise AssertionError(f"kernels not launched on the main path: "
+        raise AssertionError(f"kernels not launched on the {label} path: "
                              f"{missing}")
+
+
+def _round(model, fed, evaluate):
+    """Phase 3: the port's main path; returns the launch counts and the
+    fedavg history."""
+    from repro_torch.kernels import robust_pipeline as rp
+
+    cap = {}
+    rp.reset_launch_counts()
+    runs = _drive("round", model, fed, evaluate,
+                  [("fedavg", 10), ("trimmed_mean", 2), ("median", 2),
+                   ("krum", 2)], _fed_cfg, cap)
+    counts = rp.launch_counts()
+    _launched("round", counts)
+    first = runs["fedavg"][1]
     acc0, acc_end = float(first[0]["test_acc"]), float(first[-1]["test_acc"])
     if not acc_end > acc0:
         raise AssertionError(f"fedavg test_acc did not improve: {acc0} -> "
                              f"{acc_end}")
+    _round1_on_cpu("round", model, _fed_cfg("fedavg"), cap, first[0],
+                   ROUND1_ATOL)
+    return counts, first
 
-    # round 1 again through the CPU port, same params and batch
+
+def _billed(hist, k):
+    """Client-rounds a history bills: every client in a round that
+    reselects (h), the team otherwise."""
+    total, h = 0.0, True
+    for row in hist:
+        total += k if h else float(row["team"].sum())
+        h = bool(row["h_next"])
+    return total
+
+
+def _int8_step(model, cfg, cap):
+    """One quantisation step of round 1: its largest int8 scale, the
+    largest |w_k - w| over 127 (the EF residual is still 0)."""
+    from repro_torch import tree
+    from repro_torch.core import fedfits
     cpu = lambda p: tree.map(lambda t: t.cpu(), p)
-    state = fedfits.init_state(cpu(cap["init"]), 16, cfg("fedavg"),
-                               torch.Generator().manual_seed(1))
-    state, met = fedfits.make_round(model, cfg("fedavg"))(
-        state, cpu(cap["batch"]))
-    if not np.array_equal(met["team"].numpy(), first[0]["team"]):
-        raise AssertionError("round 1: CPU and card teams differ")
-    diff = max(float((a - b.cpu()).abs().max()) for a, b in zip(
-        tree.leaves(state.params), tree.leaves(cap["params1"])))
-    print(f"[round] round 1 on the CPU port: same team, params max abs diff "
-          f"{diff:.3e} (atol {ROUND1_ATOL})")
-    if diff > ROUND1_ATOL:
-        raise AssertionError("round 1: CPU and card params differ")
+    params = cpu(cap["init"])
+    local, _ = fedfits.make_client_update(model, cfg)(params,
+                                                      cpu(cap["batch"]))
+    return max(float((a - b).abs().max()) for a, b in zip(
+        tree.leaves(local), tree.leaves(params))) / 127.0
+
+
+def _compressed_round(model, fed, evaluate, dense_fedavg):
+    """Phase 4: the compressed uplink on the card; returns K6's launch
+    counts."""
+    from repro_torch.comm.kernels import comm_codecs as cc
+    from repro_torch.kernels import robust_pipeline as rp
+
+    make_cfg = lambda agg, comp="int8": _fed_cfg(agg, compress=comp,
+                                                 error_feedback=True)
+    cap = {}
+    rp.reset_launch_counts()
+    cc.reset_launch_counts()
+    runs = _drive("int8", model, fed, evaluate,
+                  [("fedavg", 4), ("trimmed_mean", 2), ("median", 2),
+                   ("krum", 2)], make_cfg, cap)
+    counts = cc.launch_counts()
+    _launched("int8", counts)
+    state, hist = runs["fedavg"]
+    acc0, acc4 = float(hist[0]["test_acc"]), float(hist[3]["test_acc"])
+    if not acc4 > acc0:
+        raise AssertionError(f"int8 fedavg test_acc did not improve: {acc0} "
+                             f"-> {acc4}")
+    rounds = float(state.cost_client_rounds)
+    per = float(state.cost_bytes_up) / rounds
+    dense = _billed(dense_fedavg[:4], 16)
+    print(f"[int8] fedavg 4 rounds: {rounds:.0f} client-rounds (dense path "
+          f"{dense:.0f}), {per:.1f} B up per client-round")
+    if per != INT8_BYTES_PER_CLIENT:
+        raise AssertionError(f"int8 bills {per} B per client-round, not "
+                             f"{INT8_BYTES_PER_CLIENT}")
+    if rounds != dense:
+        raise AssertionError(f"int8 bills {rounds} client-rounds, the dense "
+                             f"path {dense}")
+    step = _int8_step(model, make_cfg("fedavg"), cap)
+    _round1_on_cpu("int8", model, make_cfg("fedavg"), cap, hist[0],
+                   step + ROUND1_ATOL)
+
+    rp.reset_launch_counts()
+    for comp in ("int4", "signsgd", "topk", "randk"):
+        runs = _drive(comp, model, fed, evaluate, [("trimmed_mean", 1)],
+                      lambda agg: make_cfg(agg, comp), {})
+        state, _ = runs["trimmed_mean"]
+        per = float(state.cost_bytes_up) / float(state.cost_client_rounds)
+        print(f"[{comp}] {per:.1f} B up per client-round")
+    _launched("other codecs", {k: v for k, v in rp.launch_counts().items()
+                               if k in ("cosine_gate_partials",
+                                        "gated_combine[trimmed]")})
     return counts
 
 
@@ -327,9 +546,24 @@ def main():
     if not torch.cuda.is_available():
         print("chip_smoke.py: no CUDA device", file=sys.stderr)
         return 1
+    from repro_torch import tree
+    from repro_torch.configs.paper_models import CNN_CONFIG
+    from repro_torch.data.pipeline import build_federation
+    from repro_torch.models.model import build
+
     smi = _card()
-    report = _kernels()
-    counts = _round()
+    model = build(CNN_CONFIG)
+    cnn_sizes = [p.numel() for p in tree.leaves(model.init(torch.Generator()))]
+    report = _kernels(cnn_sizes)
+    fed, test = build_federation(0, kind="images", n=4000, n_clients=16,
+                                 batch_size=32)
+
+    def evaluate(params):
+        _, met = model.loss(params, test)
+        return {"test_acc": met["acc"]}
+
+    counts, dense_fedavg = _round(model, fed, evaluate)
+    counts.update(_compressed_round(model, fed, evaluate, dense_fedavg))
     for entry in report:
         entry["launches"] = counts[entry["name"]]
     print(smi)

@@ -18,8 +18,15 @@ and explore terms when their probabilities are > 0, FedRand, FedPow), so
 with ``participation_floor = explore_eps = 0`` and ``avail_prob = 1`` a
 round is a deterministic function of (state, batch), as in JAX.
 
+Transport: with ``FedConfig.compress`` the (K, N) update buffer crosses the
+client->server boundary encoded (``comm/codecs.py``; EF residuals in the
+client store), the guard and a decode-then-aggregate server read its
+decode, the int8 path aggregates straight from the codes through the
+fused-dequant kernels (``comm/kernels/comm_codecs.py``), and
+``cost_bytes_up`` bills the measured wire bytes.
+
 Not in this slice (``make_round``/``run`` raise ``NotImplementedError``):
-compressed uplink, population-scale async, attacks, faults, telemetry.
+population-scale async, attacks, faults, telemetry.
 """
 from __future__ import annotations
 
@@ -31,7 +38,8 @@ from torch.func import grad, vmap
 from torch.profiler import record_function
 
 from repro_torch import device as device_mod, tree
-from repro_torch.comm import codecs
+from repro_torch.comm import codecs, error_feedback
+from repro_torch.comm.kernels import comm_codecs as dq
 from repro_torch.core import aggregation, clientstore, fairness, fitness, \
     selection, slots
 
@@ -63,6 +71,13 @@ class FedState(NamedTuple):
     def cum_selected(self):
         return self.clients.cum_selected
 
+    @property
+    def ef(self):
+        """Per-leaf (K, ...) views of the EF residual buffer, or None."""
+        if self.clients.ef is None:
+            return None
+        return tree.row_views(self.clients.ef, self.params)
+
 
 def init_state(params, n_clients, fed_cfg, rng: torch.Generator):
     dev = tree.leaves(params)[0].device
@@ -78,7 +93,8 @@ def init_state(params, n_clients, fed_cfg, rng: torch.Generator):
         cost_client_rounds=zero(),
         cost_bytes_up=zero(),
         cost_bytes_down=zero(),
-        clients=clientstore.init_store(n_clients, device=dev),
+        clients=clientstore.init_store(n_clients, params=params,
+                                       fed_cfg=fed_cfg, device=dev),
     )
 
 
@@ -119,10 +135,6 @@ def make_client_update(model, fed_cfg):
 
 def _check_supported(fed_cfg, *, data_attack, update_attack, malicious,
                      faults):
-    if fed_cfg.compress != "none":
-        raise NotImplementedError(
-            f"compress={fed_cfg.compress!r}: the compressed uplink comes "
-            "with ROADMAP queue 1 item 9")
     if fed_cfg.population > 0:
         raise NotImplementedError(
             "population > 0: the population-scale async engine comes with "
@@ -149,6 +161,9 @@ def make_round(model, fed_cfg, *, data_attack=None, update_attack=None,
     client_update = make_client_update(model, fed_cfg)
     K = fed_cfg.n_clients
     decay = fed_cfg.trust_decay
+    codec = codecs.make_codec(fed_cfg)
+    fuse = dq.should_fuse(codec, fed_cfg)
+    layouts = {}                # leaf sizes -> codecs.WireLayout
 
     def select(state, scores, gl, avail, n, t):
         rng = state.rng
@@ -191,7 +206,23 @@ def make_round(model, fed_cfg, *, data_attack=None, update_attack=None,
             for v, w_k, w in zip(tree.leaves(views), tree.leaves(locals_),
                                  tree.leaves(params)):
                 torch.sub(w_k, w, out=v)
-        bytes_up_pc = codecs.dense_bytes_per_client(views)
+
+        # ---- client->server transport: EF inject, encode, decode --------
+        # the codec runs client-side; the guard and a decode-then-aggregate
+        # server read the decode, the fused-dequant server the wire codes
+        enc, new_ef = None, state.clients.ef
+        if codec is not None:
+            sizes = tuple(p.numel() for p in tree.leaves(params))
+            if sizes not in layouts:
+                layouts[sizes] = codec.layout(sizes)
+            layout = layouts[sizes]
+            with record_function("transport"):
+                enc, flat, new_ef = error_feedback.compress(
+                    codec, flat, layout, state.clients.ef,
+                    gen=state.rng if codec.stochastic else None)
+            bytes_up_pc = codecs.wire_bytes_per_client(enc)
+        else:
+            bytes_up_pc = codecs.dense_bytes_per_client(views)
         bytes_down_pc = codecs.param_bytes(params)
 
         # ---- fitness ----------------------------------------------------
@@ -234,8 +265,14 @@ def make_round(model, fed_cfg, *, data_attack=None, update_attack=None,
                 agg_flat = (w / torch.clamp(w.sum(), min=1e-12)) @ flat
             else:
                 weights = n_k * state.trust * (delivered + stale)
-                agg_flat = aggregation.aggregate(
-                    {"u": flat}, weights, (part > 0).float(), fed_cfg)["u"]
+                part_mask = (part > 0).float()
+                if fuse:
+                    agg_flat = dq.fused_dequant_aggregate_tree(
+                        enc, layout, weights, part_mask, fed_cfg,
+                        like={"u": flat[0]})["u"]
+                else:
+                    agg_flat = aggregation.aggregate(
+                        {"u": flat}, weights, part_mask, fed_cfg)["u"]
         with record_function("writeback"):
             new_params = tree.map(lambda p, u: p + u.to(p.dtype), params,
                                   tree.row_views(agg_flat, params))
@@ -268,7 +305,8 @@ def make_round(model, fed_cfg, *, data_attack=None, update_attack=None,
             staleness=torch.where(part > 0, torch.zeros_like(cs.staleness),
                                   cs.staleness + 1),
             failures=cs.failures + rejected,
-            cum_selected=cs.cum_selected + team)
+            cum_selected=cs.cum_selected + team,
+            ef=new_ef)
         new_state = FedState(
             params=new_params, team=team, alpha=alpha, slot=new_slot,
             h=h_next, rng=state.rng, round=t + 1,

@@ -1,10 +1,12 @@
-"""Conversion of parameter trees between the JAX package and the port.
+"""Conversion of state between the JAX package and the port.
 
 Both packages keep the same layout (NHWC/HWIO/(in, out)) and the same
-nested dict/list structure, so each direction is a plain copy leaf by
-leaf, in JAX's flatten order (dict keys sorted).  The port never imports
-jax: the caller turns JAX arrays into numpy first, e.g.
-``jax.tree_util.tree_map(np.asarray, params)``.
+nested dict/list structure, so params are a plain copy leaf by leaf, in
+JAX's flatten order (dict keys sorted).  Per-client state that the port
+keeps as one (K, N) buffer in the round's column order (EF residuals) and
+wire records (``comm/codecs.py``) are the JAX per-leaf arrays concatenated
+along the column axis.  The port never imports jax: the caller turns JAX
+arrays into numpy first, e.g. ``jax.tree_util.tree_map(np.asarray, t)``.
 """
 from __future__ import annotations
 
@@ -12,6 +14,10 @@ import numpy as np
 import torch
 
 from repro_torch import tree
+from repro_torch.comm import codecs
+
+_RECORDS = {("q", "s"): codecs.QuantLeaf, ("bits", "s"): codecs.SignLeaf,
+            ("idx", "val"): codecs.SparseLeaf}
 
 
 def params_from_numpy(np_tree, device="cpu"):
@@ -23,3 +29,25 @@ def params_from_numpy(np_tree, device="cpu"):
 def params_to_numpy(params):
     """tensor tree -> numpy tree (copies, on the host)."""
     return tree.map(lambda t: t.detach().cpu().numpy().copy(), params)
+
+
+def rows_from_numpy(np_tree, device="cpu"):
+    """A tree of (K, ...) arrays (e.g. JAX's EF residuals) -> the port's
+    (K, N) fp32 buffer, leaves side by side in JAX's order."""
+    ls = [np.asarray(l) for l in tree.leaves(np_tree)]
+    k = ls[0].shape[0]
+    return torch.tensor(np.concatenate([l.reshape(k, -1) for l in ls], 1),
+                        dtype=torch.float32, device=device)
+
+
+def wire_from_numpy(enc_tree, device="cpu"):
+    """A JAX encoded tree (per-leaf QuantLeaf / SignLeaf / SparseLeaf
+    records holding numpy arrays) -> the port's one record over the whole
+    ``codecs.WireLayout``: each field's per-leaf arrays concatenated along
+    the column axis.  Records are told apart by their field names."""
+    recs = tree.leaves(enc_tree, is_leaf=lambda x: hasattr(x, "_fields"))
+    fields = tuple(recs[0]._fields)
+    return _RECORDS[fields](*(
+        torch.tensor(np.concatenate([np.asarray(getattr(r, f)) for r in recs],
+                                    axis=1), device=device)
+        for f in fields))

@@ -1,10 +1,12 @@
 """Build and bind the port's CUDA kernels.
 
 At first use, ``load()`` compiles every ``src/repro_torch/csrc/*.cu`` with
-``nvcc`` for ``sm_90a`` into one shared library with a plain C interface
-under ``build/repro_torch/`` (named by a hash of the sources and flags, so
-an edit rebuilds), and binds it with ``ctypes``.  Nothing is compiled at
-import time; a machine without ``nvcc`` fails here, at the first launch.
+``nvcc`` for ``sm_90a`` (one ``nvcc`` a source, all started together), links
+them into one shared library with a plain C interface under
+``build/repro_torch/``, and binds it with ``ctypes``.  The library is named
+by a hash of every file under ``csrc/`` (sources and headers) and of the
+flags, so an edit to any of them rebuilds.  Nothing is compiled at import
+time; a machine without ``nvcc`` fails here, at the first launch.
 """
 from __future__ import annotations
 
@@ -19,7 +21,7 @@ _PKG = Path(__file__).resolve().parent.parent
 _SRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parents[1] / "build" / "repro_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
@@ -29,6 +31,14 @@ _SIGNATURES = {
     "rp_combine": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
     # x, part, out, G, C, N, chunk, stream
     "rp_gram": [_P, _P, _P, _I, _I, _I, _I, _P],
+    # q, s, table, mask, part, out, G, C, N, NQ, L, qblk, cols, stream
+    "cc_pass1": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    # q, s, table, mask, w, out, G, C, N, NQ, L, qblk, cols, mode, trim_frac,
+    # stream
+    "cc_combine": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F,
+                   _P],
+    # q, s, table, mask, part, out, G, C, N, NQ, L, qblk, chunk, stream
+    "cc_gram": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
 }
 
 
@@ -48,25 +58,49 @@ def _nvcc():
     return str(path)
 
 
+def _run(procs):
+    """Waits for every nvcc process; raises with the output of a failed one."""
+    log = ""
+    for proc in procs:
+        out, err = proc.communicate()
+        log += out + err
+        if proc.returncode != 0:
+            for other in procs:
+                other.kill()
+                other.wait()
+            raise RuntimeError(f"nvcc failed:\n{out}\n{err}")
+    return log
+
+
+def _compile(so):
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tag = f"{so.stem}.{os.getpid()}"
+    sources = sorted(_SRC.glob("*.cu"))
+    objs = [BUILD_DIR / f"{tag}.{s.stem}.o" for s in sources]
+    popen = lambda args: subprocess.Popen(
+        [_nvcc(), *args], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True)
+    log = _run([popen([*NVCC_FLAGS, "-c", "-o", str(o), str(s)])
+                for s, o in zip(sources, objs)])
+    tmp = so.with_suffix(f".{os.getpid()}.tmp")
+    log += _run([popen(["-shared", "-o", str(tmp), *map(str, objs)])])
+    for o in objs:
+        o.unlink()
+    os.replace(tmp, so)
+    _Built.log = log
+
+
 def load():
     """The bound kernel library, compiled on first use."""
     if _Built.lib is not None:
         return _Built.lib
-    sources = sorted(_SRC.glob("*.cu"))
     digest = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
-    for s in sources:
-        digest.update(s.read_bytes())
+    for f in sorted(p for p in _SRC.rglob("*") if p.is_file()):
+        digest.update(f.relative_to(_SRC).as_posix().encode())
+        digest.update(f.read_bytes())
     so = BUILD_DIR / f"librepro_torch_{digest.hexdigest()[:16]}.so"
     if not so.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = so.with_suffix(f".{os.getpid()}.tmp")
-        proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)],
-            capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed:\n{proc.stdout}\n{proc.stderr}")
-        os.replace(tmp, so)
-        _Built.log = proc.stdout + proc.stderr
+        _compile(so)
     lib = ctypes.CDLL(str(so))
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)

@@ -240,14 +240,18 @@ reset_launch_counts()
 # the pipeline
 # ---------------------------------------------------------------------------
 
-def pairwise_sq_dists(x, mask):
-    """(G, C, C) squared distances from the K3 Gram; masked pairs pushed to
-    +_BIG (the contract of ``aggregation.pairwise_sq_dists``)."""
-    gram = pairwise_gram(x)
+def sq_dists_from_gram(gram, mask):
+    """(G, C, C) squared distances from a Gram matrix; masked pairs pushed
+    to +_BIG (the contract of ``aggregation.pairwise_sq_dists``)."""
     sqn = torch.diagonal(gram, dim1=1, dim2=2)
     d = sqn[:, :, None] + sqn[:, None, :] - 2.0 * gram
     big = _BIG * (1.0 - mask[:, :, None] * mask[:, None, :])
     return torch.clamp(d, min=0.0) + big
+
+
+def pairwise_sq_dists(x, mask):
+    """(G, C, C) squared distances from the K3 Gram."""
+    return sq_dists_from_gram(pairwise_gram(x), mask)
 
 
 def _krum_weights(d, mask, f, multi_m):
@@ -277,25 +281,37 @@ def _resolve_gate(dots, sqn, refsq, mask, cosine_thresh):
     return torch.where(m.sum(1, keepdim=True) > 0, m, mask)
 
 
+def eq11(partials, combine, gram, weights, mask, *, aggregator, trim_frac,
+         cosine_thresh, krum_f):
+    """The Eq.-11 pipeline over one kernel family: ``partials(mask)`` is
+    pass 1, ``combine(mask, weights, mode, trim_frac)`` pass 2 and
+    ``gram(mask)`` Krum's Gram.  Weights and mask (G, C) -> (G, N) fp32."""
+    mask = mask.float()
+    m = _resolve_gate(*partials(mask), mask, cosine_thresh)
+    if aggregator == "fedavg":
+        w = weights * m
+        w = w / torch.clamp(w.sum(1, keepdim=True), min=1e-12)
+        return combine(m, w, "mean", trim_frac)
+    if aggregator == "trimmed_mean":
+        return combine(m, m, "trimmed", trim_frac)
+    if aggregator == "median":
+        return combine(m, m, "median", trim_frac)
+    if aggregator == "krum":
+        w = _krum_weights(sq_dists_from_gram(gram(m), m), m, krum_f, 1)
+        return combine(m, w, "mean", trim_frac)
+    raise ValueError(aggregator)
+
+
 def fused_pipeline(x, weights, mask, *, aggregator="trimmed_mean",
                    trim_frac=0.2, cosine_thresh=-0.5, krum_f=1):
     """Full Eq.-11 pipeline over a cohort batch x (G, C, N) with weights
     and mask (G, C) -> (G, N) fp32 aggregated rows."""
-    mask = mask.float()
-    dots, sqn, refsq = cosine_gate_partials(x, mask)
-    m = _resolve_gate(dots, sqn, refsq, mask, cosine_thresh)
-    if aggregator == "fedavg":
-        w = weights * m
-        w = w / torch.clamp(w.sum(1, keepdim=True), min=1e-12)
-        return gated_combine(x, m, w, mode="mean")
-    if aggregator == "trimmed_mean":
-        return gated_combine(x, m, m, mode="trimmed", trim_frac=trim_frac)
-    if aggregator == "median":
-        return gated_combine(x, m, m, mode="median")
-    if aggregator == "krum":
-        w = _krum_weights(pairwise_sq_dists(x, m), m, krum_f, 1)
-        return gated_combine(x, m, w, mode="mean")
-    raise ValueError(aggregator)
+    return eq11(
+        lambda m: cosine_gate_partials(x, m),
+        lambda m, w, mode, tf: gated_combine(x, m, w, mode=mode,
+                                             trim_frac=tf),
+        lambda m: pairwise_gram(x), weights, mask, aggregator=aggregator,
+        trim_frac=trim_frac, cosine_thresh=cosine_thresh, krum_f=krum_f)
 
 
 def fused_aggregate_tree(updates, weights, mask, cfg):

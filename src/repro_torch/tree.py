@@ -12,11 +12,15 @@ from typing import Any, Callable, List
 import torch
 
 
-def leaves(tree) -> List[Any]:
+def leaves(tree, is_leaf: Callable = None) -> List[Any]:
+    """Leaves in JAX's order; ``is_leaf(node)`` stops the walk at a node
+    (as ``jax.tree_util.tree_flatten``'s ``is_leaf``)."""
+    if is_leaf is not None and is_leaf(tree):
+        return [tree]
     if isinstance(tree, dict):
-        return [x for k in sorted(tree) for x in leaves(tree[k])]
+        return [x for k in sorted(tree) for x in leaves(tree[k], is_leaf)]
     if isinstance(tree, (list, tuple)):
-        return [x for t in tree for x in leaves(t)]
+        return [x for t in tree for x in leaves(t, is_leaf)]
     return [tree]
 
 

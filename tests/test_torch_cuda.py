@@ -1,5 +1,6 @@
-"""The port on the card: each CUDA kernel against its plain version, the
-wrappers' checks and launch counts, and a round on the card against the
+"""The port on the card: each CUDA kernel against its plain version (and
+K6a-c bitwise against K1-K3 on the masked decode), the wrappers' checks
+and launch counts, and a round on the card (dense and int8) against the
 same round on the CPU.  Needs a CUDA device; skips without one.  Imports
 no jax, so it runs where only the port is installed:
 
@@ -15,6 +16,8 @@ import pytest
 import torch
 
 from repro_torch import tree
+from repro_torch.comm import codecs
+from repro_torch.comm.kernels import comm_codecs as dq
 from repro_torch.configs.base import FedConfig
 from repro_torch.configs.paper_models import CNN_CONFIG
 from repro_torch.core import fedfits
@@ -101,3 +104,99 @@ def test_round_on_card_matches_cpu(card, aggregator):
         assert torch.equal(m_gpu["team"].cpu(), m_cpu["team"])
         for a, b in zip(tree.leaves(s_gpu.params), tree.leaves(s_cpu.params)):
             torch.testing.assert_close(a.cpu(), b, rtol=0, atol=1e-5)
+
+
+WIDE_LEAVES = (1000, 33, 64000, 540)
+
+
+def _quant(card):
+    """int8 codes and scales of ``_inputs``' matrix over 4 ragged leaves,
+    by the port's own codec."""
+    x, m, w = _inputs(card)
+    g, c, n = x.shape
+    layout = codecs.WireLayout(WIDE_LEAVES, 128)
+    enc = codecs.Codec("int8").encode_flat(x.reshape(g * c, n) * 1e-2, layout)
+    return enc.q.view(g, c, n), enc.s.view(g, c, -1), layout, m, w
+
+
+def _bitwise(out, ref):
+    same = (out.view(torch.int32) == ref.view(torch.int32)) \
+        | (out.isnan() & ref.isnan())
+    assert bool(same.all())
+
+
+def test_dequant_kernels_match_plain(card):
+    q, s, layout, m, w = _quant(card)
+    for o, r in zip(dq.dequant_gate_partials(q, s, layout, m),
+                    dq.dequant_gate_partials_plain(q, s, layout, m)):
+        _close_rel(o, r)
+    for mode in rp.MODES:
+        out = dq.dequant_gated_combine(q, s, layout, m, w, mode=mode)
+        ref = dq.dequant_gated_combine_plain(q, s, layout, m, w, mode=mode)
+        if mode == "median":
+            assert torch.equal(out, ref)
+        else:
+            torch.testing.assert_close(out, ref, rtol=1e-5, atol=1e-6)
+        assert float(out[1].abs().max()) == 0.0
+    _close_rel(dq.dequant_pairwise_gram(q, s, layout, m),
+               dq.dequant_pairwise_gram_plain(q, s, layout, m))
+
+
+def test_dequant_kernels_are_k1_k3_on_the_masked_decode(card):
+    q, s, layout, m, w = _quant(card)
+    xm = dq.dequant_masked(q, s, layout, m)
+    for o, r in zip(dq.dequant_gate_partials(q, s, layout, m),
+                    rp.cosine_gate_partials(xm, m)):
+        _bitwise(o, r)
+    for mode in rp.MODES:
+        _bitwise(dq.dequant_gated_combine(q, s, layout, m, w, mode=mode),
+                 rp.gated_combine(xm, m, w, mode=mode))
+    _bitwise(dq.dequant_pairwise_gram(q, s, layout, m), rp.pairwise_gram(xm))
+
+
+def test_dequant_wrappers_check_and_count(card):
+    q, s, layout, m, w = _quant(card)
+    dq.reset_launch_counts()
+    dq.fused_dequant_pipeline(q, s, layout, w, m, aggregator="krum")
+    assert dq.launch_counts() == {
+        "dequant_gate_partials": 1, "dequant_pairwise_gram": 1,
+        "dequant_gated_combine[mean]": 1, "dequant_gated_combine[trimmed]": 0,
+        "dequant_gated_combine[median]": 0}
+    with pytest.raises(TypeError):
+        dq.dequant_gate_partials(q.to(torch.int16), s, layout, m)
+    with pytest.raises(TypeError):
+        dq.dequant_gated_combine(q, s.double(), layout, m, w, mode="mean")
+    with pytest.raises(ValueError):
+        dq.dequant_pairwise_gram(q[:, :, :-1].contiguous(), s, layout, m)
+
+
+@pytest.mark.parametrize("aggregator", ["fedavg", "trimmed_mean"])
+def test_int8_round_on_card_matches_cpu(card, aggregator):
+    """3 int8 rounds: the same team, params within one quantisation step
+    (the round's largest scale): card and CPU updates differ at ~1e-8,
+    enough to flip a code at a rounding tie."""
+    model = build(CNN_CONFIG.replace(d_model=4, d_ff=16))
+    cfg = FedConfig(n_clients=6, local_epochs=2, local_lr=0.05, msl=4,
+                    pft=2, aggregator=aggregator, compress="int8")
+    fed, _ = build_federation(0, n=600, n_clients=6, batch_size=16)
+    params = model.init(torch.Generator(card).manual_seed(0))
+    cpu = lambda t: tree.map(lambda v: v.cpu(), t)
+    s_gpu = fedfits.init_state(params, 6, cfg, torch.Generator(card))
+    s_cpu = fedfits.init_state(cpu(params), 6, cfg, torch.Generator())
+    f = fedfits.make_round(model, cfg)
+    client_update = fedfits.make_client_update(model, cfg)
+    gen = torch.Generator(card).manual_seed(1)
+    dq.reset_launch_counts()
+    for t in range(3):
+        batch = fed.data_fn(t + 1, gen)
+        local, _ = client_update(s_cpu.params, cpu(batch))
+        target = torch.cat([(a - b).reshape(6, -1) for a, b in zip(
+            tree.leaves(local), tree.leaves(s_cpu.params))], 1) \
+            + s_cpu.clients.ef
+        step = float(target.abs().max()) / 127.0
+        s_gpu, m_gpu = f(s_gpu, batch)
+        s_cpu, m_cpu = f(s_cpu, cpu(batch))
+        assert torch.equal(m_gpu["team"].cpu(), m_cpu["team"])
+        for a, b in zip(tree.leaves(s_gpu.params), tree.leaves(s_cpu.params)):
+            torch.testing.assert_close(a.cpu(), b, rtol=0, atol=step + 1e-5)
+    assert dq.launch_counts()["dequant_gate_partials"] == 3

@@ -64,8 +64,7 @@ def test_unported_options_raise():
     from repro_torch.core import fedfits
     from repro_torch.models.model import build
     model = build(MLP_CONFIG)
-    for kw in [dict(compress="int8"), dict(population=64),
-               dict(agg_blk=512)]:
+    for kw in [dict(population=64), dict(agg_blk=512)]:
         with pytest.raises(NotImplementedError):
             fedfits.make_round(model, FedConfig(**kw))
     with pytest.raises(NotImplementedError):
