@@ -15,6 +15,16 @@ Phases, one line each (a failure raises, so the exit code is not 0):
               held bitwise against K1-K3 on the masked decode, and a
               masked-out client whose scale is inf must leave the outputs
               finite.  Times by CUDA events.
+  2b. top-d   K7 (``block_topd``) against its plain version on the card,
+              values and indices bitwise, at M=1,000,000/d=64,
+              M=16,384/d=16 (the async path's shape), M=10,007/d=64 with
+              blk 4096 and 64 (ragged and exhausted blocks, whose
+              candidates repeat the block's first index at -inf), and
+              duplicate keys (the lowest index first); the full ``topd``
+              order against the segmented and argsort routes and
+              ``torch.topk``; M=40, d=64 takes the argsort route and must
+              not launch K7.  Times by CUDA events: K7, K7 plus the merge,
+              the plain version and ``torch.topk``.
   3. round    the port's main path: the full-width paper-cnn FedFiTS round
               through ``fedfits.run``, 10 rounds under fedavg, then 2 each
               under trimmed_mean, median and krum; every kernel must have
@@ -28,6 +38,18 @@ Phases, one line each (a failure raises, so the exit code is not 0):
               client-rounds; round 1 again on the CPU must give the same
               team and params within one quantisation step.  Then one
               trimmed_mean round each of int4, signsgd, topk and randk.
+  5. async round
+              the buffered-async engine at full width through
+              ``async_engine.run_async``: paper-cnn over M=16,384
+              registered clients (n=131,072 images, Dirichlet 1.0), cohort
+              C=16, retry buffer B=32, chronic stragglers, cohorts drawn by
+              K7; 8 rounds under trimmed_mean, then 2 each under fedavg,
+              median and krum.  K7 must launch once a round and K1, K2 in
+              each mode and K3 at least once; billing must be exactly 16
+              client-rounds and 16 dense uplinks a round; deliveries must
+              park and land; trimmed_mean test_acc must rise; round 1 again
+              on the CPU port with the card's draws must give the same
+              cohort, on-time mask and buffer, params within 1e-5.
 The last three lines are the nvidia-smi line, the kernels JSON and the
 result JSON.  Without a CUDA device, or without the repository's
 src/repro_torch beside this file, it exits non-zero and prints no result.
@@ -79,6 +101,18 @@ DEQUANT_OF = {"dequant_gate_partials": "cosine_gate_partials",
               "dequant_pairwise_gram": "pairwise_gram"}
 CUDA_SOURCE = "src/repro_torch/csrc/robust_pipeline.cu"
 CUDA_SOURCE_K6 = "src/repro_torch/csrc/comm_codecs.cu"
+CUDA_SOURCE_K7 = "src/repro_torch/csrc/population_select.cu"
+K7_REPLACES = "src/repro/kernels/population_select.py:98"
+# (M, d, blk) of phase 2b; the async path's shape is the second
+TOPD_CASES = ((1_000_000, 64, 4096), (16_384, 16, 4096), (10_007, 64, 4096),
+              (10_007, 64, 64))
+TOPD_TIMED = ((16_384, 16), (1_000_000, 64))
+# phase 5: the buffered-async engine at full width
+ASYNC_M, ASYNC_N, ASYNC_C = 16_384, 131_072, 16
+ASYNC_SCHEDULE = (("trimmed_mean", 8), ("fedavg", 2), ("median", 2),
+                  ("krum", 2))
+DENSE_BYTES_PER_CLIENT = 1_686_568          # paper-cnn's 421,642 fp32
+DEVICE = "cuda"
 
 
 def bound(bytes_moved, ops):
@@ -109,6 +143,12 @@ def kernel_work(name, g, c, n, mode=None, nq=0, n_leaves=0):
         return x + 4 * g * c * c, 2 * g * c * c * n + deq
     ops = 2 * g * c * n if mode == "mean" else g * n * (c * c + 2 * c)
     return x + 8 * g * c + 4 * g * n, ops + deq
+
+
+def topd_work(m_pad, nb, d):
+    """Bytes and operations of K7: each padded key read once, a value and
+    an index written per candidate; d compares per key."""
+    return 4 * m_pad + 8 * nb * d, d * m_pad
 
 
 def time_ms(fn):
@@ -365,6 +405,103 @@ def _kernels(cnn_sizes):
     return report
 
 
+def _topd_checks():
+    """Phase 2b: K7 against its plain version, bitwise, and the full top-d
+    order of every route; returns the report entry (times at the async
+    path's shape) and the timings at M=1e6."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import population_select as ps
+
+    def keys(m, seed):
+        gen = torch.Generator(DEVICE).manual_seed(seed)
+        pri = torch.rand(m, generator=gen, device=DEVICE) + 0.01
+        return torch.log(pri) + ps.draw_gumbel(m, gen)
+
+    errs = [0.0]
+
+    def same_candidates(label, g, d, blk):
+        gp, _ = ps._pad_neg_inf(g, blk)
+        v, gi = ps.block_topd(gp, d, blk)
+        pv, pgi = ps.block_topd_plain(gp, d, blk)
+        if not (torch.equal(v.view(torch.int32), pv.view(torch.int32))
+                and torch.equal(gi, pgi)):
+            raise AssertionError(f"block_topd {label}: candidates differ "
+                                 "from the plain version")
+        fin = torch.isfinite(pv)
+        errs[0] = max(errs[0], float((v[fin] - pv[fin]).abs().max()))
+        return gp, v, gi
+
+    for m, d, blk in TOPD_CASES:
+        g = keys(m, m + blk)
+        gp, v, gi = same_candidates(f"M={m} d={d} blk={blk}", g, d, blk)
+        nb, last = gp.shape[0] // blk, m % blk
+        if 0 < last < d:                  # the last block runs out of keys
+            if not (bool((gi[-1, last:] == (nb - 1) * blk).all())
+                    and bool((v[-1, last:] == -float("inf")).all())):
+                raise AssertionError("block_topd: exhausted block does not "
+                                     "repeat its first index at -inf")
+        ref = ps.topd_argsort(g, d)
+        outs = {meth: ps.topd(g, d, method=meth, blk=blk)
+                for meth in ("pallas", "segmented")}
+        outs["torch.topk"] = torch.topk(g, d).indices.to(torch.int32)
+        for meth, out in outs.items():
+            if not torch.equal(out, ref):
+                raise AssertionError(f"topd M={m} d={d}: {meth} order "
+                                     "differs from argsort")
+        print(f"[topd] M={m} d={d} blk={blk} nb={nb}: K7 candidates bitwise "
+              "the plain version's; pallas, segmented, argsort and "
+              "torch.topk give the same order"
+              + (f"; last block exhausted after {last} keys"
+                 if 0 < last < d else ""))
+    before = ps.launch_counts()["block_topd"]
+    g = keys(40, 1)
+    out = ps.topd(g, 64, method="pallas")
+    if ps.launch_counts()["block_topd"] != before \
+            or not torch.equal(out, ps.topd_argsort(g, 64)):
+        raise AssertionError("topd d >= M: not the argsort route")
+    dup = torch.tensor([1, 3, 3, 0, 3, 2, 3, 1] * 3, dtype=torch.float32,
+                       device=DEVICE)
+    if ps.topd(dup, 5, method="pallas", blk=64).tolist() != [1, 2, 4, 6, 9]:
+        raise AssertionError("topd: ties do not go to the lowest index")
+    rng = np.random.default_rng(5)
+    dup = torch.from_numpy(rng.integers(0, 30, 3 * 4096).astype(
+        np.float32)).to(DEVICE)
+    same_candidates("duplicate keys", dup, 64, 4096)
+    if not torch.equal(ps.topd(dup, 64, method="pallas"),
+                       ps.topd_argsort(dup, 64)):
+        raise AssertionError("topd duplicate keys: pallas order differs")
+    torch.cuda.synchronize()
+    print("[topd] M=40 d=64 takes the argsort route without K7; duplicate "
+          "keys: lowest index first, candidates bitwise")
+
+    timed = {}
+    for m, d in TOPD_TIMED:
+        g = keys(m, 3)
+        gp, _ = ps._pad_neg_inf(g, 4096)
+        nb = gp.shape[0] // 4096
+        b, ops = topd_work(gp.shape[0], nb, d)
+        bound_ms, bound_by = bound(b, ops)
+        row = {"ms": time_ms(lambda: ps.block_topd(gp, d, 4096)),
+               "with_merge_ms": time_ms(lambda: ps.topd_pallas(g, d)),
+               "plain_ms": time_ms(lambda: ps.block_topd_plain(gp, d, 4096)),
+               "library_ms": time_ms(lambda: torch.topk(g, d)),
+               "bound_ms": bound_ms, "bound_by": bound_by}
+        timed[(m, d)] = row
+        print(f"[topd] M={m} d={d}: K7 {row['ms']:.4f} ms, K7 + merge "
+              f"{row['with_merge_ms']:.4f} ms, plain {row['plain_ms']:.4f} "
+              f"ms, torch.topk {row['library_ms']:.4f} ms, bound "
+              f"{bound_ms * 1e3:.4f} us ({bound_by})")
+    row = timed[TOPD_TIMED[0]]
+    return {"name": "block_topd", "route": "cuda", "source": CUDA_SOURCE_K7,
+            "replaces": K7_REPLACES, "launches": None, "max_abs_err": errs[0],
+            "ms": row["ms"], "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+            "library_ms": row["library_ms"],
+            "with_merge_ms": row["with_merge_ms"],
+            "shape": {"M": TOPD_TIMED[0][0], "d": TOPD_TIMED[0][1]}}
+
+
 def _fed_cfg(aggregator, **kw):
     from repro_torch.configs.base import FedConfig
     return FedConfig(n_clients=16, algorithm="fedfits", local_epochs=2,
@@ -540,6 +677,141 @@ def _compressed_round(model, fed, evaluate, dense_fedavg):
     return counts
 
 
+def _async_cfg(aggregator):
+    from repro_torch.configs.base import FedConfig
+    return FedConfig(n_clients=ASYNC_C, population=ASYNC_M, local_epochs=2,
+                     local_lr=0.05, aggregator=aggregator,
+                     async_max_retries=2, async_deadline=1.0,
+                     async_backoff=1.5, staleness_decay=0.5,
+                     select_method="pallas")
+
+
+def _async_round1_on_cpu(model, pop, faults):
+    """Round 1 of the async path again: on the card from run_async's seed,
+    traced by torch.profiler, then on the CPU port with the card's draws;
+    the same cohort, on-time mask and buffer, params within 1e-5."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch import tree
+    from repro_torch.core import async_engine as ae
+    cfg = _async_cfg("trimmed_mean")
+    cpu = lambda t: tree.map(lambda v: v.cpu(), t)
+    gen = lambda s: torch.Generator(DEVICE).manual_seed(s)
+    state = ae.init_async_state(model.init(gen(0)), cfg, gen(1))
+    init = cpu(state.params)
+    draw, round_fn = ae.make_async_round(model, cfg, pop, faults=faults)
+    draws = draw(state)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        gpu, m_gpu = round_fn(state, draws)
+        torch.cuda.synchronize()
+    dev_events = [e for e in prof.events()
+                  if e.device_type == DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in dev_events) / 1e3
+    print(f"[async] round 1 traced: {len(dev_events)} device events, "
+          f"device busy {busy:.3f} ms")
+    _, round_cpu = ae.make_async_round(model, cfg, cpu(pop), faults=faults)
+    host, m_cpu = round_cpu(ae.init_async_state(init, cfg, torch.Generator()),
+                            cpu(draws))
+    for k in ("cohort", "on_time", "due", "exhausted"):
+        if not torch.equal(m_gpu[k].cpu(), m_cpu[k]):
+            raise AssertionError(f"async round 1: CPU and card {k} differ")
+    for k in ("owner", "age", "active", "n_k"):
+        if not torch.equal(getattr(gpu.buf, k).cpu(), getattr(host.buf, k)):
+            raise AssertionError(f"async round 1: CPU and card buf.{k} "
+                                 "differ")
+    rem = float((gpu.buf.remaining.cpu() - host.buf.remaining).abs().max())
+    diff = max(float((a.cpu() - b).abs().max()) for a, b in zip(
+        tree.leaves(gpu.params), tree.leaves(host.params)))
+    parked = float((gpu.buf.upd.cpu() - host.buf.upd).abs().max())
+    print(f"[async] round 1 on the CPU port: same cohort, on-time mask and "
+          f"buffer; params max abs diff {diff:.3e}, parked rows "
+          f"{parked:.3e}, remaining {rem:.3e} (atol {ROUND1_ATOL:.0e})")
+    if max(diff, parked) > ROUND1_ATOL or rem > 1e-6:
+        raise AssertionError("async round 1: CPU and card differ")
+    return m_gpu
+
+
+def _async_phase(model):
+    """Phase 5: the buffered-async engine at full width; returns K7's and
+    K1-K3's launch counts over the run."""
+    import torch
+    from repro_torch import tree
+    from repro_torch.core import async_engine as ae
+    from repro_torch.core.faults import FaultConfig
+    from repro_torch.data.pipeline import build_federation
+    from repro_torch.kernels import population_select as ps
+    from repro_torch.kernels import robust_pipeline as rp
+
+    t0 = time.perf_counter()
+    fed, test = build_federation(0, kind="images", n=ASYNC_N,
+                                 n_clients=ASYNC_M, dirichlet_alpha=1.0,
+                                 batch_size=32)
+    pop = fed.data
+    mb = sum(v.numel() * v.element_size() for v in pop.values()) / 1e6
+    print(f"[async] federation: M={ASYNC_M}, n={ASYNC_N}, cap {fed.cap}, "
+          f"{mb:.0f} MB on the card, built in "
+          f"{time.perf_counter() - t0:.1f} s")
+    late = FaultConfig(straggler_frac=0.3, straggler_delay=3.0,
+                       base_delay=0.3)
+
+    def evaluate(params):
+        _, met = model.loss(params, test)
+        return {"test_acc": met["acc"]}
+
+    rp.reset_launch_counts()
+    ps.reset_launch_counts()
+    runs, rounds = {}, 0
+    for agg, n_rounds in ASYNC_SCHEDULE:
+        state, hist = ae.run_async(model, _async_cfg(agg), pop, n_rounds, 0,
+                                   eval_fn=evaluate, faults=late)
+        rounds += n_rounds
+        for h in hist:
+            print(f"[async] {agg:<12} {h['round']:>2} cohort "
+                  f"{h['cohort'][:4].tolist()}.. on_time "
+                  f"{int(h['on_time'].sum())}/{ASYNC_C} landed "
+                  f"{int(h['due'].sum())} buffered {int(h['buffered'])} "
+                  f"abandoned {int(h['abandoned'])} buf_fill "
+                  f"{int(h['buf_fill'])} test_acc "
+                  f"{float(h['test_acc']):.4f} wall_ms {h['wall_ms']:.2f}")
+        if not all(bool(torch.isfinite(l).all())
+                   for l in tree.leaves(state.params)):
+            raise AssertionError(f"async {agg}: non-finite params")
+        cr, up = float(state.cost_client_rounds), float(state.cost_bytes_up)
+        if cr != ASYNC_C * n_rounds \
+                or up != ASYNC_C * n_rounds * DENSE_BYTES_PER_CLIENT:
+            raise AssertionError(f"async {agg}: billed {cr} client-rounds and "
+                                 f"{up} B up over {n_rounds} rounds")
+        runs[agg] = hist
+    torch.cuda.synchronize()
+    counts = {**ps.launch_counts(), **rp.launch_counts()}
+    _launched("async", counts)
+    if counts["block_topd"] != rounds:
+        raise AssertionError(f"K7 launched {counts['block_topd']} times in "
+                             f"{rounds} rounds")
+    every = [h for hist in runs.values() for h in hist]
+    parked = sum(float(h["buffered"]) for h in every)
+    landed = sum(float(h["due"].sum()) for h in every)
+    print(f"[async] {rounds} rounds: {parked:.0f} deliveries parked, "
+          f"{landed:.0f} landed from the buffer, "
+          f"{sum(float(h['abandoned']) for h in every):.0f} abandoned; "
+          f"billing exact ({ASYNC_C} client-rounds and "
+          f"{ASYNC_C * DENSE_BYTES_PER_CLIENT} B up a round)")
+    if not (parked > 0 and landed > 0):
+        raise AssertionError("async: no delivery was parked and landed")
+    tm = runs["trimmed_mean"]
+    acc0, acc_end = float(tm[0]["test_acc"]), float(tm[-1]["test_acc"])
+    if not acc_end > acc0:
+        raise AssertionError(f"async trimmed_mean test_acc did not improve: "
+                             f"{acc0} -> {acc_end}")
+    m1 = _async_round1_on_cpu(model, pop, late)
+    if not torch.equal(m1["cohort"].cpu(), torch.from_numpy(tm[0]["cohort"])):
+        raise AssertionError("async round 1 rerun: not run_async's cohort")
+    return counts
+
+
 def main():
     _import_port()
     import torch
@@ -555,6 +827,7 @@ def main():
     model = build(CNN_CONFIG)
     cnn_sizes = [p.numel() for p in tree.leaves(model.init(torch.Generator()))]
     report = _kernels(cnn_sizes)
+    report.append(_topd_checks())
     fed, test = build_federation(0, kind="images", n=4000, n_clients=16,
                                  batch_size=32)
 
@@ -564,6 +837,8 @@ def main():
 
     counts, dense_fedavg = _round(model, fed, evaluate)
     counts.update(_compressed_round(model, fed, evaluate, dense_fedavg))
+    async_counts = _async_phase(model)
+    counts["block_topd"] = async_counts["block_topd"]
     for entry in report:
         entry["launches"] = counts[entry["name"]]
     print(smi)

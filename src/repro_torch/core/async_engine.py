@@ -1,0 +1,385 @@
+"""Buffered-async round engine — the port of ``repro/core/async_engine.py``:
+population-scale client scheduling with deadline/timeout semantics and
+graceful degradation under client failure.
+
+  population   M registered clients live in a ``ClientStore``; each round
+               samples a cohort of C = ``fed_cfg.n_clients`` rows by O(M)
+               Gumbel-top-d over the store's fitness x trust priority
+               (``clientstore.select_cohort`` -> K7 under
+               ``select_method="pallas"``) and gathers just those rows.
+  deadline     every cohort delivery races ``async_deadline`` with an
+               exponential delay (``core/faults.py``); on-time updates
+               aggregate at full weight.
+  buffer       a late update parks in a DeliveryBuffer of B = C *
+               ``async_max_retries`` rows and retries on later rounds with
+               capped backoff: a row aged a listens for deadline *
+               backoff^a.  When it lands it aggregates at weight n_k *
+               trust * staleness_decay^a.
+  timeout      a row that exhausts its retries, or finds the buffer full,
+               is abandoned: billed, never aggregated, and its client's
+               failures rise and trust decays.
+  guard        every delivery passes ``aggregation.sanitize_updates``.
+
+Layout: the round works on one persistent (C + B + 1, N) fp32 matrix, the
+buffer's ``rows``: the first C rows take this round's ``w_k - w``, the
+next B are the parked updates (``DeliveryBuffer.upd``), and the last row
+takes the parks that are dropped.  K1-K3 read the first C + B rows in
+place, so there is no per-round concatenate; parking is an
+``index_copy_`` of fresh rows into free buffer slots.  Parked rows stay as
+they arrived: the guard's zeroed copy never reaches the buffer.  The round
+updates ``rows`` in place, so the state passed in must not be used again.
+
+Randomness: the round is ``draw(state)``, which takes the cohort's Gumbel
+noise, the per-client batch indices and the delay uniforms from
+``state.rng``, plus a pure ``round_fn(state, draws)``, so a test can feed the
+JAX package's own draws.  The round reads nothing back to the host before
+its metrics: the park slots, the free count and every decision stay on
+the device.
+
+Not in this slice: ``driver="scan"`` (ROADMAP queue 1 item a),
+``telemetry`` (item 12), attacks (item 10).  Compression raises
+``ValueError``, as in the JAX package.
+"""
+from __future__ import annotations
+
+import time
+from typing import Any, NamedTuple
+
+import torch
+from torch.profiler import record_function
+
+from repro_torch import device as device_mod, tree
+from repro_torch.comm import codecs
+from repro_torch.core import aggregation, clientstore, fairness, \
+    faults as faults_mod, fitness
+from repro_torch.core.fedfits import _check_supported, _host, \
+    make_client_update
+from repro_torch.kernels import population_select as ps
+
+
+class DeliveryBuffer(NamedTuple):
+    """Fixed-capacity parking lot for late deliveries (B rows)."""
+    rows: torch.Tensor        # (C + B + 1, N) fp32: fresh | parked | drop
+    owner: torch.Tensor       # (B,) i32 population row of the delivery
+    n_k: torch.Tensor         # (B,) f32 owner's example count (weight)
+    age: torch.Tensor         # (B,) i32 rounds spent buffered (>= 1)
+    remaining: torch.Tensor   # (B,) f32 delay left past consumed windows
+    active: torch.Tensor      # (B,) 0/1 occupancy
+
+    @property
+    def upd(self) -> torch.Tensor:
+        """(B, N) parked update rows, in the round's column order
+        (``tree.row_views(upd, params)`` gives the per-leaf views)."""
+        b = self.owner.shape[0]
+        return self.rows[-b - 1:-1]
+
+
+class AsyncState(NamedTuple):
+    params: Any
+    clients: clientstore.ClientStore   # (M,) population columns
+    buf: DeliveryBuffer
+    rng: torch.Generator
+    round: int
+    cost_client_rounds: torch.Tensor
+    cost_bytes_up: torch.Tensor
+    cost_bytes_down: torch.Tensor
+
+    @property
+    def trust(self):
+        return self.clients.trust
+
+    @property
+    def gate_trust(self):
+        return self.clients.gate_trust
+
+    @property
+    def cum_selected(self):
+        return self.clients.cum_selected
+
+
+def buffer_capacity(fed_cfg) -> int:
+    """B = C * max_retries: every cohort row can be late every round and
+    nothing is evicted before its retries run out."""
+    return max(fed_cfg.n_clients * fed_cfg.async_max_retries, 1)
+
+
+def init_buffer(params, fed_cfg, upd=None) -> DeliveryBuffer:
+    """An empty buffer; ``upd`` (B, N), if given, fills the parked rows."""
+    b = buffer_capacity(fed_cfg)
+    dev = tree.leaves(params)[0].device
+    n = sum(p.numel() for p in tree.leaves(params))
+    rows = torch.zeros(fed_cfg.n_clients + b + 1, n, device=dev)
+    if upd is not None:
+        rows[-b - 1:-1] = upd
+    zeros = lambda dt: torch.zeros(b, dtype=dt, device=dev)
+    return DeliveryBuffer(rows=rows, owner=zeros(torch.int32),
+                          n_k=zeros(torch.float32), age=zeros(torch.int32),
+                          remaining=zeros(torch.float32),
+                          active=zeros(torch.float32))
+
+
+def init_async_state(params, fed_cfg, rng: torch.Generator) -> AsyncState:
+    m = fed_cfg.population or fed_cfg.n_clients
+    dev = tree.leaves(params)[0].device
+    zero = lambda: torch.zeros((), device=dev)
+    return AsyncState(
+        params=params, clients=clientstore.init_store(m, device=dev),
+        buf=init_buffer(params, fed_cfg), rng=rng, round=1,
+        cost_client_rounds=zero(), cost_bytes_up=zero(),
+        cost_bytes_down=zero())
+
+
+def delivery_weights(n_k, trust, mask, age, *, staleness_decay):
+    """The normalised aggregation weights of one async round: n_k * trust *
+    staleness_decay^age per masked-in delivery, normalised over the round's
+    deliveries.  A convex combination (entries in [0, 1] summing to 1, or
+    all zero for an empty round); the round feeds the same raw weights
+    through ``aggregation.aggregate``, which normalises identically."""
+    sd = torch.tensor(staleness_decay, dtype=torch.float32, device=n_k.device)
+    w = n_k * trust * sd ** age.float()
+    return aggregation.normalize_weights(w, mask)
+
+
+def make_async_round(model, fed_cfg, pop_data, *, batch_size=32,
+                     eval_batch=32, data_attack=None, update_attack=None,
+                     malicious=None, faults=None, straggler_rows="tail"):
+    """Builds the buffered-async round: returns ``(draw, round_fn)``.
+
+    ``pop_data``: population-stacked {x: (M, cap, ...), y, eval_x, eval_y,
+    n} on the device (``Federation.data``).  ``draw(state)`` takes the
+    round's draws from ``state.rng``: {gumbel (M,) f32, bi (C, bsz) i64, ei (C,
+    esz) i64, and u_delay (C,) f32 in [1e-7, 1) when stragglers are
+    active}; ``round_fn(state, draws) -> (state, metrics)`` is a pure
+    function of them (it updates the buffer's rows in place).
+    """
+    if fed_cfg.compress != "none":
+        raise ValueError(
+            f"compress={fed_cfg.compress!r}: the buffered-async engine is "
+            "dense-uplink only; use the sync engine (fedfits.run) for a "
+            "compressed uplink, or compress='none' here")
+    _check_supported(fed_cfg, data_attack=data_attack,
+                     update_attack=update_attack, malicious=malicious,
+                     faults=None)
+    client_update = make_client_update(model, fed_cfg)
+    m = fed_cfg.population or fed_cfg.n_clients
+    c = fed_cfg.n_clients
+    b = buffer_capacity(fed_cfg)
+    retries = int(fed_cfg.async_max_retries)
+    decay = fed_cfg.trust_decay
+    dev = pop_data["x"].device
+    f32 = lambda v: torch.tensor(v, dtype=torch.float32, device=dev)
+    deadline, backoff = f32(fed_cfg.async_deadline), f32(fed_cfg.async_backoff)
+    sdecay = f32(fed_cfg.staleness_decay)
+    fl = faults if faults is not None else faults_mod.FaultConfig()
+    # per-population-row chronic-straggler delay scales, fixed per run
+    scales_pop = faults_mod.delay_scales(fl, m, rows=straggler_rows,
+                                         device=dev) \
+        if fl.stragglers_active else torch.zeros(m, device=dev)
+    cap = pop_data["x"].shape[1]
+    ecap = pop_data["eval_x"].shape[1]
+    bsz = min(batch_size, cap)
+    esz = min(eval_batch, ecap)
+    slots = torch.arange(b, device=dev)
+
+    def draw(state: AsyncState):
+        gen = state.rng
+        out = {"gumbel": ps.draw_gumbel(m, gen),
+               "bi": torch.randint(0, cap, (c, bsz), generator=gen,
+                                   device=gen.device),
+               "ei": torch.randint(0, ecap, (c, esz), generator=gen,
+                                   device=gen.device)}
+        if fl.stragglers_active:
+            out["u_delay"] = faults_mod.draw_delays(c, gen)
+        return out
+
+    def round_fn(state: AsyncState, draws):
+        t = state.round
+        store, buf = state.clients, state.buf
+        params = state.params
+        ones_c = torch.ones(c, device=dev)
+
+        # ---- O(M) cohort sampling + O(C) gather ------------------------
+        with record_function("selection"):
+            idx = clientstore.select_cohort(
+                store, c, draws["gumbel"], method=fed_cfg.select_method)
+            store = clientstore.record_selection(store, idx)
+            il = idx.long()[:, None]
+            cdata = {"x": pop_data["x"][il, draws["bi"]],
+                     "y": pop_data["y"][il, draws["bi"]],
+                     "eval_x": pop_data["eval_x"][il, draws["ei"]],
+                     "eval_y": pop_data["eval_y"][il, draws["ei"]],
+                     "n": pop_data["n"][idx.long()]}
+
+        # ---- local training, w_k - w into the fresh rows ---------------
+        fresh = buf.rows[:c]
+        with record_function("client_update"):
+            locals_, (gl, ga, ll, la) = client_update(params, cdata)
+            for v, w_k, w in zip(tree.leaves(tree.row_views(fresh, params)),
+                                 tree.leaves(locals_), tree.leaves(params)):
+                torch.sub(w_k, w, out=v)
+
+        # ---- fitness at compute time -----------------------------------
+        n_c = cdata["n"].float()
+        q = fitness.data_quality(n_c, ones_c)
+        th = torch.zeros(c, device=dev) if t == 1 else \
+            fitness.theta(gl, ga, ll, la)
+        alpha = fitness.dynamic_alpha(q, th, ones_c) if fed_cfg.dynamic_alpha \
+            else f32(fed_cfg.alpha)
+        scores = fitness.score(q, th, alpha)
+        store = clientstore.record_fitness(store, idx, scores, decay)
+
+        # ---- the delivery race and buffer maturity ---------------------
+        with record_function("delivery"):
+            if fl.stragglers_active:
+                delay = faults_mod.sample_delays(scales_pop[idx.long()],
+                                                 draws["u_delay"])
+            else:
+                delay = torch.zeros(c, device=dev)
+            on_time = (delay <= deadline).float()
+            late = 1.0 - on_time
+            # a row aged a listens for deadline * backoff^a: due if its
+            # residual delay fits, abandoned if not and its retries are
+            # spent, else it ages one round (fp32, as in the JAX package)
+            window = deadline * backoff ** buf.age.float()
+            due = buf.active * (buf.remaining <= window).float()
+            exhausted = buf.active * (1.0 - due) \
+                * (buf.age >= retries).float()
+            still = buf.active * (1.0 - due) * (1.0 - exhausted)
+
+        # ---- staleness-weighted aggregation over fresh + due -----------
+        owners = torch.cat([idx, buf.owner])
+        owner_safe = torch.clamp(owners.long(), 0, m - 1)
+        age_all = torch.cat([torch.zeros(c, dtype=torch.int32, device=dev),
+                             buf.age])
+        nk_all = torch.cat([n_c, buf.n_k])
+        mask_pre = torch.cat([on_time, due])
+        w_raw = nk_all * store.trust[owner_safe] * sdecay ** age_all.float()
+        all_upd = {"u": buf.rows[:c + b]}
+        mask, rejected = mask_pre, torch.zeros_like(mask_pre)
+        if fed_cfg.update_guard:
+            with record_function("sanitize"):
+                all_upd, mask, rejected = aggregation.sanitize_updates(
+                    all_upd, mask_pre, norm_mult=fed_cfg.guard_norm_mult)
+        with record_function("aggregate"):
+            agg = aggregation.aggregate(all_upd, w_raw, mask, fed_cfg)["u"]
+        with record_function("writeback"):
+            new_params = tree.map(lambda p, u: p + u.to(p.dtype), params,
+                                  tree.row_views(agg, params))
+
+        # ---- cosine gate + trust bookkeeping ---------------------------
+        cos = aggregation.cosine_to_ref(all_upd, {"u": agg})
+        gated = ((cos < fed_cfg.cosine_outlier_thresh) & (mask > 0)).float()
+        bad = torch.maximum(gated, rejected)
+        store = clientstore.record_gate_trust(store, owners, mask_pre, bad,
+                                              decay)
+        new_tr = decay * store.trust[idx.long()] + (1.0 - decay) * scores
+        store = store._replace(trust=store.trust.index_copy(0, idx.long(),
+                                                            new_tr))
+        store = clientstore.record_deliveries(store, owners,
+                                              mask_pre * (1.0 - rejected))
+
+        # ---- buffer update: free landed/abandoned rows, park the late --
+        if retries > 0:
+            rem_mid = torch.where(still > 0, buf.remaining - window,
+                                  torch.zeros_like(window))
+            age_mid = torch.where(still > 0, buf.age + 1,
+                                  torch.zeros_like(buf.age))
+            free = 1.0 - still
+            # j-th free slot, in slot order: occupied slots sort last
+            slot_order = torch.argsort(torch.where(free > 0, slots,
+                                                   b + slots))
+            late_rank = (torch.cumsum(late, 0) - 1.0).to(torch.int64)
+            can_park = (late > 0) & (late_rank.float() < free.sum())
+            dest = torch.where(
+                can_park, slot_order[torch.clamp(late_rank, 0, b - 1)],
+                torch.full_like(late_rank, b))      # b: the drop slot
+            # parked rows are the raw fresh rows (not the guard's copy)
+            buf.rows[c:].index_copy_(0, dest, fresh)
+            put = lambda col, vals: torch.cat(
+                [col, col.new_zeros(1)]).index_put((dest,), vals)[:b]
+            new_buf = DeliveryBuffer(
+                rows=buf.rows,
+                owner=put(buf.owner, idx.to(torch.int32)),
+                n_k=put(buf.n_k, n_c),
+                age=put(age_mid, torch.ones_like(idx, dtype=torch.int32)),
+                remaining=put(rem_mid, delay - deadline),
+                active=put(still, ones_c))
+            overflow = late * (1.0 - can_park.float())
+        else:
+            new_buf = buf                           # no retries: no buffer
+            overflow = late
+
+        # ---- chronic-failure routing -----------------------------------
+        fail = torch.maximum(torch.cat([overflow, exhausted]), rejected)
+        store = clientstore.record_failures(store, owners, fail)
+
+        # ---- billing: once per computed round --------------------------
+        bytes_up_pc = codecs.dense_bytes_per_client(
+            tree.row_views(fresh, params))
+        bytes_down_pc = codecs.param_bytes(params)
+        new_state = AsyncState(
+            params=new_params, clients=store, buf=new_buf, rng=state.rng,
+            round=t + 1,
+            cost_client_rounds=state.cost_client_rounds + c,
+            cost_bytes_up=state.cost_bytes_up + c * bytes_up_pc,
+            cost_bytes_down=state.cost_bytes_down + c * bytes_down_pc)
+        metrics = {
+            "team_size": float(c),
+            "cohort": idx, "on_time": on_time, "due": due,
+            "exhausted": exhausted,
+            "on_time_frac": on_time.mean(),
+            "delivered": mask.sum(),
+            "buffered": (late - overflow).sum(),
+            "buf_fill": new_buf.active.sum(),
+            "abandoned": exhausted.sum() + overflow.sum(),
+            "guard_rejected": rejected.sum(),
+            "gated_frac": gated.sum() / torch.clamp(mask_pre.sum(), min=1.0),
+            "gate_trust": store.gate_trust,
+            "score": scores, "alpha": alpha,
+            "global_loss_mean": gl.mean(), "local_loss_mean": ll.mean(),
+            **fairness.round_fairness(ga, ones_c, store.cum_selected),
+        }
+        return new_state, metrics
+
+    return draw, round_fn
+
+
+def run_async(model, fed_cfg, pop_data, n_rounds, seed=0, *, eval_fn=None,
+              batch_size=32, eval_batch=32, device=None, data_attack=None,
+              update_attack=None, malicious=None, faults=None,
+              straggler_rows="tail", driver="python", telemetry=None):
+    """Drives ``n_rounds`` buffered-async rounds with a per-round Python
+    loop (the counterpart of the JAX package's ``driver="python"``);
+    returns (state, history).
+
+    ``seed`` seeds the init and the round generator; every round's draws
+    come from the latter.  Runs on the card unless ``device="cpu"``.  Each
+    history row is on the host, with ``wall_ms``: host time from the round
+    call until its metrics reached the host."""
+    if driver != "python":
+        raise NotImplementedError(
+            f"driver={driver!r}: the chunked scan driver comes with ROADMAP "
+            "queue 1 item a")
+    if telemetry is not None:
+        raise NotImplementedError(
+            "telemetry comes with ROADMAP queue 1 item 12")
+    dev = device_mod.resolve(device)
+    pop_data = {k: v.to(dev) for k, v in pop_data.items()}
+    draw, round_fn = make_async_round(
+        model, fed_cfg, pop_data, batch_size=batch_size,
+        eval_batch=eval_batch, data_attack=data_attack,
+        update_attack=update_attack, malicious=malicious, faults=faults,
+        straggler_rows=straggler_rows)
+    gen = lambda s: torch.Generator(device=dev).manual_seed(s)
+    state = init_async_state(model.init(gen(seed)), fed_cfg, gen(seed + 1))
+    history = []
+    for t in range(1, n_rounds + 1):
+        t0 = time.perf_counter()
+        state, metrics = round_fn(state, draw(state))
+        row = {k: _host(v) for k, v in metrics.items()}
+        row["wall_ms"] = (time.perf_counter() - t0) * 1e3
+        if eval_fn is not None:
+            row.update({k: _host(v) for k, v in eval_fn(state.params).items()})
+        row["round"] = t
+        history.append(row)
+    return state, history

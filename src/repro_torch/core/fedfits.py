@@ -25,8 +25,10 @@ decode, the int8 path aggregates straight from the codes through the
 fused-dequant kernels (``comm/kernels/comm_codecs.py``), and
 ``cost_bytes_up`` bills the measured wire bytes.
 
-Not in this slice (``make_round``/``run`` raise ``NotImplementedError``):
-population-scale async, attacks, faults, telemetry.
+The population-scale engine is ``core/async_engine.py``; this round is its
+M == K case whatever ``population`` says, as in the JAX package.  Not in
+this slice (``make_round``/``run`` raise ``NotImplementedError``):
+attacks, faults in the sync round, telemetry.
 """
 from __future__ import annotations
 
@@ -135,13 +137,10 @@ def make_client_update(model, fed_cfg):
 
 def _check_supported(fed_cfg, *, data_attack, update_attack, malicious,
                      faults):
-    if fed_cfg.population > 0:
-        raise NotImplementedError(
-            "population > 0: the population-scale async engine comes with "
-            "ROADMAP queue 1 item 11")
     if (data_attack, update_attack, malicious, faults) != (None,) * 4:
         raise NotImplementedError(
-            "attacks and faults come with ROADMAP queue 1 item 10")
+            "attacks, and faults in the sync round, come with ROADMAP "
+            "queue 1 item 10")
     if fed_cfg.agg_blk is not None:
         raise NotImplementedError(
             "agg_blk is the TPU kernels' VMEM block size; the CUDA kernels "

@@ -4,7 +4,8 @@ FedFiTS threshold election, FedAvg, FedRand, FedPow.
 Each random policy is split in two: a ``draw_*`` that takes its noise from
 a ``torch.Generator``, and a pure function of that noise, so a test can
 hand the pure function the JAX package's own draws and expect the exact
-mask.  All policies return a float32 mask (K,) — X(k, t) of Eq. (8).
+mask.  All policies return a float32 mask (K,) — X(k, t) of Eq. (8);
+``population_cohort`` returns the async engine's (C,) cohort indices.
 Sorts are stable, as ``jnp.argsort`` is.
 """
 from __future__ import annotations
@@ -12,6 +13,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core import fitness
+from repro_torch.kernels import population_select as ps
 
 
 def _rank_of(order):
@@ -68,8 +70,7 @@ def fedrand_select(avail, c, u):
 
 def draw_fedpow(k, generator):
     """Standard Gumbel noise, -log(-log(u))."""
-    u = torch.rand(k, generator=generator, device=generator.device)
-    return -torch.log(-torch.log(u.clamp(min=torch.finfo(u.dtype).tiny)))
+    return ps.draw_gumbel(k, generator)
 
 
 def fedpow_select(local_losses, avail, d, m, gumbel, n=None):
@@ -88,3 +89,13 @@ def fedpow_select(local_losses, avail, d, m, gumbel, n=None):
     sel_rank = _rank_of(torch.argsort(-loss_pri, stable=True))
     return ((sel_rank < m) & cand).float()
 
+
+def population_cohort(priority, d, gumbel, *, method="segmented", blk=4096):
+    """Population-scale cohort sampling: d of M clients without
+    replacement, with probability proportional to ``priority`` (M,), by
+    Gumbel-top-d over the streaming top-d routes of
+    ``kernels/population_select.py`` (``gumbel``: (M,) noise from
+    ``population_select.draw_gumbel``).  Returns (d,) int32 population
+    indices in descending key order, the same on every route."""
+    logw = torch.log(torch.clamp(priority.float(), min=1e-12))
+    return ps.gumbel_topd(logw, d, gumbel, method=method, blk=blk)

@@ -5,7 +5,8 @@ nested dict/list structure, so params are a plain copy leaf by leaf, in
 JAX's flatten order (dict keys sorted).  Per-client state that the port
 keeps as one (K, N) buffer in the round's column order (EF residuals) and
 wire records (``comm/codecs.py``) are the JAX per-leaf arrays concatenated
-along the column axis.  The port never imports jax: the caller turns JAX
+along the column axis; so are the parked rows of the async engine's
+``DeliveryBuffer``.  The port never imports jax: the caller turns JAX
 arrays into numpy first, e.g. ``jax.tree_util.tree_map(np.asarray, t)``.
 """
 from __future__ import annotations
@@ -15,6 +16,7 @@ import torch
 
 from repro_torch import tree
 from repro_torch.comm import codecs
+from repro_torch.core import async_engine, clientstore
 
 _RECORDS = {("q", "s"): codecs.QuantLeaf, ("bits", "s"): codecs.SignLeaf,
             ("idx", "val"): codecs.SparseLeaf}
@@ -51,3 +53,27 @@ def wire_from_numpy(enc_tree, device="cpu"):
         torch.tensor(np.concatenate([np.asarray(getattr(r, f)) for r in recs],
                                     axis=1), device=device)
         for f in fields))
+
+
+def store_from_numpy(jstore, device="cpu"):
+    """A JAX ``ClientStore`` (numpy columns) -> the port's: the same
+    columns and dtypes, EF residuals as one (M, N) buffer."""
+    col = lambda a: torch.tensor(np.asarray(a), device=device)
+    return clientstore.ClientStore(
+        fitness=col(jstore.fitness), trust=col(jstore.trust),
+        gate_trust=col(jstore.gate_trust), staleness=col(jstore.staleness),
+        failures=col(jstore.failures), cum_selected=col(jstore.cum_selected),
+        ef=None if jstore.ef is None else rows_from_numpy(jstore.ef, device))
+
+
+def buffer_from_numpy(jbuf, params, fed_cfg):
+    """A JAX ``DeliveryBuffer`` (numpy leaves) -> the port's, on the device
+    of ``params``: the parked rows in JAX's flatten order inside a fresh
+    (C + B + 1, N) row matrix, and the (B,) columns."""
+    dev = tree.leaves(params)[0].device
+    buf = async_engine.init_buffer(params, fed_cfg,
+                                   upd=rows_from_numpy(jbuf.upd, dev))
+    col = lambda a: torch.tensor(np.asarray(a), device=dev)
+    return buf._replace(owner=col(jbuf.owner), n_k=col(jbuf.n_k),
+                        age=col(jbuf.age), remaining=col(jbuf.remaining),
+                        active=col(jbuf.active))

@@ -39,6 +39,8 @@ _SIGNATURES = {
                    _P],
     # q, s, table, mask, part, out, G, C, N, NQ, L, qblk, chunk, stream
     "cc_gram": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    # g, vals, idx, nb, blk, d, stream
+    "ps_block_topd": [_P, _P, _P, _I, _I, _I, _P],
 }
 
 

@@ -1,19 +1,23 @@
-"""Where a round's time goes: the full-width paper-cnn FedFiTS round on the
-card, timed on the host clock and traced by ``torch.profiler``.
+"""Where a round's time goes: a full-width paper-cnn round on the card,
+timed on the host clock and traced by ``torch.profiler``.
 
     PYTHONPATH=src python -m repro_torch.launch.profile_round \
-        [--aggregator A] [--compress C]
+        [--engine sync|async] [--aggregator A] [--compress C]
 
-Runs the round of ``chip_smoke.py``'s main path (16 clients, batch 32,
-2 local epochs), with the uplink codec ``--compress`` (none, int8, int4,
-signsgd, topk, randk; error feedback on).  Prints the median round wall
-time over 10 steady-state rounds (host clock, ending in a synchronize),
-then traces one more round and prints: device busy time (the sum of kernel
-and copy times) and the idle share of the traced wall time, the device
-time under each phase span of the round (client_update, transport,
-selection, sanitize, aggregate, writeback) and under the port's own CUDA
-kernels (K1-K3 and K6a-c apart), and the kernels that take the most
-device time.
+``--engine sync`` (the default) runs the FedFiTS round of
+``chip_smoke.py``'s main path (16 clients, batch 32, 2 local epochs), with
+the uplink codec ``--compress`` (none, int8, int4, signsgd, topk, randk;
+error feedback on).  ``--engine async`` runs the buffered-async round of
+``chip_smoke.py``'s phase 5: a cohort of 16 of M=16,384 registered clients
+drawn by K7, a retry buffer of 32 rows, chronic stragglers.
+
+Prints the median round wall time over 10 steady-state rounds (host clock,
+ending in a synchronize), then traces one more round and prints: device
+busy time (the sum of kernel and copy times) and the idle share of the
+traced wall time, the device time under each phase span of the round
+(client_update, transport, selection, delivery, sanitize, aggregate,
+writeback) and under the port's own CUDA kernels (K1-K3, K6a-c and K7
+apart), and the kernels that take the most device time.
 Runs on the card unless ``--device cpu``.
 """
 from __future__ import annotations
@@ -29,19 +33,24 @@ from torch.profiler import ProfilerActivity, profile
 from repro_torch import device as device_mod
 from repro_torch.configs.base import FedConfig
 from repro_torch.configs.paper_models import CNN_CONFIG
-from repro_torch.core import fedfits
+from repro_torch.core import async_engine, fedfits
+from repro_torch.core.faults import FaultConfig
 from repro_torch.data.pipeline import build_federation
 from repro_torch.models.model import build
 
 ROUNDS = 10                 # timed steady-state rounds, after 2 warm-up
-SPANS = ("client_update", "transport", "selection", "sanitize", "aggregate",
-         "writeback")
+ASYNC_M, ASYNC_N = 16_384, 131_072   # the async engine's population, data
+SPANS = ("client_update", "transport", "selection", "delivery", "sanitize",
+         "aggregate", "writeback")
 # the port's own kernels launch through ctypes, outside any torch op, so the
 # profiler does not attribute them to a span: they are summed by name.  K1-K3
 # and K6a-c are the same templated kernels (pass1_partials, gated_combine,
-# gram_partials) over two row sources; reduce_partials serves both.
+# gram_partials) over two row sources; reduce_partials serves both.  K7
+# (block_topd_kernel) launches inside the selection span and is likewise
+# summed by name.
 OWN_KERNELS = {"K1-K3": ("DenseRows",), "K6a-c": ("QuantRows",),
-               "reduce_partials": ("reduce_partials",)}
+               "reduce_partials": ("reduce_partials",),
+               "K7": ("block_topd",)}
 COMPRESS = ("none", "int8", "int4", "signsgd", "topk", "randk")
 
 
@@ -50,44 +59,79 @@ def _sync(dev):
         torch.cuda.synchronize()
 
 
-def main(argv=None):
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--aggregator", default="fedavg",
-                    choices=["fedavg", "trimmed_mean", "median", "krum"])
-    ap.add_argument("--compress", default="none", choices=COMPRESS)
-    ap.add_argument("--device", default=None)
-    args = ap.parse_args(argv)
-    dev = device_mod.resolve(args.device)
-
+def _sync_round(args, dev, gen):
+    """The sync engine's round as ``step(t)``."""
     model = build(CNN_CONFIG)
     fed, _ = build_federation(0, kind="images", n=4000, n_clients=16,
                               batch_size=32, device=dev)
     cfg = FedConfig(n_clients=16, algorithm="fedfits", local_epochs=2,
                     local_lr=0.05, msl=4, pft=2, aggregator=args.aggregator,
                     compress=args.compress, error_feedback=True)
-    gen = lambda s: torch.Generator(device=dev).manual_seed(s)
     state = fedfits.init_state(model.init(gen(0)), 16, cfg, gen(1))
     round_fn = fedfits.make_round(model, cfg)
     g_data = gen(2)
 
+    def step(t):
+        nonlocal state
+        state, _ = round_fn(state, fed.data_fn(t, g_data))
+
+    return step
+
+
+def _async_round(args, dev, gen):
+    """The buffered-async engine's round (``chip_smoke.py`` phase 5) as
+    ``step(t)``: draws, then the round."""
+    if args.compress != "none":
+        raise SystemExit("--engine async is dense-uplink only")
+    model = build(CNN_CONFIG)
+    fed, _ = build_federation(0, kind="images", n=ASYNC_N,
+                              n_clients=ASYNC_M, dirichlet_alpha=1.0,
+                              batch_size=32, device=dev)
+    cfg = FedConfig(n_clients=16, population=ASYNC_M, local_epochs=2,
+                    local_lr=0.05, aggregator=args.aggregator,
+                    async_max_retries=2, select_method="pallas")
+    late = FaultConfig(straggler_frac=0.3, straggler_delay=3.0,
+                       base_delay=0.3)
+    draw, round_fn = async_engine.make_async_round(model, cfg, fed.data,
+                                                   faults=late)
+    state = async_engine.init_async_state(model.init(gen(0)), cfg, gen(1))
+
+    def step(t):
+        nonlocal state
+        state, _ = round_fn(state, draw(state))
+
+    return step
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--engine", default="sync", choices=["sync", "async"])
+    ap.add_argument("--aggregator", default="fedavg",
+                    choices=["fedavg", "trimmed_mean", "median", "krum"])
+    ap.add_argument("--compress", default="none", choices=COMPRESS)
+    ap.add_argument("--device", default=None)
+    args = ap.parse_args(argv)
+    dev = device_mod.resolve(args.device)
+    gen = lambda s: torch.Generator(device=dev).manual_seed(s)
+    step = (_async_round if args.engine == "async" else _sync_round)(
+        args, dev, gen)
+
     walls = []
     for t in range(1, ROUNDS + 3):
-        batch = fed.data_fn(t, g_data)
         _sync(dev)
         t0 = time.perf_counter()
-        state, _ = round_fn(state, batch)
+        step(t)
         _sync(dev)
         if t > 2:                                 # rounds 1-2: warm-up
             walls.append((time.perf_counter() - t0) * 1e3)
 
-    batch = fed.data_fn(ROUNDS + 3, g_data)
     acts = [ProfilerActivity.CPU]
     if dev.type == "cuda":
         acts.append(ProfilerActivity.CUDA)
     _sync(dev)
     with profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        round_fn(state, batch)
+        step(ROUNDS + 3)
         _sync(dev)
         traced_ms = (time.perf_counter() - t0) * 1e3
 
@@ -104,8 +148,8 @@ def main(argv=None):
         by_kernel[e.name] = (n + e.self_device_time_total / 1e3, c + 1)
 
     name = torch.cuda.get_device_name(0) if dev.type == "cuda" else "cpu"
-    print(f"device {name}, aggregator {args.aggregator}, compress "
-          f"{args.compress}")
+    print(f"device {name}, engine {args.engine}, aggregator "
+          f"{args.aggregator}, compress {args.compress}")
     print(f"round wall ms: median {statistics.median(walls):.3f} over "
           f"{len(walls)} rounds (min {min(walls):.3f}, max {max(walls):.3f})")
     print(f"traced round: wall {traced_ms:.3f} ms, device busy "

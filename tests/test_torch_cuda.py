@@ -1,7 +1,8 @@
 """The port on the card: each CUDA kernel against its plain version (and
-K6a-c bitwise against K1-K3 on the masked decode), the wrappers' checks
-and launch counts, and a round on the card (dense and int8) against the
-same round on the CPU.  Needs a CUDA device; skips without one.  Imports
+K6a-c bitwise against K1-K3 on the masked decode, K7's candidates bitwise
+against ``block_topd_plain``), the wrappers' checks and launch counts, and
+a round on the card (dense, int8 and buffered-async) against the same
+round on the CPU.  Needs a CUDA device; skips without one.  Imports
 no jax, so it runs where only the port is installed:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
@@ -20,8 +21,10 @@ from repro_torch.comm import codecs
 from repro_torch.comm.kernels import comm_codecs as dq
 from repro_torch.configs.base import FedConfig
 from repro_torch.configs.paper_models import CNN_CONFIG
-from repro_torch.core import fedfits
+from repro_torch.configs.paper_models import MLP_CONFIG
+from repro_torch.core import async_engine, fedfits, faults
 from repro_torch.data.pipeline import build_federation
+from repro_torch.kernels import population_select as ps
 from repro_torch.kernels import robust_pipeline as rp
 from repro_torch.models.model import build
 
@@ -200,3 +203,75 @@ def test_int8_round_on_card_matches_cpu(card, aggregator):
         for a, b in zip(tree.leaves(s_gpu.params), tree.leaves(s_cpu.params)):
             torch.testing.assert_close(a.cpu(), b, rtol=0, atol=step + 1e-5)
     assert dq.launch_counts()["dequant_gate_partials"] == 3
+
+
+@pytest.mark.parametrize("m,d,blk,dup", [
+    (1_000_000, 64, 4096, False), (16_384, 16, 4096, False),
+    (10_007, 64, 4096, False), (10_007, 64, 64, False),   # exhausted blocks
+    (3 * 4096, 64, 4096, True), (300, 5, 64, True)])
+def test_block_topd_matches_plain(card, m, d, blk, dup):
+    rng = np.random.default_rng(m + d)
+    g = rng.integers(0, 30, m) if dup else rng.standard_normal(m)
+    g = torch.from_numpy(g.astype(np.float32)).to(card)
+    gp, _ = ps._pad_neg_inf(g, blk)
+    ps.reset_launch_counts()
+    v, gi = ps.block_topd(gp, d, blk)
+    assert ps.launch_counts() == {"block_topd": 1}
+    pv, pgi = ps.block_topd_plain(gp, d, blk)
+    assert torch.equal(v.view(torch.int32), pv.view(torch.int32))
+    assert torch.equal(gi, pgi)
+    ref = ps.topd_argsort(g, d)
+    for method in ps.METHODS:
+        assert torch.equal(ps.topd(g, d, method=method, blk=blk), ref), method
+
+
+def test_block_topd_wrapper_checks_and_routes(card):
+    g = torch.randn(40, device=card)
+    ps.reset_launch_counts()
+    out = ps.topd(g, 64, method="pallas")          # d >= M: argsort route
+    assert out.shape == (40,) and ps.launch_counts()["block_topd"] == 0
+    ps.topd(torch.randn(5000, device=card), 8, method="segmented")
+    assert ps.launch_counts()["block_topd"] == 0
+    with pytest.raises(TypeError):
+        ps.block_topd(torch.zeros(4096, device=card, dtype=torch.float64),
+                      4, 4096)
+    with pytest.raises(ValueError):
+        ps.block_topd(torch.zeros(4000, device=card), 4, 4096)
+
+
+def test_async_round_on_card_matches_cpu(card):
+    """3 buffered-async rounds of paper-mlp (M=24, C=8) with chronic
+    stragglers, the card's draws copied to the CPU: the same cohorts,
+    on-time masks and buffer state, params within 1e-5."""
+    model = build(MLP_CONFIG)
+    cfg = FedConfig(n_clients=8, population=24, algorithm="fedavg",
+                    local_epochs=1, local_lr=0.2, aggregator="trimmed_mean",
+                    select_method="pallas")
+    fl = faults.FaultConfig(straggler_frac=0.3, straggler_delay=3.0,
+                            base_delay=0.3)
+    fed, _ = build_federation(0, kind="tabular", n=600, n_clients=24,
+                              batch_size=16, n_classes=10, sep=1.0,
+                              dirichlet_alpha=1.0)
+    cpu = lambda t: tree.map(lambda v: v.cpu(), t)
+    params = model.init(torch.Generator(card).manual_seed(0))
+    s_gpu = async_engine.init_async_state(
+        params, cfg, torch.Generator(card).manual_seed(1))
+    s_cpu = async_engine.init_async_state(cpu(params), cfg,
+                                          torch.Generator())
+    draw, f_gpu = async_engine.make_async_round(model, cfg, fed.data,
+                                                batch_size=16, faults=fl)
+    _, f_cpu = async_engine.make_async_round(model, cfg, cpu(fed.data),
+                                             batch_size=16, faults=fl)
+    ps.reset_launch_counts()
+    for t in range(3):
+        draws = draw(s_gpu)
+        s_gpu, m_gpu = f_gpu(s_gpu, draws)
+        s_cpu, m_cpu = f_cpu(s_cpu, cpu(draws))
+        for k in ("cohort", "on_time", "due", "exhausted"):
+            assert torch.equal(m_gpu[k].cpu(), m_cpu[k]), (k, t)
+        for k in ("owner", "age", "active"):
+            assert torch.equal(getattr(s_gpu.buf, k).cpu(),
+                               getattr(s_cpu.buf, k)), (k, t)
+        for a, b in zip(tree.leaves(s_gpu.params), tree.leaves(s_cpu.params)):
+            torch.testing.assert_close(a.cpu(), b, rtol=0, atol=1e-5)
+    assert ps.launch_counts()["block_topd"] == 3

@@ -2,6 +2,7 @@
 no repro_torch module (nor chip_smoke.py) imports jax or anything of the
 JAX package, the entry points raise without CUDA, and chip_smoke.py
 prints no result and exits non-zero without CUDA or outside the repo."""
+import dataclasses
 import os
 import shutil
 import subprocess
@@ -61,10 +62,10 @@ def test_entry_points_raise_without_cuda():
 def test_unported_options_raise():
     from repro_torch.configs.base import FedConfig
     from repro_torch.configs.paper_models import MLP_CONFIG
-    from repro_torch.core import fedfits
+    from repro_torch.core import async_engine, fedfits
     from repro_torch.models.model import build
     model = build(MLP_CONFIG)
-    for kw in [dict(population=64), dict(agg_blk=512)]:
+    for kw in [dict(agg_blk=512)]:
         with pytest.raises(NotImplementedError):
             fedfits.make_round(model, FedConfig(**kw))
     with pytest.raises(NotImplementedError):
@@ -72,6 +73,19 @@ def test_unported_options_raise():
     with pytest.raises(NotImplementedError):
         fedfits.run(model, FedConfig(), None, 1, device="cpu",
                     telemetry=object())
+    cfg = FedConfig(n_clients=2, population=8)
+    pop = {"x": torch.zeros(8, 3, 22), "y": torch.zeros(8, 3),
+           "eval_x": torch.zeros(8, 2, 22), "eval_y": torch.zeros(8, 2),
+           "n": torch.ones(8)}
+    for kw, match in [(dict(driver="scan"), "item a"),
+                      (dict(telemetry=object()), "item 12"),
+                      (dict(update_attack=object()), "item 10")]:
+        with pytest.raises(NotImplementedError, match=match):
+            async_engine.run_async(model, cfg, pop, 1, device="cpu", **kw)
+    with pytest.raises(ValueError, match="dense-uplink"):
+        async_engine.make_async_round(
+            model, dataclasses.replace(cfg, population=0, compress="int8"),
+            pop)
 
 
 @pytest.mark.parametrize("alone", [False, True])
