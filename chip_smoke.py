@@ -14,7 +14,15 @@ Phases, one line each (a failure raises, so the exit code is not 0):
               leaves (and 4 ragged leaves at the wide shape); they are also
               held bitwise against K1-K3 on the masked decode, and a
               masked-out client whose scale is inf must leave the outputs
-              finite.  Times by CUDA events.
+              finite.  K5 (``robust_agg_fwd``, csrc/robust_agg.cu) in both
+              modes at the main and the wide shape under full, mixed,
+              one-member and empty masks: the median bitwise its plain
+              version, the empty mask exactly 0, and bitwise K2 under the
+              same mask.  The flat wrappers K4a-c bitwise K1-K3 (the flat
+              tree path against the leafwise one, all four aggregators),
+              the two-stage scheme at G=2 against its plain path, and K3
+              and K6c at C=96 (two 64-row output tiles).  Times by CUDA
+              events.
   2b. top-d   K7 (``block_topd``) against its plain version on the card,
               values and indices bitwise, at M=1,000,000/d=64,
               M=16,384/d=16 (the async path's shape), M=10,007/d=64 with
@@ -50,6 +58,31 @@ Phases, one line each (a failure raises, so the exit code is not 0):
               park and land; trimmed_mean test_acc must rise; round 1 again
               on the CPU port with the card's draws must give the same
               cohort, on-time mask and buffer, params within 1e-5.
+  6. robustness
+              (a) the port's examples/poisoning_defense.py: paper-mlp on
+              the tabular federation (n=1600, K=10, 22 classes), 2 clients
+              sign-flipping at 10x, 12 rounds under each aggregator and
+              trimmed_mean again under int8 (which must bill the dense
+              run's client-rounds); then one poisoned (10, 512) round
+              through K5 (trimmed and median within 0.01 of the honest
+              1.0), the flat tree path K4a-c under each aggregator and the
+              two-stage scheme.  (b) named registry cells through
+              ``run_scenario`` at paper-cnn width (images n=4000, K=16,
+              6 rounds each; the async Krum cell with 4 retries, so K3
+              takes C + B = 80 rows), one row each in the example's
+              columns.  Each cell's aggregation kernels must launch, the
+              dropout cell must lose updates, the cross-round attacker's
+              blend must move, billing must count every team member
+              (dropped ones too).  Two variants run beside their cells:
+              ``hetero_fedfits`` with partial_min_frac=0.1 must stop
+              clients early (the cell's own 0.5 cannot at E=2), and
+              ``signflip_fedfits`` with the cosine gate at 0 must demote
+              the sign-flippers' gate_trust below the honest clients' (at
+              the cell's -0.5 the gate need not fire in 6 rounds).  Round 1 of hetero_fedfits,
+              gate_aware_int8_dropout and async_late_poison_krum again on
+              the CPU port with the card's draws: the same team or cohort,
+              gated, lost and epoch masks, params within 1e-5 (int8: one
+              quantisation step).
 The last three lines are the nvidia-smi line, the kernels JSON and the
 result JSON.  Without a CUDA device, or without the repository's
 src/repro_torch beside this file, it exits non-zero and prints no result.
@@ -95,13 +128,22 @@ TPU_KERNELS = {   # name -> (file:line of the Pallas kernel it replaces)
     "dequant_gate_partials": "src/repro/comm/kernels/comm_codecs.py:125",
     "dequant_gated_combine": "src/repro/comm/kernels/comm_codecs.py:188",
     "dequant_pairwise_gram": "src/repro/comm/kernels/comm_codecs.py:248",
+    "robust_agg_fwd": "src/repro/kernels/robust_agg.py:70",
+    "cosine_gate_partials_flat": "src/repro/kernels/robust_pipeline.py:219",
+    "gated_combine_flat": "src/repro/kernels/robust_pipeline.py:351",
+    "pairwise_sq_dists_blocked": "src/repro/kernels/robust_pipeline.py:447",
 }
+FLAT_OF = {"cosine_gate_partials_flat": "cosine_gate_partials",
+           "gated_combine_flat": "gated_combine",
+           "pairwise_sq_dists_blocked": "pairwise_gram"}
 DEQUANT_OF = {"dequant_gate_partials": "cosine_gate_partials",
               "dequant_gated_combine": "gated_combine",
               "dequant_pairwise_gram": "pairwise_gram"}
 CUDA_SOURCE = "src/repro_torch/csrc/robust_pipeline.cu"
 CUDA_SOURCE_K6 = "src/repro_torch/csrc/comm_codecs.cu"
 CUDA_SOURCE_K7 = "src/repro_torch/csrc/population_select.cu"
+CUDA_SOURCE_K5 = "src/repro_torch/csrc/robust_agg.cu"
+GRAM_WIDE_SHAPE = (1, 96, 65_573)          # K3 / K6c past one 64-row tile
 K7_REPLACES = "src/repro/kernels/population_select.py:98"
 # (M, d, blk) of phase 2b; the async path's shape is the second
 TOPD_CASES = ((1_000_000, 64, 4096), (16_384, 16, 4096), (10_007, 64, 4096),
@@ -112,6 +154,17 @@ ASYNC_M, ASYNC_N, ASYNC_C = 16_384, 131_072, 16
 ASYNC_SCHEDULE = (("trimmed_mean", 8), ("fedavg", 2), ("median", 2),
                   ("krum", 2))
 DENSE_BYTES_PER_CLIENT = 1_686_568          # paper-cnn's 421,642 fp32
+# phase 6b: registry cells at paper-cnn width ("+partial0.1": the cell with
+# partial_min_frac=0.1, "+gate0": with cosine_outlier_thresh=0,
+# "+retries4": with async_max_retries=4)
+ROBUST_CELLS = ("alie_trimmed", "minmax_trimmed", "gate_aware_krum",
+                "backdoor_trimmed", "cross_round_trimmed", "signflip_fedfits",
+                "signflip_fedfits+gate0", "hetero_fedfits",
+                "hetero_fedfits+partial0.1", "gate_aware_int8_dropout",
+                "async_late_poison_krum+retries4")
+REPLAY_CELLS = ("hetero_fedfits", "gate_aware_int8_dropout",
+                "async_late_poison_krum+retries4")
+ROBUST_ROUNDS, ROBUST_K = 6, 16
 DEVICE = "cuda"
 
 
@@ -126,10 +179,14 @@ def bound(bytes_moved, ops):
 def kernel_work(name, g, c, n, mode=None, nq=0, n_leaves=0):
     """Bytes each kernel must move (inputs read once, outputs written once)
     and the operations it does: C^2 compares per column for the rank
-    network, 2 flops per multiply-add.  A fused-dequant kernel reads one
+    network, 2 flops per multiply-add; the Gram X X^T is symmetric, so it
+    needs C(C+1)/2 multiply-adds per column.  A fused-dequant kernel reads one
     byte a code, the (G, C, nq) fp32 scales, its mask and the leaf table
     in place of the fp32 matrix, and adds one multiply a code."""
     x, deq = 4 * g * c * n, 0
+    name = FLAT_OF.get(name, name)
+    if name == "robust_agg_fwd":               # x, the team mask, the row
+        return x + 4 * g * c + 4 * g * n, g * n * (c * c + 2 * c)
     if name in DEQUANT_OF:
         name = DEQUANT_OF[name]
         x = g * c * n + 4 * g * c * nq + 4 * (2 * n_leaves + 2)
@@ -140,7 +197,7 @@ def kernel_work(name, g, c, n, mode=None, nq=0, n_leaves=0):
         return x + 4 * g * c + 4 * g * (2 * c + 1), \
             g * n * (c * c + 4 * c + 2) + deq
     if name == "pairwise_gram":
-        return x + 4 * g * c * c, 2 * g * c * c * n + deq
+        return x + 4 * g * c * c, g * c * (c + 1) * n + deq
     ops = 2 * g * c * n if mode == "mean" else g * n * (c * c + 2 * c)
     return x + 8 * g * c + 4 * g * n, ops + deq
 
@@ -223,14 +280,13 @@ def _inputs(shape, seed, masks):
     return x.cuda(), mask.cuda(), w.cuda()
 
 
-def _bitwise(name, out, ref):
+def _bitwise(name, out, ref, what="K1-K3 on the masked decode"):
     """Bitwise equality, NaN equal to NaN."""
     import torch
     same = (out.view(torch.int32) == ref.view(torch.int32)) \
         | (out.isnan() & ref.isnan())
     if not bool(same.all()):
-        raise AssertionError(f"{name}: not bitwise equal to K1-K3 on the "
-                             "masked decode")
+        raise AssertionError(f"{name}: not bitwise equal to {what}")
 
 
 def _encode(x, sizes):
@@ -366,7 +422,8 @@ def _kernels(cnn_sizes):
             lambda: rp.gated_combine_plain(x, m, m, mode="trimmed"), None),
         "gated_combine[median]": (
             lambda: rp.gated_combine(x, m, m, mode="median"),
-            lambda: rp.gated_combine_plain(x, m, m, mode="median"), None),
+            lambda: rp.gated_combine_plain(x, m, m, mode="median"),
+            lambda: torch.quantile(x, 0.5, dim=1)),
         "pairwise_gram": (
             lambda: rp.pairwise_gram(x),
             lambda: rp.pairwise_gram_plain(x),
@@ -384,25 +441,190 @@ def _kernels(cnn_sizes):
                 q, s, layout, m, wm, mode=mode),
             lambda mode=mode, wm=wm: cc.dequant_gated_combine_plain(
                 q, s, layout, m, wm, mode=mode), None)
+    return [_timed_entry(name, CUDA_SOURCE_K6 if name.partition("[")[0]
+                         in DEQUANT_OF else CUDA_SOURCE, SLICE_SHAPE,
+                         errs[name], kern, plain, lib, nq=layout.n_scales,
+                         n_leaves=len(cnn_sizes))
+            for name, (kern, plain, lib) in calls.items()]
+
+
+def _timed_entry(name, source, shape, err, kern, plain, lib, **work):
+    """A kernels-line entry: CUDA-event times of the kernel, its plain
+    version and the library call (if any) at ``shape``, and the bound.  A
+    median's library call, ``torch.quantile(x, 0.5)``, interpolates halfway
+    between the rows ranked floor((n-1)/2) and ceil((n-1)/2): under the
+    full mask it computes the kernel's function, and is held to it."""
+    g, c, n = shape
+    base, _, mode = name.partition("[")
+    if lib and mode == "median]":
+        _check(f"torch.quantile(0.5) as {name} {shape}", lib(), kern(),
+               rel=NSUM_REL)
+    bound_ms, bound_by = bound(*kernel_work(base, g, c, n,
+                                            mode.rstrip("]") or None, **work))
+    entry = {"name": name, "route": "cuda", "source": source,
+             "replaces": TPU_KERNELS[base], "launches": None,
+             "max_abs_err": err, "ms": time_ms(kern),
+             "plain_ms": time_ms(plain), "bound_ms": bound_ms,
+             "bound_by": bound_by,
+             "library_ms": time_ms(lib) if lib else None}
+    print(f"[kernels] {name} {shape}: {entry['ms']:.4f} ms, plain "
+          f"{entry['plain_ms']:.4f} ms, library {entry['library_ms']}, "
+          f"bound {bound_ms:.4f} ms ({bound_by})")
+    return entry
+
+
+def _plain_pipeline(x, w, m, cfg):
+    """The Eq.-11 pipeline through the kernels' plain versions, on the
+    tensors' own device."""
+    from repro_torch.kernels import robust_pipeline as rp
+    return rp.eq11(
+        lambda mm: rp.cosine_gate_partials_plain(x, mm),
+        lambda mm, ww, mode, tf: rp.gated_combine_plain(x, mm, ww, mode=mode,
+                                                        trim_frac=tf),
+        lambda mm: rp.pairwise_gram_plain(x), w, m, **rp._pipeline_args(cfg))
+
+
+def _k5_and_flat(cnn_sizes):
+    """Phase 2, continued: K5 against its plain version and bitwise K2; the
+    flat wrappers K4a-c bitwise K1-K3; the two-stage scheme at G=2 against
+    its plain path; K3 and K6c at C=96.  Returns the K5 and K4a-c entries
+    (times at the main path's shape) and K3's and K6c's C=96 times."""
+    import torch
+    from repro_torch.comm.kernels import comm_codecs as cc
+    from repro_torch.configs.base import FedConfig
+    from repro_torch.kernels import robust_agg as ra
+    from repro_torch.kernels import robust_pipeline as rp
+
+    errs = {}
+
+    def note(key, e):
+        errs[key] = max(errs.get(key, 0.0), e)
+
+    for shape in (SLICE_SHAPE, WIDE_SHAPE):
+        _, c, n = shape
+        x = _inputs((1, c, n), c + n, [[1.0] * c])[0][0]
+        masks = {"full": [1.0] * c,
+                 "mixed": [float(i % 3 > 0) for i in range(c)],
+                 "one": [float(i == 7) for i in range(c)],
+                 "empty": [0.0] * c}
+        for kind, mk in masks.items():
+            m = torch.tensor(mk, device=DEVICE)
+            for mode in ra.MODES:
+                key, label = f"robust_agg_fwd[{mode}]", f"{shape} {kind}"
+                out = ra.robust_agg_fwd(x, m, mode=mode)
+                note(key, _check(f"{key} {label}", out,
+                                 ra.robust_agg_fwd_plain(x, m, mode=mode),
+                                 exact=mode == "median"))
+                _bitwise(f"{key} {label}", out,
+                         rp.gated_combine(x[None], m[None], m[None],
+                                          mode=mode)[0], "K2 in its mode")
+                if kind == "empty" and float(out.abs().max()) != 0.0:
+                    raise AssertionError(f"{key}: empty mask is not 0")
+                if kind == "one":
+                    _check(f"{key} {label}", out, x[7], exact=True)
+        torch.cuda.synchronize()
+        print(f"[kernels] K5 {(c, n)} full/mixed/one/empty masks: both "
+              "modes agree with the plain version (median bitwise), bitwise "
+              "K2, empty mask exactly 0")
+
+    g, c, n = SLICE_SHAPE
+    x, m, w = _inputs(SLICE_SHAPE, 3, [[1.0] * c])
+    leaves = list(torch.split(x[0], cnn_sizes, dim=1))
+    for agg in ("fedavg", "trimmed_mean", "median", "krum"):
+        cfg = FedConfig(n_clients=c, aggregator=agg)
+        flat = rp.fused_aggregate_tree_flat(leaves, w[0], m[0], cfg)
+        lead = rp.fused_aggregate_tree(leaves, w[0], m[0], cfg)
+        for i, (o, r) in enumerate(zip(flat, lead)):
+            _bitwise(f"fused_aggregate_tree_flat[{agg}] leaf {i}", o, r,
+                     "the leafwise path")
+    _bitwise("pairwise_sq_dists_blocked", rp.pairwise_sq_dists_blocked(x, m),
+             rp.pairwise_sq_dists(x, m), "K3's distances")
+    x2, m2, w2 = _inputs((2, c, n), 4, [[1.0] * c,
+                                         [float(i % 3 > 0) for i in range(c)]])
+    slots = list(torch.split(x2, cnn_sizes, dim=2))
+    for agg in ("fedavg", "trimmed_mean", "median", "krum"):
+        cfg = FedConfig(n_clients=c, aggregator=agg)
+        out = torch.cat([l.reshape(-1) for l in
+                         rp.fused_two_stage_tree(slots, w2, m2, cfg)])
+        ref = rp._cross_slot(_plain_pipeline(x2, w2, m2, cfg), m2)
+        note("two_stage", _check(f"fused_two_stage_tree[{agg}] G=2", out,
+                                 ref, exact=agg == "median"))
+    torch.cuda.synchronize()
+    print("[kernels] flat wrappers K4a-c bitwise K1-K3 (tree path, four "
+          "aggregators); two-stage at G=2 agrees with its plain path")
+
+    gw, cw, nw = GRAM_WIDE_SHAPE
+    xg, mg, _ = _inputs(GRAM_WIDE_SHAPE, 96,
+                        [[float(i != 5) for i in range(cw)]])
+    note("pairwise_gram_c96", _check(f"pairwise_gram {GRAM_WIDE_SHAPE}",
+                                     rp.pairwise_gram(xg),
+                                     rp.pairwise_gram_plain(xg),
+                                     rel=NSUM_REL))
+    q, sq, layout = _encode(xg, WIDE_LEAVES)
+    k6c = cc.dequant_pairwise_gram(q, sq, layout, mg)
+    _check(f"dequant_pairwise_gram {GRAM_WIDE_SHAPE}", k6c,
+           cc.dequant_pairwise_gram_plain(q, sq, layout, mg), rel=NSUM_REL)
+    _bitwise(f"dequant_pairwise_gram {GRAM_WIDE_SHAPE}", k6c,
+             rp.pairwise_gram(cc.dequant_masked(q, sq, layout, mg)))
+    c96 = {}
+    for name, kern, plain, lib, work in (
+            ("pairwise_gram", lambda: rp.pairwise_gram(xg),
+             lambda: rp.pairwise_gram_plain(xg),
+             lambda: torch.bmm(xg, xg.transpose(1, 2)), {}),
+            ("dequant_pairwise_gram",
+             lambda: cc.dequant_pairwise_gram(q, sq, layout, mg),
+             lambda: cc.dequant_pairwise_gram_plain(q, sq, layout, mg), None,
+             dict(nq=layout.n_scales, n_leaves=len(WIDE_LEAVES)))):
+        b, by = bound(*kernel_work(name, gw, cw, nw, **work))
+        c96[name] = {"shape": list(GRAM_WIDE_SHAPE), "ms": time_ms(kern),
+                     "plain_ms": time_ms(plain),
+                     "library_ms": time_ms(lib) if lib else None,
+                     "bound_ms": b, "bound_by": by}
+        print(f"[kernels] {name} {GRAM_WIDE_SHAPE}: {c96[name]}")
+
+    calls = {
+        "robust_agg_fwd[trimmed]": (
+            lambda: ra.robust_agg_fwd(x[0], m[0], mode="trimmed"),
+            lambda: ra.robust_agg_fwd_plain(x[0], m[0], mode="trimmed"),
+            None),
+        "robust_agg_fwd[median]": (
+            lambda: ra.robust_agg_fwd(x[0], m[0], mode="median"),
+            lambda: ra.robust_agg_fwd_plain(x[0], m[0], mode="median"),
+            lambda: torch.quantile(x[0], 0.5, dim=0)),
+        "cosine_gate_partials_flat": (
+            lambda: rp.cosine_gate_partials_flat(x, m),
+            lambda: rp.cosine_gate_partials_plain(x, m), None),
+        "gated_combine_flat[mean]": (
+            lambda: rp.gated_combine_flat(x, m, w, mode="mean"),
+            lambda: rp.gated_combine_plain(x, m, w, mode="mean"),
+            lambda: torch.matmul(w[:, None, :], x)),
+        "gated_combine_flat[trimmed]": (
+            lambda: rp.gated_combine_flat(x, m, m, mode="trimmed"),
+            lambda: rp.gated_combine_plain(x, m, m, mode="trimmed"), None),
+        "gated_combine_flat[median]": (
+            lambda: rp.gated_combine_flat(x, m, m, mode="median"),
+            lambda: rp.gated_combine_plain(x, m, m, mode="median"),
+            lambda: torch.quantile(x, 0.5, dim=1)),
+        "pairwise_sq_dists_blocked": (
+            lambda: rp.pairwise_sq_dists_blocked(x, m),
+            lambda: rp.sq_dists_from_gram(rp.pairwise_gram_plain(x), m),
+            lambda: torch.bmm(x, x.transpose(1, 2))),
+    }
     report = []
     for name, (kern, plain, lib) in calls.items():
-        base, _, mode = name.partition("[")
-        b, ops = kernel_work(base, g, c, n, mode.rstrip("]") or None,
-                             nq=layout.n_scales, n_leaves=len(cnn_sizes))
-        bound_ms, bound_by = bound(b, ops)
-        entry = {"name": name, "route": "cuda",
-                 "source": CUDA_SOURCE_K6 if base in DEQUANT_OF
-                 else CUDA_SOURCE,
-                 "replaces": TPU_KERNELS[base], "launches": None,
-                 "max_abs_err": errs[name], "ms": time_ms(kern),
-                 "plain_ms": time_ms(plain), "bound_ms": bound_ms,
-                 "bound_by": bound_by,
-                 "library_ms": time_ms(lib) if lib else None}
-        print(f"[kernels] {name} {SLICE_SHAPE}: {entry['ms']:.4f} ms, plain "
-              f"{entry['plain_ms']:.4f} ms, library {entry['library_ms']}, "
-              f"bound {bound_ms:.4f} ms ({bound_by})")
-        report.append(entry)
-    return report
+        base = name.partition("[")[0]
+        out, ref = kern(), plain()
+        pairs = zip(out, ref) if isinstance(out, tuple) else [(out, ref)]
+        sums = base in ("cosine_gate_partials_flat",
+                        "pairwise_sq_dists_blocked")
+        for o, r in pairs:
+            note(name, _check(f"{name} {SLICE_SHAPE}", o, r,
+                              exact=name.endswith("[median]"),
+                              rel=NSUM_REL if sums else None))
+        report.append(_timed_entry(
+            name, CUDA_SOURCE_K5 if base == "robust_agg_fwd" else CUDA_SOURCE,
+            SLICE_SHAPE, errs[name], kern, plain, lib))
+    return report, c96
 
 
 def _topd_checks():
@@ -812,6 +1034,316 @@ def _async_phase(model):
     return counts
 
 
+def _counts():
+    """Every launch counter of the port's kernels, by name."""
+    from repro_torch.comm.kernels import comm_codecs as cc
+    from repro_torch.kernels import robust_agg as ra
+    from repro_torch.kernels import robust_pipeline as rp
+    return {**rp.launch_counts(), **rp.flat_launch_counts(),
+            **cc.launch_counts(), **ra.launch_counts()}
+
+
+def _poisoning_defense():
+    """Phase 6a: the port's examples/poisoning_defense.py on the card."""
+    import torch
+    from repro_torch import tree
+    from repro_torch.configs.base import FedConfig
+    from repro_torch.configs.paper_models import MLP_CONFIG
+    from repro_torch.core import aggregation, attacks, fedfits
+    from repro_torch.data.pipeline import build_federation
+    from repro_torch.kernels import robust_agg as ra
+    from repro_torch.kernels import robust_agg_ops
+    from repro_torch.kernels import robust_pipeline as rp
+    from repro_torch.models.model import build
+
+    k, rounds, n_mal = 10, 12, 2
+    model = build(MLP_CONFIG)
+    fed, test = build_federation(0, kind="tabular", n=1600, n_clients=k,
+                                 batch_size=32, n_classes=22)
+    mal = (torch.arange(k, device=DEVICE) < n_mal).float()
+
+    def sign_flip(upd, m, noise):
+        return attacks.sign_flip(upd, m, scale=10.0)
+
+    def evaluate(params):
+        _, met = model.loss(params, test)
+        return {"test_acc": met["acc"]}
+
+    billed = {}
+    for agg, comp in (("fedavg", "none"), ("median", "none"),
+                      ("trimmed_mean", "none"), ("krum", "none"),
+                      ("trimmed_mean", "int8")):
+        cfg = FedConfig(n_clients=k, algorithm="fedfits", aggregator=agg,
+                        local_epochs=2, local_lr=0.05,
+                        cosine_outlier_thresh=-0.5, compress=comp)
+        state, hist = fedfits.run(model, cfg, fed.data_fn, rounds, 2,
+                                  eval_fn=evaluate, update_attack=sign_flip,
+                                  malicious=mal)
+        accs = [float(h["test_acc"]) for h in hist]
+        if not all(bool(torch.isfinite(l).all())
+                   for l in tree.leaves(state.params)):
+            raise AssertionError(f"poisoning {agg} {comp}: non-finite params")
+        billed[(agg, comp)] = float(state.cost_client_rounds)
+        print(f"[robust] poisoning aggregator={agg:<12} compress={comp:<4} "
+              f"best_acc={max(accs):.3f} final={accs[-1]:.3f} gated "
+              f"{sum(float(h['gated_frac']) for h in hist) / rounds:.3f} "
+              f"uplink {float(state.cost_bytes_up) / 1e6:.2f} MB "
+              f"client-rounds {billed[(agg, comp)]:.0f}")
+    if billed[("trimmed_mean", "int8")] != billed[("trimmed_mean", "none")]:
+        raise AssertionError("poisoning: int8 does not bill the dense run's "
+                             "client-rounds")
+
+    gen = torch.Generator(DEVICE).manual_seed(3)
+    honest = torch.randn(k, 512, generator=gen, device=DEVICE) * 0.01 + 1.0
+    poisoned = attacks.sign_flip(honest, mal, scale=10.0)
+    naive = float(poisoned.mean())
+    ones = torch.ones(k, device=DEVICE)
+    label = f"poisoned {tuple(poisoned.shape)}"
+    for mode in ("trimmed", "median"):
+        out = robust_agg_ops.robust_aggregate_tree(
+            {"w": poisoned}, ones, mode=mode)["w"]
+        _check(f"K5 robust_agg_fwd[{mode}] {label}", out,
+               ra.robust_agg_fwd_plain(poisoned, ones, mode=mode),
+               exact=mode == "median")
+        mean = float(out.mean())
+        print(f"[robust] K5 robust_agg[{mode}] mean coordinate {mean:.4f} "
+              f"(honest 1.0; naive mean {naive:.4f}); agrees with its plain "
+              "version")
+        if abs(mean - 1.0) > 0.01:
+            raise AssertionError(f"K5 {mode} did not hold off the poison")
+    slots, sw = poisoned.view(2, k // 2, 512), ones.view(2, -1)
+    for agg in ("fedavg", "trimmed_mean", "median", "krum"):
+        cfg = FedConfig(n_clients=k, aggregator=agg, krum_f=n_mal)
+        exact = agg == "median"
+        flat = rp.fused_aggregate_tree_flat({"w": poisoned}, ones, ones,
+                                            cfg)["w"]
+        _check(f"flat path K4a-c [{agg}] {label}", flat, _plain_pipeline(
+            poisoned[None], ones[None], ones[None], cfg)[0], exact=exact)
+        two = aggregation.two_stage({"w": slots}, sw, sw, cfg)["w"]
+        _check(f"two-stage [{agg}] {label}", two, rp._cross_slot(
+            _plain_pipeline(slots, sw, sw, cfg), sw), exact=exact)
+        _bitwise(f"fused_two_stage_tree_flat [{agg}] {label}",
+                 rp.fused_two_stage_tree_flat({"w": slots}, sw, sw,
+                                              cfg)["w"], two, "two_stage")
+        flat, two = float(flat.mean()), float(two.mean())
+        print(f"[robust] flat path K4a-c [{agg}] mean coordinate {flat:.4f}; "
+              f"two-stage (2 cohorts of 5) {two:.4f}; both agree with their "
+              "plain paths")
+        for what, v in (("flat path", flat), ("two-stage", two)):
+            if abs(v - 1.0) > 0.01:
+                raise AssertionError(f"{what} {agg} did not hold off the "
+                                     "poison")
+
+
+def _cell(name):
+    """A registry cell, with a ``+partial0.1``, ``+gate0`` or ``+retries4``
+    variant."""
+    import dataclasses
+    from repro_torch.scenarios import registry
+    base, _, variant = name.partition("+")
+    sc = registry.get(base)
+    if variant == "partial0.1":
+        sc = sc.replace(faults=dataclasses.replace(sc.faults,
+                                                   partial_min_frac=0.1))
+    elif variant == "gate0":
+        sc = sc.replace(fed=(("cosine_outlier_thresh", 0.0),))
+    elif variant == "retries4":
+        sc = sc.replace(fed=(("async_max_retries", 4),))
+    return sc
+
+
+def _billed_sync(hist):
+    """Client-rounds a sync history must bill: every available client in a
+    round that reselects, else every team member, dropped ones too."""
+    total, h = 0.0, True
+    for row in hist:
+        total += float(row["avail"].sum()) if h else float(row["team"].sum())
+        h = bool(row["h_next"])
+    return total
+
+
+def _robust_cells():
+    """Phase 6b: named registry cells at paper-cnn width through
+    ``run_scenario``; returns each cell's first history row."""
+    from repro_torch.scenarios import run_scenario
+
+    print(f"[robust] {'cell':34s} {'best':>6s} {'final':>6s} {'trig':>6s} "
+          f"{'worst10%':>8s} {'acc_var':>8s} {'gini':>5s} {'gated':>6s}")
+    first = {}
+    for name in ROBUST_CELLS:
+        sc = _cell(name)
+        before = _counts()
+        summ, hist = run_scenario(sc, n_clients=ROBUST_K,
+                                  n_rounds=ROBUST_ROUNDS, kind="images",
+                                  arch="paper-cnn", n=4000)
+        launched = {k: v - before[k] for k, v in _counts().items()}
+        first[name] = hist[0]
+        print(f"[robust] {name:34s} {summ['best_acc']:6.3f} "
+              f"{summ['final_acc']:6.3f} {summ['final_trigger_acc']:6.3f} "
+              f"{summ['fair_worst_decile']:8.3f} {summ['fair_acc_var']:8.4f} "
+              f"{summ['fair_part_gini']:5.2f} {summ['gated_frac_mean']:6.2f}"
+              f"  wall {summ['wall_s']:.2f} s")
+        mode = {"trimmed_mean": "trimmed", "median": "median"}.get(
+            sc.aggregator, "mean")
+        need = [f"gated_combine[{mode}]", "cosine_gate_partials"]
+        if sc.compress == "int8":
+            need = [f"dequant_gated_combine[{mode}]", "dequant_gate_partials"]
+        if sc.aggregator == "krum":
+            need.append("pairwise_gram")
+        if any(launched[k] == 0 for k in need):
+            raise AssertionError(f"{name}: {need} did not all launch "
+                                 f"({launched})")
+        if sc.async_mode:
+            want = float(ROBUST_K * ROBUST_ROUNDS)
+        else:
+            want = _billed_sync(hist)
+        if summ["cost_client_rounds"] != want:
+            raise AssertionError(f"{name}: billed {summ['cost_client_rounds']}"
+                                 f" client-rounds, not {want}")
+        if sc.faults.dropout_active and not any(
+                float(h["fault_lost"]) > 0 for h in hist):
+            raise AssertionError(f"{name}: no update was lost")
+        if name.endswith("partial0.1") and not any(
+                float(h["fault_eff_epochs"]) < 2 for h in hist):
+            raise AssertionError(f"{name}: no client stopped early")
+        if sc.attack == "cross_round" and len(
+                {float(h["attack_blend"]) for h in hist}) < 2:
+            raise AssertionError(f"{name}: the attacker's blend never moved")
+        if name == "signflip_fedfits+gate0" and not (
+                summ["gate_trust_malicious"] < summ["gate_trust_honest"]):
+            raise AssertionError(f"{name}: malicious gate_trust "
+                                 f"{summ['gate_trust_malicious']} not below "
+                                 f"honest {summ['gate_trust_honest']}")
+    return first
+
+
+def _attacked_int8_step(s, state, batch, draws):
+    """One quantisation step of round 1 (CPU): the largest block scale an
+    int8 code can have, max |attacked update| / 127 (the EF residual is
+    still 0)."""
+    import torch
+    from repro_torch import tree
+    from repro_torch.core import faults, fedfits
+    cfg = s.fed_cfg
+    eff = faults.sample_epochs(draws["epoch_frac"], cfg.local_epochs) \
+        if "epoch_frac" in draws else None
+    local, _ = fedfits.make_client_update(s.model, cfg)(state.params, batch,
+                                                        eff)
+    flat = torch.cat([(a - b).reshape(ROBUST_K, -1) for a, b in
+                      zip(tree.leaves(local), tree.leaves(state.params))], 1)
+    flat = s.update_attack(flat, s.malicious, draws.get("update_noise"))
+    return float(flat.abs().max()) / 127.0
+
+
+def _replay_round1(name, row1):
+    """Round 1 of a phase-6b cell again, on the card from ``run_scenario``'s
+    seeds and on the CPU port with the card's draws: the same team or
+    cohort, gated, lost and epoch masks (the buffer, async), params within
+    1e-5 (int8: one quantisation step)."""
+    import torch
+    from repro_torch import tree
+    from repro_torch.core import async_engine as ae
+    from repro_torch.core import fedfits
+    from repro_torch.data.pipeline import build_federation
+    from repro_torch.scenarios import engine
+
+    sc = _cell(name)
+    cpu = lambda t: tree.map(lambda v: v.cpu(), t)
+    gen = lambda seed: torch.Generator(DEVICE).manual_seed(seed)
+    sides = {d: engine.setup(sc, n_clients=ROBUST_K, kind="images",
+                             arch="paper-cnn", device=d)
+             for d in (DEVICE, "cpu")}
+    s = sides[DEVICE]
+    fed, _ = build_federation(0, kind="images", n=4000,
+                              n_clients=s.population, batch_size=32, sep=1.0,
+                              dirichlet_alpha=1.0)
+    att = {d: v.update_attack if getattr(v.update_attack, "stateful", False)
+           else None for d, v in sides.items()}
+    kw = lambda v: dict(data_attack=v.data_attack,
+                        update_attack=v.update_attack, malicious=v.malicious,
+                        faults=sc.faults)
+    params = s.model.init(gen(1))              # run_scenario's seed + 1
+    init = cpu(params)
+    if sc.async_mode:
+        state = ae.init_async_state(params, s.fed_cfg, gen(2),
+                                    attacker=att[DEVICE])
+        draw, round_fn = ae.make_async_round(
+            s.model, s.fed_cfg, fed.data, batch_size=fed.batch_size,
+            eval_batch=fed.eval_batch, straggler_rows=sc.straggler_rows,
+            **kw(s))
+        draws = draw(state)
+        gpu, mg = round_fn(state, draws)
+        _, round_cpu = ae.make_async_round(
+            s.model, s.fed_cfg, cpu(fed.data), batch_size=fed.batch_size,
+            eval_batch=fed.eval_batch, straggler_rows=sc.straggler_rows,
+            **kw(sides["cpu"]))
+        host, mc = round_cpu(ae.init_async_state(
+            init, s.fed_cfg, torch.Generator(), attacker=att["cpu"]),
+            cpu(draws))
+        exact = ("cohort", "on_time", "due", "exhausted")
+        step = 0.0
+        if not torch.equal(mg["cohort"].cpu(), torch.from_numpy(
+                row1["cohort"])):
+            raise AssertionError(f"{name} round 1 rerun: not run_scenario's "
+                                 "cohort")
+        for k in ("owner", "age", "active"):
+            if not torch.equal(getattr(gpu.buf, k).cpu(),
+                               getattr(host.buf, k)):
+                raise AssertionError(f"{name} round 1: buf.{k} differs")
+    else:
+        state = fedfits.init_state(params, ROBUST_K, s.fed_cfg, gen(2),
+                                   attacker=att[DEVICE])
+        batch = fed.data_fn(1, gen(3))
+        round_fn = fedfits.make_round(s.model, s.fed_cfg, **kw(s))
+        draws = round_fn.draw(state, batch)
+        gpu, mg = round_fn(state, batch, draws)
+        state_cpu = fedfits.init_state(init, ROBUST_K, s.fed_cfg,
+                                       torch.Generator(),
+                                       attacker=att["cpu"])
+        step = _attacked_int8_step(sides["cpu"], state_cpu, cpu(batch),
+                                   cpu(draws)) \
+            if s.fed_cfg.compress == "int8" else 0.0
+        host, mc = fedfits.make_round(s.model, s.fed_cfg, **kw(
+            sides["cpu"]))(state_cpu, cpu(batch), cpu(draws))
+        exact = ("team", "avail", "gated", "lost", "eff_epochs")
+        if not torch.equal(mg["team"].cpu(), torch.from_numpy(row1["team"])):
+            raise AssertionError(f"{name} round 1 rerun: not run_scenario's "
+                                 "team")
+    for k in exact:
+        if not torch.equal(mg[k].cpu(), mc[k]):
+            raise AssertionError(f"{name} round 1: CPU and card {k} differ")
+    diff = max(float((a.cpu() - b).abs().max()) for a, b in zip(
+        tree.leaves(gpu.params), tree.leaves(host.params)))
+    gt = float((gpu.gate_trust.cpu() - host.gate_trust).abs().max())
+    print(f"[robust] {name} round 1 on the CPU port with the card's draws: "
+          f"same {', '.join(exact)}; params max abs diff {diff:.3e}, "
+          f"gate_trust {gt:.3e} (atol {ROUND1_ATOL + step:.3e})")
+    if diff > ROUND1_ATOL + step or gt > ROUND1_ATOL:
+        raise AssertionError(f"{name} round 1: CPU and card differ")
+
+
+def _robustness():
+    """Phase 6: returns the launch counts of the phase."""
+    from repro_torch.comm.kernels import comm_codecs as cc
+    from repro_torch.kernels import robust_agg as ra
+    from repro_torch.kernels import robust_pipeline as rp
+    t0 = time.perf_counter()
+    for mod in (rp, cc, ra):
+        mod.reset_launch_counts()
+    _poisoning_defense()
+    first = _robust_cells()
+    counts = _counts()
+    for name in REPLAY_CELLS:
+        _replay_round1(name, first[name])
+    k6 = {k: v for k, v in counts.items() if k.startswith("dequant_")}
+    print(f"[robust] K6a-c launches {json.dumps(k6)} (the int8 cell is "
+          "trimmed_mean: K6b mean and K6c need not launch)")
+    _launched("robust", {k: v for k, v in counts.items()
+                         if not k.startswith("dequant_")})
+    print(f"[robust] phase 6 took {time.perf_counter() - t0:.1f} s")
+    return counts
+
+
 def main():
     _import_port()
     import torch
@@ -827,6 +1359,11 @@ def main():
     model = build(CNN_CONFIG)
     cnn_sizes = [p.numel() for p in tree.leaves(model.init(torch.Generator()))]
     report = _kernels(cnn_sizes)
+    flat_report, c96 = _k5_and_flat(cnn_sizes)
+    for entry in report:
+        if entry["name"] in c96:
+            entry["c96"] = c96[entry["name"]]
+    report += flat_report
     report.append(_topd_checks())
     fed, test = build_federation(0, kind="images", n=4000, n_clients=16,
                                  batch_size=32)
@@ -839,6 +1376,9 @@ def main():
     counts.update(_compressed_round(model, fed, evaluate, dense_fedavg))
     async_counts = _async_phase(model)
     counts["block_topd"] = async_counts["block_topd"]
+    robust_counts = _robustness()
+    for entry in flat_report:
+        counts[entry["name"]] = robust_counts[entry["name"]]
     for entry in report:
         entry["launches"] = counts[entry["name"]]
     print(smi)

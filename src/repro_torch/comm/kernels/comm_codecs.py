@@ -162,8 +162,6 @@ def dequant_pairwise_gram(q, s, layout, mask):
         return dequant_pairwise_gram_plain(q, s, layout, mask)
     ptrs, dims = _quant_args(q, s, layout, mask)
     G, C, N = q.shape
-    if C > rp.GRAM_MAX_C:
-        raise ValueError(f"C={C}: the Gram kernel takes C <= {rp.GRAM_MAX_C}")
     part = torch.empty(G, rp._cdiv(N, rp.GRAM_CHUNK), C * C, device=q.device)
     out = torch.empty(G, C, C, device=q.device)
     rp._launch(_build.load().cc_gram, *ptrs, part.data_ptr(), out.data_ptr(),

@@ -215,3 +215,29 @@ def aggregate(updates, weights, mask, cfg):
         from repro_torch.kernels.robust_pipeline import fused_aggregate_tree
         return fused_aggregate_tree(updates, weights, mask, cfg)
     return aggregate_ref(updates, weights, mask, cfg)
+
+
+def two_stage_ref(slot_updates, slot_weights, slot_masks, cfg):
+    """Reference of the two-stage scheme over trees of (G, C, ...) leaves:
+    ``aggregate_ref`` per cohort, then the cross-slot mean weighted by each
+    cohort's masked-in size."""
+    g = slot_masks.shape[0]
+    per = [aggregate_ref(tree.map(lambda l: l[i], slot_updates),
+                         slot_weights[i], slot_masks[i], cfg)
+           for i in range(g)]
+    cw = slot_masks.float().sum(1)
+    cw = cw / torch.clamp(cw.sum(), min=1e-12)
+    return tree.map(
+        lambda *ls: torch.tensordot(cw.to(ls[0].dtype), torch.stack(ls),
+                                    dims=1), *per)
+
+
+def two_stage(slot_updates, slot_weights, slot_masks, cfg):
+    """Slot-internal robust aggregation per cohort, then the cross-slot
+    mean: every cohort rides the G axis of one fused kernel pipeline when
+    ``cfg.fused_agg``, else ``two_stage_ref``."""
+    if cfg.fused_agg:
+        from repro_torch.kernels.robust_pipeline import fused_two_stage_tree
+        return fused_two_stage_tree(slot_updates, slot_weights, slot_masks,
+                                    cfg)
+    return two_stage_ref(slot_updates, slot_weights, slot_masks, cfg)

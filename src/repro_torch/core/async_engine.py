@@ -29,16 +29,25 @@ place, so there is no per-round concatenate; parking is an
 they arrived: the guard's zeroed copy never reaches the buffer.  The round
 updates ``rows`` in place, so the state passed in must not be used again.
 
+Attacks (``core/attacks.py``), as in the JAX round: ``data_attack``
+corrupts the cohort's batch and ``update_attack`` its fresh rows (which
+then park as attacked), with ``malicious[idx]`` as the cohort's mask.  A
+stateful attacker's carry rides ``AsyncState.attacker`` with an (M,) gate
+column; the round hands it the cohort's view (``gather``) and closes it
+with an (M,) column of this round's gate outcome, a scatter-max over the
+owners of the fresh and landed rows (order-independent, so duplicate
+owners stay deterministic on CUDA).
+
 Randomness: the round is ``draw(state)``, which takes the cohort's Gumbel
-noise, the per-client batch indices and the delay uniforms from
-``state.rng``, plus a pure ``round_fn(state, draws)``, so a test can feed the
-JAX package's own draws.  The round reads nothing back to the host before
-its metrics: the park slots, the free count and every decision stay on
-the device.
+noise, the per-client batch indices, the delay uniforms and a noisy
+attack's noise from ``state.rng``, plus a pure ``round_fn(state, draws)``,
+so a test can feed the JAX package's own draws.  The round reads nothing
+back to the host before its metrics: the park slots, the free count and
+every decision stay on the device.
 
 Not in this slice: ``driver="scan"`` (ROADMAP queue 1 item a),
-``telemetry`` (item 12), attacks (item 10).  Compression raises
-``ValueError``, as in the JAX package.
+``telemetry`` (item 12).  Compression raises ``ValueError``, as in the JAX
+package.
 """
 from __future__ import annotations
 
@@ -50,7 +59,7 @@ from torch.profiler import record_function
 
 from repro_torch import device as device_mod, tree
 from repro_torch.comm import codecs
-from repro_torch.core import aggregation, clientstore, fairness, \
+from repro_torch.core import aggregation, attacks, clientstore, fairness, \
     faults as faults_mod, fitness
 from repro_torch.core.fedfits import _check_supported, _host, \
     make_client_update
@@ -83,6 +92,7 @@ class AsyncState(NamedTuple):
     cost_client_rounds: torch.Tensor
     cost_bytes_up: torch.Tensor
     cost_bytes_down: torch.Tensor
+    attacker: Any = None      # a stateful attacker's (M,) carry, or None
 
     @property
     def trust(self):
@@ -118,7 +128,10 @@ def init_buffer(params, fed_cfg, upd=None) -> DeliveryBuffer:
                           active=zeros(torch.float32))
 
 
-def init_async_state(params, fed_cfg, rng: torch.Generator) -> AsyncState:
+def init_async_state(params, fed_cfg, rng: torch.Generator, *,
+                     attacker=None) -> AsyncState:
+    """``attacker``: a stateful update attack, whose ``init`` builds the
+    (M,) carry."""
     m = fed_cfg.population or fed_cfg.n_clients
     dev = tree.leaves(params)[0].device
     zero = lambda: torch.zeros((), device=dev)
@@ -126,7 +139,8 @@ def init_async_state(params, fed_cfg, rng: torch.Generator) -> AsyncState:
         params=params, clients=clientstore.init_store(m, device=dev),
         buf=init_buffer(params, fed_cfg), rng=rng, round=1,
         cost_client_rounds=zero(), cost_bytes_up=zero(),
-        cost_bytes_down=zero())
+        cost_bytes_down=zero(),
+        attacker=None if attacker is None else attacker.init(m, device=dev))
 
 
 def delivery_weights(n_k, trust, mask, age, *, staleness_decay):
@@ -148,18 +162,18 @@ def make_async_round(model, fed_cfg, pop_data, *, batch_size=32,
     ``pop_data``: population-stacked {x: (M, cap, ...), y, eval_x, eval_y,
     n} on the device (``Federation.data``).  ``draw(state)`` takes the
     round's draws from ``state.rng``: {gumbel (M,) f32, bi (C, bsz) i64, ei (C,
-    esz) i64, and u_delay (C,) f32 in [1e-7, 1) when stragglers are
-    active}; ``round_fn(state, draws) -> (state, metrics)`` is a pure
-    function of them (it updates the buffer's rows in place).
+    esz) i64, u_delay (C,) f32 in [1e-7, 1) when stragglers are active, and
+    data_noise / update_noise for an attack that ``draws_noise``};
+    ``round_fn(state, draws) -> (state, metrics)`` is a pure function of
+    them (it updates the buffer's rows in place).  ``malicious``: (M,) 0/1
+    over the population; the attack protocol is ``core/attacks.py``'s.
     """
     if fed_cfg.compress != "none":
         raise ValueError(
             f"compress={fed_cfg.compress!r}: the buffered-async engine is "
             "dense-uplink only; use the sync engine (fedfits.run) for a "
             "compressed uplink, or compress='none' here")
-    _check_supported(fed_cfg, data_attack=data_attack,
-                     update_attack=update_attack, malicious=malicious,
-                     faults=None)
+    _check_supported(fed_cfg)
     client_update = make_client_update(model, fed_cfg)
     m = fed_cfg.population or fed_cfg.n_clients
     c = fed_cfg.n_clients
@@ -171,6 +185,9 @@ def make_async_round(model, fed_cfg, pop_data, *, batch_size=32,
     deadline, backoff = f32(fed_cfg.async_deadline), f32(fed_cfg.async_backoff)
     sdecay = f32(fed_cfg.staleness_decay)
     fl = faults if faults is not None else faults_mod.FaultConfig()
+    mal = malicious.to(dev) if malicious is not None \
+        else torch.zeros(m, device=dev)
+    stateful = getattr(update_attack, "stateful", False)
     # per-population-row chronic-straggler delay scales, fixed per run
     scales_pop = faults_mod.delay_scales(fl, m, rows=straggler_rows,
                                          device=dev) \
@@ -190,6 +207,12 @@ def make_async_round(model, fed_cfg, pop_data, *, batch_size=32,
                                    device=gen.device)}
         if fl.stragglers_active:
             out["u_delay"] = faults_mod.draw_delays(c, gen)
+        if getattr(data_attack, "draws_noise", False):
+            shape = (c, bsz) + tuple(pop_data["x"].shape[2:])
+            out["data_noise"] = attacks.draw_noise(shape, gen)
+        if getattr(update_attack, "draws_noise", False):
+            n = sum(p.numel() for p in tree.leaves(state.params))
+            out["update_noise"] = attacks.draw_noise((c, n), gen)
         return out
 
     def round_fn(state: AsyncState, draws):
@@ -209,6 +232,11 @@ def make_async_round(model, fed_cfg, pop_data, *, batch_size=32,
                      "eval_x": pop_data["eval_x"][il, draws["ei"]],
                      "eval_y": pop_data["eval_y"][il, draws["ei"]],
                      "n": pop_data["n"][idx.long()]}
+            cmal = mal[idx.long()]
+        if data_attack is not None:
+            with record_function("attack"):
+                cdata = {**cdata, **data_attack(cdata, cmal,
+                                                draws.get("data_noise"))}
 
         # ---- local training, w_k - w into the fresh rows ---------------
         fresh = buf.rows[:c]
@@ -217,6 +245,18 @@ def make_async_round(model, fed_cfg, pop_data, *, batch_size=32,
             for v, w_k, w in zip(tree.leaves(tree.row_views(fresh, params)),
                                  tree.leaves(locals_), tree.leaves(params)):
                 torch.sub(w_k, w, out=v)
+        att_carry = state.attacker
+        if update_attack is not None:
+            # the attacked rows are what aggregates and what parks
+            with record_function("attack"):
+                noise = draws.get("update_noise")
+                if stateful:
+                    out, att_carry = update_attack(
+                        fresh, cmal, noise,
+                        update_attack.gather(state.attacker, idx))
+                else:
+                    out = update_attack(fresh, cmal, noise)
+                fresh.copy_(out)
 
         # ---- fitness at compute time -----------------------------------
         n_c = cdata["n"].float()
@@ -270,6 +310,12 @@ def make_async_round(model, fed_cfg, pop_data, *, batch_size=32,
         cos = aggregation.cosine_to_ref(all_upd, {"u": agg})
         gated = ((cos < fed_cfg.cosine_outlier_thresh) & (mask > 0)).float()
         bad = torch.maximum(gated, rejected)
+        if stateful:
+            # the attacker observes its own rows' outcome: an (M,) column,
+            # the max over every row a client owns this round
+            att_carry = update_attack.observe(
+                att_carry, torch.zeros(m, device=dev).scatter_reduce(
+                    0, owner_safe, bad * mask_pre, "amax"))
         store = clientstore.record_gate_trust(store, owners, mask_pre, bad,
                                               decay)
         new_tr = decay * store.trust[idx.long()] + (1.0 - decay) * scores
@@ -322,7 +368,8 @@ def make_async_round(model, fed_cfg, pop_data, *, batch_size=32,
             round=t + 1,
             cost_client_rounds=state.cost_client_rounds + c,
             cost_bytes_up=state.cost_bytes_up + c * bytes_up_pc,
-            cost_bytes_down=state.cost_bytes_down + c * bytes_down_pc)
+            cost_bytes_down=state.cost_bytes_down + c * bytes_down_pc,
+            attacker=att_carry)
         metrics = {
             "team_size": float(c),
             "cohort": idx, "on_time": on_time, "due": due,
@@ -339,6 +386,8 @@ def make_async_round(model, fed_cfg, pop_data, *, batch_size=32,
             "global_loss_mean": gl.mean(), "local_loss_mean": ll.mean(),
             **fairness.round_fairness(ga, ones_c, store.cum_selected),
         }
+        if stateful:
+            metrics.update(update_attack.metrics(att_carry))
         return new_state, metrics
 
     return draw, round_fn
@@ -371,7 +420,10 @@ def run_async(model, fed_cfg, pop_data, n_rounds, seed=0, *, eval_fn=None,
         update_attack=update_attack, malicious=malicious, faults=faults,
         straggler_rows=straggler_rows)
     gen = lambda s: torch.Generator(device=dev).manual_seed(s)
-    state = init_async_state(model.init(gen(seed)), fed_cfg, gen(seed + 1))
+    state = init_async_state(
+        model.init(gen(seed)), fed_cfg, gen(seed + 1),
+        attacker=update_attack if getattr(update_attack, "stateful", False)
+        else None)
     history = []
     for t in range(1, n_rounds + 1):
         t0 = time.perf_counter()

@@ -14,9 +14,22 @@ matrix without a concatenate.
 
 Randomness: ``FedState.rng`` is a ``torch.Generator`` on the device.  The
 round draws from it only where the policy is random (the election's floor
-and explore terms when their probabilities are > 0, FedRand, FedPow), so
-with ``participation_floor = explore_eps = 0`` and ``avail_prob = 1`` a
-round is a deterministic function of (state, batch), as in JAX.
+and explore terms when their probabilities are > 0, FedRand, FedPow, a
+stochastic codec), so with ``participation_floor = explore_eps = 0`` and
+``avail_prob = 1`` a round is a deterministic function of (state, batch),
+as in JAX.  Faults and noisy attacks draw too, but through ``draws``:
+``round_fn(state, data, draws)`` is a pure function of them, and with
+``draws=None`` the round takes them from ``state.rng``
+(``round_fn.draw``), only for what is active.
+
+Faults (``core/faults.py``), as in the JAX round: stragglers miss the
+deadline and drop out of ``avail``; a selected client's update can be lost
+mid-round (computed and billed, never aggregated); partial work stops a
+client's local SGD after its effective epoch count.  Attacks
+(``core/attacks.py``): ``data_attack`` corrupts the batch before local
+training, ``update_attack`` the (K, N) update buffer after it and before
+the codec; a stateful attacker's carry rides ``FedState.attacker`` and
+reads the round's gate outcome (``observe``).
 
 Transport: with ``FedConfig.compress`` the (K, N) update buffer crosses the
 client->server boundary encoded (``comm/codecs.py``; EF residuals in the
@@ -27,8 +40,7 @@ fused-dequant kernels (``comm/kernels/comm_codecs.py``), and
 
 The population-scale engine is ``core/async_engine.py``; this round is its
 M == K case whatever ``population`` says, as in the JAX package.  Not in
-this slice (``make_round``/``run`` raise ``NotImplementedError``):
-attacks, faults in the sync round, telemetry.
+this slice (``run`` raises ``NotImplementedError``): telemetry.
 """
 from __future__ import annotations
 
@@ -42,8 +54,8 @@ from torch.profiler import record_function
 from repro_torch import device as device_mod, tree
 from repro_torch.comm import codecs, error_feedback
 from repro_torch.comm.kernels import comm_codecs as dq
-from repro_torch.core import aggregation, clientstore, fairness, fitness, \
-    selection, slots
+from repro_torch.core import aggregation, attacks, clientstore, fairness, \
+    faults as faults_mod, fitness, selection, slots
 
 
 class FedState(NamedTuple):
@@ -60,6 +72,7 @@ class FedState(NamedTuple):
     cost_bytes_up: torch.Tensor
     cost_bytes_down: torch.Tensor
     clients: clientstore.ClientStore
+    attacker: Any = None          # a stateful attacker's carry, or None
 
     @property
     def trust(self):
@@ -81,7 +94,10 @@ class FedState(NamedTuple):
         return tree.row_views(self.clients.ef, self.params)
 
 
-def init_state(params, n_clients, fed_cfg, rng: torch.Generator):
+def init_state(params, n_clients, fed_cfg, rng: torch.Generator, *,
+               attacker=None):
+    """``attacker``: a stateful update attack, whose ``init`` builds the
+    carry."""
     dev = tree.leaves(params)[0].device
     zero = lambda: torch.zeros((), device=dev)
     return FedState(
@@ -97,13 +113,20 @@ def init_state(params, n_clients, fed_cfg, rng: torch.Generator):
         cost_bytes_down=zero(),
         clients=clientstore.init_store(n_clients, params=params,
                                        fed_cfg=fed_cfg, device=dev),
+        attacker=None if attacker is None else attacker.init(n_clients,
+                                                             device=dev),
     )
 
 
 def make_client_update(model, fed_cfg):
     """Algorithm 2 for all clients at once: E local SGD epochs from w(t-1)
     on each client's batch; returns the (K, ...) local params and
-    (GL, GA, LL, LA), each (K,), on the clients' eval splits."""
+    (GL, GA, LL, LA), each (K,), on the clients' eval splits.
+
+    ``n_epochs`` (K,) int, if given, is each client's effective epoch
+    count (partial work, ``core/faults.py``): epochs past it still compute
+    their gradient but leave the params as they are, ``where(i < n_epochs,
+    w - lr g, w)`` as in the JAX round."""
 
     def loss_fn(p, x, y, p0):
         loss, _ = model.loss(p, {"x": x, "y": y})
@@ -121,13 +144,20 @@ def make_client_update(model, fed_cfg):
     eval_global = vmap(eval_fn, in_dims=(None, 0, 0))
     eval_local = vmap(eval_fn, in_dims=(0, 0, 0))
 
-    def client_update(params, data):
+    def client_update(params, data, n_epochs=None):
         k = data["x"].shape[0]
         local = tree.map(lambda w: w.expand(k, *w.shape), params)
-        for _ in range(fed_cfg.local_epochs):
+        for i in range(fed_cfg.local_epochs):
             g = client_grad(local, data["x"], data["y"], params)
-            local = tree.map(lambda w, gw: w - fed_cfg.local_lr * gw,
-                             local, g)
+            if n_epochs is None:
+                local = tree.map(lambda w, gw: w - fed_cfg.local_lr * gw,
+                                 local, g)
+            else:
+                on = i < n_epochs
+                local = tree.map(
+                    lambda w, gw: torch.where(
+                        on.reshape((k,) + (1,) * (w.dim() - 1)),
+                        w - fed_cfg.local_lr * gw, w), local, g)
         gl, ga = eval_global(params, data["eval_x"], data["eval_y"])
         ll, la = eval_local(local, data["eval_x"], data["eval_y"])
         return local, (gl, ga, ll, la)
@@ -135,12 +165,7 @@ def make_client_update(model, fed_cfg):
     return client_update
 
 
-def _check_supported(fed_cfg, *, data_attack, update_attack, malicious,
-                     faults):
-    if (data_attack, update_attack, malicious, faults) != (None,) * 4:
-        raise NotImplementedError(
-            "attacks, and faults in the sync round, come with ROADMAP "
-            "queue 1 item 10")
+def _check_supported(fed_cfg):
     if fed_cfg.agg_blk is not None:
         raise NotImplementedError(
             "agg_blk is the TPU kernels' VMEM block size; the CUDA kernels "
@@ -151,14 +176,25 @@ def _check_supported(fed_cfg, *, data_attack, update_attack, malicious,
 
 def make_round(model, fed_cfg, *, data_attack=None, update_attack=None,
                malicious=None, faults=None):
-    """Builds the one-round function ``round_fn(state, data) -> (state,
-    metrics)``.  data: client-stacked {x: (K, B, ...), y: (K, B), eval_x,
-    eval_y, n: (K,)} plus optional {avail: (K,)}, on the state's device."""
-    _check_supported(fed_cfg, data_attack=data_attack,
-                     update_attack=update_attack, malicious=malicious,
-                     faults=faults)
+    """Builds the one-round function ``round_fn(state, data, draws=None) ->
+    (state, metrics)``.  data: client-stacked {x: (K, B, ...), y: (K, B),
+    eval_x, eval_y, n: (K,)} plus optional {avail: (K,)}, on the state's
+    device.
+
+    ``data_attack(batch, malicious, noise)`` / ``update_attack(updates,
+    malicious, noise)``: the attack protocol of ``core/attacks.py``;
+    ``malicious`` (K,) 0/1 (default: nobody).  ``faults``: a
+    ``faults.FaultConfig``.  ``draws``: {u_arrive (K,) when stragglers are
+    active, epoch_frac (K,) with partial work, data_noise / update_noise
+    for an attack that ``draws_noise``, u_drop (K,) with dropout}; with
+    None the round takes them from ``state.rng`` by ``round_fn.draw(state,
+    data)``, in that order, and only what is active."""
+    _check_supported(fed_cfg)
     client_update = make_client_update(model, fed_cfg)
     K = fed_cfg.n_clients
+    fl = faults if faults is not None and faults.active else None
+    stateful = getattr(update_attack, "stateful", False)
+    E = fed_cfg.local_epochs
     decay = fed_cfg.trust_decay
     codec = codecs.make_codec(fed_cfg)
     fuse = dq.should_fuse(codec, fed_cfg)
@@ -188,23 +224,70 @@ def make_round(model, fed_cfg, *, data_attack=None, update_attack=None,
         return selection.fedpow_select(gl, avail, d, m,
                                        selection.draw_fedpow(K, rng), n=n)
 
-    def round_fn(state: FedState, data):
+    def draw(state: FedState, data):
+        """The round's fault and attack draws from ``state.rng``: only for
+        what is active, so a round without faults or noisy attacks draws
+        nothing here."""
+        gen, out = state.rng, {}
+        if fl is not None and fl.stragglers_active:
+            out["u_arrive"] = faults_mod.draw_arrivals(K, gen)
+        if fl is not None and fl.partial_active:
+            out["epoch_frac"] = faults_mod.draw_epochs(fl, K, gen)
+        if getattr(data_attack, "draws_noise", False):
+            out["data_noise"] = attacks.draw_noise(data["x"].shape, gen)
+        if getattr(update_attack, "draws_noise", False):
+            n = sum(p.numel() for p in tree.leaves(state.params))
+            out["update_noise"] = attacks.draw_noise((K, n), gen)
+        if fl is not None and fl.dropout_active:
+            out["u_drop"] = faults_mod.draw_dropout(K, gen)
+        return out
+
+    def round_fn(state: FedState, data, draws=None):
         t = state.round
         params = state.params
         dev = state.team.device
+        if draws is None:
+            draws = draw(state, data)
+        mal = malicious if malicious is not None \
+            else torch.zeros(K, device=dev)
         avail = data.get("avail")
         if avail is None:
             avail = torch.ones(K, device=dev)
 
+        # ---- fault injection: stragglers miss the round deadline --------
+        # a late client never arrives: it composes with the availability
+        # path (selection, fitness masks, the stale catch-up)
+        if fl is not None and fl.stragglers_active:
+            avail = avail * faults_mod.sample_arrivals(fl, draws["u_arrive"])
+        if data_attack is not None:
+            with record_function("attack"):
+                data = {**data, **data_attack(data, mal,
+                                              draws.get("data_noise"))}
+
         # ---- local training, updates written into one (K, N) buffer ----
+        eff_epochs = None
+        if fl is not None and fl.partial_active:
+            eff_epochs = faults_mod.sample_epochs(draws["epoch_frac"], E)
         with record_function("client_update"):
-            locals_, (gl, ga, ll, la) = client_update(params, data)
+            locals_, (gl, ga, ll, la) = client_update(params, data,
+                                                      eff_epochs)
             n_params = sum(p.numel() for p in tree.leaves(params))
             flat = torch.empty(K, n_params, device=dev)
             views = tree.row_views(flat, params)
             for v, w_k, w in zip(tree.leaves(views), tree.leaves(locals_),
                                  tree.leaves(params)):
                 torch.sub(w_k, w, out=v)
+
+        # ---- the attacker corrupts its own update, before the codec ------
+        att_carry = state.attacker
+        if update_attack is not None:
+            with record_function("attack"):
+                noise = draws.get("update_noise")
+                if stateful:
+                    flat, att_carry = update_attack(flat, mal, noise,
+                                                    state.attacker)
+                else:
+                    flat = update_attack(flat, mal, noise)
 
         # ---- client->server transport: EF inject, encode, decode --------
         # the codec runs client-side; the guard and a decode-then-aggregate
@@ -240,7 +323,15 @@ def make_round(model, fed_cfg, *, data_attack=None, update_attack=None,
         # ---- selection ----------------------------------------------------
         with record_function("selection"):
             team = select(state, scores, gl, avail, data["n"], t)
-        delivered = team
+
+        # ---- fault injection: mid-round dropout ---------------------------
+        # a selected client computes and is billed, but its update is lost
+        # in flight; it is not a stale catch-up contributor
+        if fl is not None and fl.dropout_active:
+            lost = faults_mod.sample_dropout(fl, draws["u_drop"], team)
+        else:
+            lost = torch.zeros(K, device=dev)
+        delivered = team * (1.0 - lost)
 
         # ---- aggregation boundary: stale catch-up, then the guard --------
         stale = fed_cfg.stale_weight * state.team * (1.0 - avail)
@@ -289,6 +380,8 @@ def make_round(model, fed_cfg, *, data_attack=None, update_attack=None,
             part_pre > 0,
             decay * state.gate_trust + (1.0 - decay) * (1.0 - bad),
             state.gate_trust)
+        if stateful:                    # the attacker reads this next round
+            att_carry = update_attack.observe(att_carry, bad)
 
         # billing: FFA rounds bill every available client, slot rounds the
         # team, plus the stale catch-up contributors in both
@@ -312,7 +405,7 @@ def make_round(model, fed_cfg, *, data_attack=None, update_attack=None,
             cost_client_rounds=state.cost_client_rounds + billed,
             cost_bytes_up=state.cost_bytes_up + billed * bytes_up_pc,
             cost_bytes_down=state.cost_bytes_down + billed * bytes_down_pc,
-            clients=new_clients)
+            clients=new_clients, attacker=att_carry)
         n_avail = torch.clamp(avail.sum(), min=1.0)
         metrics = {
             "theta": th, "score": scores, "team": team, "alpha": alpha,
@@ -323,10 +416,20 @@ def make_round(model, fed_cfg, *, data_attack=None, update_attack=None,
             "gate_trust": new_gate_trust,
             "gated_frac": gated.sum() / torch.clamp(part.sum(), min=1.0),
             "guard_rejected": rejected.sum(),
+            "fault_lost": lost.sum(),
+            "fault_eff_epochs": float(E) if eff_epochs is None
+            else eff_epochs.float().mean(),
+            # per-client masks behind the sums above (not in the JAX round)
+            "avail": avail, "lost": lost, "gated": gated,
+            "eff_epochs": torch.full((K,), E, device=dev)
+            if eff_epochs is None else eff_epochs,
             **fairness.round_fairness(ga, avail, cs.cum_selected + team),
         }
+        if stateful:
+            metrics.update(update_attack.metrics(att_carry))
         return new_state, metrics
 
+    round_fn.draw = draw
     return round_fn
 
 
@@ -350,13 +453,18 @@ def run(model, fed_cfg, data_fn, n_rounds, seed=0, *, eval_fn=None,
     if telemetry is not None:
         raise NotImplementedError(
             "telemetry comes with ROADMAP queue 1 item 12")
+    if malicious is not None:
+        malicious = malicious.to(dev)
     round_fn = make_round(model, fed_cfg, data_attack=data_attack,
                           update_attack=update_attack, malicious=malicious,
                           faults=faults)
     gen = lambda s: torch.Generator(device=dev).manual_seed(s)
     K = fed_cfg.n_clients
     params = model.init(gen(seed))
-    state = init_state(params, K, fed_cfg, gen(seed + 1))
+    state = init_state(params, K, fed_cfg, gen(seed + 1),
+                       attacker=update_attack
+                       if getattr(update_attack, "stateful", False)
+                       else None)
     g_data, g_avail = gen(seed + 2), gen(seed + 3)
     history = []
     for t in range(1, n_rounds + 1):

@@ -45,7 +45,7 @@ int cc_combine(const int8_t* q, const float* s, const int* table, const float* m
 }
 
 // ... -> part (G, ceil(N/chunk), C*C) scratch, out (G, C, C) Gram of the
-// masked dequantized rows.  C <= 64.
+// masked dequantized rows.
 int cc_gram(const int8_t* q, const float* s, const int* table, const float* mask,
             float* part, float* out, int G, int C, int N, int NQ, int L, int qblk,
             int chunk, void* stream) {

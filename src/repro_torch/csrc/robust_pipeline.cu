@@ -40,7 +40,6 @@ int rp_combine(const float* x, const float* mask, const float* w, float* out,
 }
 
 // x (G, C, N) fp32 -> part (G, ceil(N/chunk), C*C) scratch, out (G, C, C).
-// C <= 64.
 int rp_gram(const float* x, float* part, float* out, int G, int C, int N, int chunk,
             void* stream) {
   return launch_gram(DenseRows{x, N}, part, out, G, C, N, chunk,

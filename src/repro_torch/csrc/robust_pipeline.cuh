@@ -27,6 +27,7 @@ namespace {
 
 constexpr float kBig = 1e30f;        // masked-out rows rank past every real row
 constexpr int kGramTK = 32;          // Gram tile depth (columns per smem stage)
+constexpr int kGramTile = 64;        // Gram output tile: at most 64 x 64 a block
 constexpr int kGramThreads = 256;
 constexpr int kReduceThreads = 256;  // 8 warps, one output each
 
@@ -198,32 +199,57 @@ __global__ void gated_combine(Src src, const float* __restrict__ mask,
   out[(size_t)g * N + col] = r;
 }
 
-// K3/K6c: block (split s, cohort g) accumulates the C x C Gram of its column
-// chunk in fp32 FMA (not TF32).  Thread o owns outputs o, o + 256, ... (R of
-// them).  The (C, TK) stage is padded to TK + 1 floats a row so the 32 lanes
-// reading 32 different rows at one depth hit 32 different banks.
+// K3/K6c: block (split s, output tile y, cohort g) accumulates one tile of the
+// C x C Gram of its column chunk in fp32 FMA (not TF32).  A tile is rows
+// [i0, i0 + ni) x columns [j0, j0 + nj) of the Gram, ni, nj <= kGramTile, so any
+// C runs.  The Gram is symmetric, so only tiles with i0 <= j0 are launched and
+// an off-diagonal tile writes each output at (i, j) and (j, i); fmaf(a, b, v)
+// is fmaf(b, a, v) exactly, so the mirror is the value the (j, i) tile would
+// have computed.  For C <= kGramTile there is one tile and local output o is
+// Gram entry (o / C, o % C).  Thread t owns local outputs t, t + 256, ... (R of
+// them).  The (rows, TK) stages are padded to TK + 1 floats a row so the 32
+// lanes reading 32 different rows at one depth hit 32 different banks; a
+// diagonal tile reads one stage twice.  Each output is one fmaf chain over its
+// chunk in column order, whatever the tiling.
 template <int R, class Src>
 __global__ void gram_partials(Src src, float* __restrict__ part, int C, int N,
                               int chunk) {
-  extern __shared__ float tile[];  // C * (kGramTK + 1)
-  const int g = blockIdx.y, s = blockIdx.x, t = threadIdx.x;
+  __shared__ float stage_i[kGramTile * (kGramTK + 1)];
+  __shared__ float stage_j[kGramTile * (kGramTK + 1)];
+  const int s = blockIdx.x, g = blockIdx.z, t = threadIdx.x;
+  const int nt = (C + kGramTile - 1) / kGramTile;
+  int ti = 0, rem = blockIdx.y;  // y -> upper-triangle tile (ti, ti + rem)
+  while (rem >= nt - ti) {
+    rem -= nt - ti;
+    ++ti;
+  }
+  const int i0 = ti * kGramTile, j0 = (ti + rem) * kGramTile;
+  const int ni = min(kGramTile, C - i0), nj = min(kGramTile, C - j0);
+  const bool diag = i0 == j0;
+  const float* sj = diag ? stage_i : stage_j;
+  const int rows = diag ? ni : max(ni, nj);
   const int c0 = s * chunk, c1 = min(c0 + chunk, N), CC = C * C;
   float acc[R];
 #pragma unroll
   for (int r = 0; r < R; ++r) acc[r] = 0.f;
   for (int k0 = c0; k0 < c1; k0 += kGramTK) {
-    for (int e = t; e < C * kGramTK; e += blockDim.x) {
+    for (int e = t; e < rows * kGramTK; e += blockDim.x) {
       const int i = e / kGramTK, k = e % kGramTK, col = k0 + k;
-      tile[i * (kGramTK + 1) + k] =
-          col < c1 ? src.load((size_t)g * C + i, col, src.scale_col(col)) : 0.f;
+      const int sc = col < c1 ? src.scale_col(col) : 0;
+      if (i < ni)
+        stage_i[i * (kGramTK + 1) + k] =
+            col < c1 ? src.load((size_t)g * C + i0 + i, col, sc) : 0.f;
+      if (!diag && i < nj)
+        stage_j[i * (kGramTK + 1) + k] =
+            col < c1 ? src.load((size_t)g * C + j0 + i, col, sc) : 0.f;
     }
     __syncthreads();
 #pragma unroll
     for (int r = 0; r < R; ++r) {
       const int o = t + r * blockDim.x;
-      if (o < CC) {
-        const float* a = tile + (o / C) * (kGramTK + 1);
-        const float* b = tile + (o % C) * (kGramTK + 1);
+      if (o < ni * nj) {
+        const float* a = stage_i + (o / nj) * (kGramTK + 1);
+        const float* b = sj + (o % nj) * (kGramTK + 1);
         float v = acc[r];
 #pragma unroll 8
         for (int k = 0; k < kGramTK; ++k) v = fmaf(a[k], b[k], v);
@@ -236,7 +262,11 @@ __global__ void gram_partials(Src src, float* __restrict__ part, int C, int N,
 #pragma unroll
   for (int r = 0; r < R; ++r) {
     const int o = t + r * blockDim.x;
-    if (o < CC) pg[o] = acc[r];
+    if (o < ni * nj) {
+      const int i = i0 + o / nj, j = j0 + o % nj;
+      pg[(size_t)i * C + j] = acc[r];
+      if (!diag) pg[(size_t)j * C + i] = acc[r];
+    }
   }
 }
 
@@ -296,23 +326,25 @@ int launch_combine(Src src, const float* mask, const float* w, float* out, int G
   return (int)cudaGetLastError();
 }
 
-// -> part (G, ceil(N/chunk), C*C) scratch, out (G, C, C).  C <= 64 (at most
-// 16 accumulators a thread).
+// -> part (G, ceil(N/chunk), C*C) scratch, out (G, C, C).  Any C whose
+// nt (nt + 1) / 2 upper-triangle tiles, nt = ceil(C/64), fit the grid's y axis
+// (C <= 23,104).
 template <class Src>
 int launch_gram(Src src, float* part, float* out, int G, int C, int N, int chunk,
                 cudaStream_t st) {
   const int nsplit = (N + chunk - 1) / chunk;
-  const size_t smem = sizeof(float) * (size_t)C * (kGramTK + 1);
-  const dim3 grid(nsplit, G);
-  const int per = (C * C + kGramThreads - 1) / kGramThreads;
+  const int nt = (C + kGramTile - 1) / kGramTile;
+  const int ntiles = nt * (nt + 1) / 2;
+  if (ntiles > 65535) return (int)cudaErrorInvalidValue;
+  const dim3 grid(nsplit, ntiles, G);
+  const int side = min(C, kGramTile);
+  const int per = (side * side + kGramThreads - 1) / kGramThreads;
   if (per <= 1)
-    gram_partials<1, Src><<<grid, kGramThreads, smem, st>>>(src, part, C, N, chunk);
+    gram_partials<1, Src><<<grid, kGramThreads, 0, st>>>(src, part, C, N, chunk);
   else if (per <= 4)
-    gram_partials<4, Src><<<grid, kGramThreads, smem, st>>>(src, part, C, N, chunk);
-  else if (per <= 16)
-    gram_partials<16, Src><<<grid, kGramThreads, smem, st>>>(src, part, C, N, chunk);
+    gram_partials<4, Src><<<grid, kGramThreads, 0, st>>>(src, part, C, N, chunk);
   else
-    return (int)cudaErrorInvalidValue;
+    gram_partials<16, Src><<<grid, kGramThreads, 0, st>>>(src, part, C, N, chunk);
   launch_reduce(part, out, G, nsplit, C * C, st);
   return (int)cudaGetLastError();
 }

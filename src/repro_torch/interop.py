@@ -55,6 +55,15 @@ def wire_from_numpy(enc_tree, device="cpu"):
         for f in fields))
 
 
+def attacker_from_numpy(carry, device="cpu"):
+    """A stateful attacker's carry ``(blend, prev_gated)`` (numpy, e.g.
+    JAX's ``FedState.attacker``) -> the port's: a 0-d fp32 blend and the
+    (K,) or (M,) gate column."""
+    blend, prev_gated = carry
+    return (torch.tensor(np.asarray(blend, np.float32), device=device),
+            torch.tensor(np.asarray(prev_gated, np.float32), device=device))
+
+
 def store_from_numpy(jstore, device="cpu"):
     """A JAX ``ClientStore`` (numpy columns) -> the port's: the same
     columns and dtypes, EF residuals as one (M, N) buffer."""

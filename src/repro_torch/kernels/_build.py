@@ -41,6 +41,8 @@ _SIGNATURES = {
     "cc_gram": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     # g, vals, idx, nb, blk, d, stream
     "ps_block_topd": [_P, _P, _P, _I, _I, _I, _P],
+    # x, mask, out, C, N, cols, mode, trim_frac, stream
+    "ra_fwd": [_P, _P, _P, _I, _I, _I, _I, _F, _P],
 }
 
 

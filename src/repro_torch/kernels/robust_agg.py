@@ -1,14 +1,26 @@
-"""The stable-rank network shared by the robust-aggregation kernels (port
-of ``repro/kernels/robust_agg.py:stable_ranks``).
+"""Masked coordinate-robust client aggregation (K5) — the port of
+``repro/kernels/robust_agg.py`` onto a hand-written CUDA kernel
+(``csrc/robust_agg.cu``), and the stable-rank network the robust kernels
+share.
 
-The standalone masked trimmed-mean / median kernel of that module
-(``robust_agg_fwd``) is still to be ported (ROADMAP queue 2, K5).
+``robust_agg_fwd`` is the standalone masked trimmed mean or median over a
+(C, N) matrix of client updates, with no cosine gate and no weights.  Its
+formulas are K2's rank modes (``robust_pipeline.gated_combine`` with the
+team mask as the gated mask), and the CUDA entry point runs K2's kernel
+body, so the two agree bit for bit under the same mask.  Unlike the TPU
+kernel it takes any N (no block-multiple contract) and any C whose
+(C, 128) tile fits in shared memory.
+
+Dispatch: a CUDA tensor launches the kernel or the wrapper raises; a CPU
+tensor runs ``robust_agg_fwd_plain``.  ``robust_agg_fwd.launches`` counts
+the launches by mode.
 """
 from __future__ import annotations
 
 import torch
 
 _BIG = 1e30
+MODES = {"trimmed": 1, "median": 2}
 
 
 def stable_ranks(xm):
@@ -23,3 +35,60 @@ def stable_ranks(xm):
     row = torch.arange(c, device=xm.device)
     earlier = (row[None, :] < row[:, None])[:, :, None]   # j < i
     return ((xj < xi) | ((xj == xi) & earlier)).sum(-2).float()
+
+
+def robust_agg_fwd_plain(x, mask, *, mode="trimmed", trim_frac=0.2):
+    """The plain version of K5: the rank network over column chunks
+    (``robust_pipeline.gated_combine_plain`` with the team mask as the
+    gated mask)."""
+    from repro_torch.kernels import robust_pipeline as rp
+    if mode not in MODES:
+        raise ValueError(mode)
+    m = mask.float()[None]
+    return rp.gated_combine_plain(x[None], m, m, mode=mode,
+                                  trim_frac=trim_frac)[0]
+
+
+def robust_agg_fwd(x, mask, *, mode="trimmed", trim_frac=0.2):
+    """K5.  x: (C, N) fp32, mask: (C,) 0/1 -> (N,) fp32: per coordinate the
+    mean of the masked-in rows ranked in [t, n - t) with t =
+    floor(trim_frac * n) (``trimmed``), or the mean of the rows ranked
+    floor((n-1)/2) and ceil((n-1)/2) (``median``), n = sum(mask).  An empty
+    mask gives exactly 0.
+
+    Replaces ``repro/kernels/robust_agg.py:robust_agg_fwd``.  Bound: bytes
+    (one read of x, one write of the row; the C^2 compares per column stay
+    under it at C = 16).  Design: K2's body (``ra_fwd`` runs
+    ``gated_combine<DenseRows>``): one thread per column ranks it from a
+    (C, 128) shared-memory tile.
+    """
+    from repro_torch.kernels import _build, robust_pipeline as rp
+    if mode not in MODES:
+        raise ValueError(mode)
+    if x.dim() != 2:
+        raise ValueError(f"robust_agg_fwd takes (C, N), got {tuple(x.shape)}")
+    if not rp._dispatch(x):
+        return robust_agg_fwd_plain(x, mask, mode=mode, trim_frac=trim_frac)
+    (mask,) = rp._check_cuda(x[None], mask)
+    C, N = x.shape
+    if 4 * (C * rp.COLS + 2 * C) > rp.SMEM_LIMIT:
+        raise ValueError(f"C={C}: the (C, {rp.COLS}) tile exceeds shared "
+                         "memory")
+    out = torch.empty(N, device=x.device)
+    rp._launch(_build.load().ra_fwd, x.data_ptr(), mask.data_ptr(),
+               out.data_ptr(), C, N, rp.COLS, MODES[mode], float(trim_frac))
+    robust_agg_fwd.launches[mode] += 1
+    return out
+
+
+def reset_launch_counts():
+    robust_agg_fwd.launches = {m: 0 for m in MODES}
+
+
+def launch_counts():
+    """{kernel name: launches since the last reset}."""
+    return {f"robust_agg_fwd[{m}]": n
+            for m, n in robust_agg_fwd.launches.items()}
+
+
+reset_launch_counts()

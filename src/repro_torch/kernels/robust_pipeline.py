@@ -17,6 +17,15 @@ client's update straight into per-leaf views of one preallocated (C, N)
 buffer, so there is no concatenate and no segment table (the TPU segment
 table exists only to avoid XLA's concatenate).
 
+Flat wrappers (K4a-c): the JAX package keeps a second, pre-flattened form of
+the three kernels (``cosine_gate_partials``, ``gated_combine``,
+``pairwise_sq_dists_blocked``) behind ``fused_pipeline`` and the ``*_flat``
+tree wrappers.  Here the kernels already take one flat matrix, so K4a-c are
+not a second path: they are the same entry points (``rp_pass1``,
+``rp_combine``, ``rp_gram``) reached through the same pipeline with
+``flat=True``, which counts the launches on the K4 names
+(``flat_launch_counts``) so that they can be told apart.
+
 Dispatch: each wrapper launches its kernel for a CUDA tensor (and raises if
 it cannot) and runs its plain PyTorch version, defined beside it, only for
 a CPU tensor.  Each wrapper counts its launches in ``.launches``; the plain
@@ -35,7 +44,6 @@ GRAM_CHUNK = 2048       # K3: columns per block
 PLAIN_CHUNK = 8192      # plain versions: columns per step (bounds the
                         # (C, C, chunk) compare tensor)
 SMEM_LIMIT = 232448     # bytes of shared memory a Hopper block may use
-GRAM_MAX_C = 64
 MODES = {"mean": 0, "trimmed": 1, "median": 2}
 
 
@@ -137,17 +145,9 @@ def pairwise_gram_plain(x):
 # kernel wrappers
 # ---------------------------------------------------------------------------
 
-def cosine_gate_partials(x, mask):
-    """K1.  x: (G, C, N), mask: (G, C) 0/1 -> (dots (G, C), sqnorms (G, C),
-    refsq (G, 1)): the per-client cosine partials against the masked
-    coordinate median, in one read of x.
-
-    Replaces ``repro/kernels/robust_pipeline.py:cosine_gate_partials_leafwise``.
-    Bound: bytes (one read of x; the C^2 compares per column stay under
-    it for C <= 64).  Design: one thread per column ranks its column from
-    a (C, 128) shared-memory tile; per-block row sums are written as
-    partials and summed in a fixed order by a second launch.
-    """
+def _pass1(x, mask, wrapper):
+    """rp_pass1 on a CUDA tensor (counted on ``wrapper``), the plain
+    version on a CPU tensor."""
     if not _dispatch(x):
         return cosine_gate_partials_plain(x, mask)
     (mask,) = _check_cuda(x, mask)
@@ -160,20 +160,13 @@ def cosine_gate_partials(x, mask):
     lib = _build.load()
     _launch(lib.rp_pass1, x.data_ptr(), mask.data_ptr(), part.data_ptr(),
             out.data_ptr(), G, C, N, COLS)
-    cosine_gate_partials.launches += 1
+    wrapper.launches += 1
     return out[:, :C], out[:, C:2 * C], out[:, 2 * C:]
 
 
-def gated_combine(x, gated_mask, weights, *, mode, trim_frac=0.2):
-    """K2.  x: (G, C, N); gated_mask: (G, C); weights: (G, C), normalised,
-    read by ``mean`` only -> (G, N) fp32.  ``mode``: mean | trimmed |
-    median.
-
-    Replaces ``repro/kernels/robust_pipeline.py:gated_combine_leafwise``.
-    Bound: bytes (one read of x, one write of the row).  Design: the K1
-    tiling; ``mean`` skips the rank network; each thread writes its
-    column.  ``.launches`` counts by mode.
-    """
+def _combine(x, gated_mask, weights, mode, trim_frac, wrapper):
+    """rp_combine on a CUDA tensor (counted by mode on ``wrapper``), the
+    plain version on a CPU tensor."""
     if mode not in MODES:
         raise ValueError(mode)
     if not _dispatch(x):
@@ -188,8 +181,52 @@ def gated_combine(x, gated_mask, weights, *, mode, trim_frac=0.2):
     _launch(lib.rp_combine, x.data_ptr(), gated_mask.data_ptr(),
             weights.data_ptr(), out.data_ptr(), G, C, N, COLS, MODES[mode],
             float(trim_frac))
-    gated_combine.launches[mode] += 1
+    wrapper.launches[mode] += 1
     return out
+
+
+def _gram(x, wrapper):
+    """rp_gram on a CUDA tensor (counted on ``wrapper``), the plain version
+    on a CPU tensor."""
+    if not _dispatch(x):
+        return pairwise_gram_plain(x)
+    _check_cuda(x)
+    G, C, N = x.shape
+    nsplit = _cdiv(N, GRAM_CHUNK)
+    part = torch.empty(G, nsplit, C * C, device=x.device)
+    out = torch.empty(G, C, C, device=x.device)
+    lib = _build.load()
+    _launch(lib.rp_gram, x.data_ptr(), part.data_ptr(), out.data_ptr(),
+            G, C, N, GRAM_CHUNK)
+    wrapper.launches += 1
+    return out
+
+
+def cosine_gate_partials(x, mask):
+    """K1.  x: (G, C, N), mask: (G, C) 0/1 -> (dots (G, C), sqnorms (G, C),
+    refsq (G, 1)): the per-client cosine partials against the masked
+    coordinate median, in one read of x.
+
+    Replaces ``repro/kernels/robust_pipeline.py:cosine_gate_partials_leafwise``.
+    Bound: bytes (one read of x; the C^2 compares per column stay under
+    it for C <= 64).  Design: one thread per column ranks its column from
+    a (C, 128) shared-memory tile; per-block row sums are written as
+    partials and summed in a fixed order by a second launch.
+    """
+    return _pass1(x, mask, cosine_gate_partials)
+
+
+def gated_combine(x, gated_mask, weights, *, mode, trim_frac=0.2):
+    """K2.  x: (G, C, N); gated_mask: (G, C); weights: (G, C), normalised,
+    read by ``mean`` only -> (G, N) fp32.  ``mode``: mean | trimmed |
+    median.
+
+    Replaces ``repro/kernels/robust_pipeline.py:gated_combine_leafwise``.
+    Bound: bytes (one read of x, one write of the row).  Design: the K1
+    tiling; ``mean`` skips the rank network; each thread writes its
+    column.  ``.launches`` counts by mode.
+    """
+    return _combine(x, gated_mask, weights, mode, trim_frac, gated_combine)
 
 
 def pairwise_gram(x):
@@ -198,39 +235,70 @@ def pairwise_gram(x):
 
     Replaces ``repro/kernels/robust_pipeline.py:pairwise_sq_dists_leafwise``
     (its Gram accumulation; the distances are formed in torch).  Bound:
-    bytes (one read of x; 2 C^2 flops per column).  Design: each block
-    accumulates its 2048-column chunk from a padded shared-memory stage,
-    partials summed in a fixed order by a second launch.
+    bytes (one read of x; C(C+1) flops per column, the symmetric half).
+    Design: each block accumulates one (at most 64 x 64) output tile of
+    the upper triangle over its 2048-column chunk from padded
+    shared-memory stages and mirrors it, so any C runs; partials are
+    summed in a fixed order by a second launch.
     """
-    if not _dispatch(x):
-        return pairwise_gram_plain(x)
-    _check_cuda(x)
-    G, C, N = x.shape
-    if C > GRAM_MAX_C:
-        raise ValueError(f"C={C}: the Gram kernel takes C <= {GRAM_MAX_C}")
-    nsplit = _cdiv(N, GRAM_CHUNK)
-    part = torch.empty(G, nsplit, C * C, device=x.device)
-    out = torch.empty(G, C, C, device=x.device)
-    lib = _build.load()
-    _launch(lib.rp_gram, x.data_ptr(), part.data_ptr(), out.data_ptr(),
-            G, C, N, GRAM_CHUNK)
-    pairwise_gram.launches += 1
-    return out
+    return _gram(x, pairwise_gram)
+
+
+def cosine_gate_partials_flat(x, mask):
+    """K4a, the flat pass 1: ``cosine_gate_partials`` (K1, ``rp_pass1``)
+    behind its own launch counter.
+
+    Replaces ``repro/kernels/robust_pipeline.py:cosine_gate_partials``.
+    The TPU's flat form takes a pre-flattened, blk-padded (G, C, N)
+    matrix; K1 here already does, and takes any N."""
+    return _pass1(x, mask, cosine_gate_partials_flat)
+
+
+def gated_combine_flat(x, gated_mask, weights, *, mode, trim_frac=0.2):
+    """K4b, the flat pass 2: ``gated_combine`` (K2, ``rp_combine``) behind
+    its own launch counter (by mode).
+
+    Replaces ``repro/kernels/robust_pipeline.py:gated_combine``."""
+    return _combine(x, gated_mask, weights, mode, trim_frac,
+                    gated_combine_flat)
+
+
+def pairwise_sq_dists_blocked(x, mask):
+    """K4c.  x: (G, C, N), mask: (G, C) -> (G, C, C) squared distances
+    from K3's Gram (``rp_gram``, counted here), masked pairs pushed to
+    +1e30: the contract of ``repro/kernels/robust_pipeline.py:
+    pairwise_sq_dists_blocked``.  The diagonal is exactly 0 (the norms
+    are the Gram's diagonal), where the TPU kernel gives a rounding-level
+    value."""
+    return sq_dists_from_gram(_gram(x, pairwise_sq_dists_blocked),
+                              mask.float())
 
 
 def reset_launch_counts():
-    cosine_gate_partials.launches = 0
-    gated_combine.launches = {m: 0 for m in MODES}
-    pairwise_gram.launches = 0
+    for fn in (cosine_gate_partials, pairwise_gram, cosine_gate_partials_flat,
+               pairwise_sq_dists_blocked):
+        fn.launches = 0
+    for fn in (gated_combine, gated_combine_flat):
+        fn.launches = {m: 0 for m in MODES}
+
+
+def _counts(pass1, combine, gram):
+    out = {pass1.__name__: pass1.launches, gram.__name__: gram.launches}
+    for m, n in combine.launches.items():
+        out[f"{combine.__name__}[{m}]"] = n
+    return out
 
 
 def launch_counts():
-    """{kernel name: launches since the last reset}."""
-    out = {"cosine_gate_partials": cosine_gate_partials.launches,
-           "pairwise_gram": pairwise_gram.launches}
-    for m, n in gated_combine.launches.items():
-        out[f"gated_combine[{m}]"] = n
-    return out
+    """{kernel name: launches since the last reset} of K1-K3."""
+    return _counts(cosine_gate_partials, gated_combine, pairwise_gram)
+
+
+def flat_launch_counts():
+    """{kernel name: launches since the last reset} of the flat wrappers
+    K4a-c."""
+    return _counts(cosine_gate_partials_flat, gated_combine_flat,
+                   pairwise_sq_dists_blocked)
 
 
 reset_launch_counts()
@@ -303,27 +371,77 @@ def eq11(partials, combine, gram, weights, mask, *, aggregator, trim_frac,
 
 
 def fused_pipeline(x, weights, mask, *, aggregator="trimmed_mean",
-                   trim_frac=0.2, cosine_thresh=-0.5, krum_f=1):
+                   trim_frac=0.2, cosine_thresh=-0.5, krum_f=1, flat=False):
     """Full Eq.-11 pipeline over a cohort batch x (G, C, N) with weights
-    and mask (G, C) -> (G, N) fp32 aggregated rows."""
+    and mask (G, C) -> (G, N) fp32 aggregated rows, through K1-K3.  With
+    ``flat`` the launches are counted on the flat wrappers K4a-c (the
+    counterpart of ``repro/kernels/robust_pipeline.py:fused_pipeline``):
+    the same kernels, so the same result bit for bit."""
+    pass1, combine, gram = (
+        (cosine_gate_partials_flat, gated_combine_flat,
+         pairwise_sq_dists_blocked) if flat
+        else (cosine_gate_partials, gated_combine, pairwise_gram))
     return eq11(
-        lambda m: cosine_gate_partials(x, m),
-        lambda m, w, mode, tf: gated_combine(x, m, w, mode=mode,
-                                             trim_frac=tf),
-        lambda m: pairwise_gram(x), weights, mask, aggregator=aggregator,
+        lambda m: _pass1(x, m, pass1),
+        lambda m, w, mode, tf: _combine(x, m, w, mode, tf, combine),
+        lambda m: _gram(x, gram), weights, mask, aggregator=aggregator,
         trim_frac=trim_frac, cosine_thresh=cosine_thresh, krum_f=krum_f)
 
 
-def fused_aggregate_tree(updates, weights, mask, cfg):
-    """Single-cohort Eq.-11 aggregation of a tree of (C, ...) leaves; the
-    counterpart of ``aggregation.aggregate_ref``.  A one-leaf tree of a
-    contiguous (C, N) buffer streams in place; several leaves are
-    concatenated first.  Each output leaf is cast to its dtype once."""
-    flat = tree.flatten_rows(updates)
-    out = fused_pipeline(
-        flat[None], weights[None], mask[None],
-        aggregator=cfg.aggregator, trim_frac=cfg.trim_frac,
-        cosine_thresh=cfg.cosine_outlier_thresh, krum_f=cfg.krum_f)[0]
-    like = tree.map(lambda l: l[0], updates)
+def _pipeline_args(cfg):
+    return dict(aggregator=cfg.aggregator, trim_frac=cfg.trim_frac,
+                cosine_thresh=cfg.cosine_outlier_thresh, krum_f=cfg.krum_f)
+
+
+def _split(out, updates, lead):
+    """Per-leaf views of the (N,) row ``out``, each cast to its leaf's
+    dtype, in the structure of ``updates`` behind its ``lead`` axes."""
+    like = tree.map(lambda l: l[(0,) * lead], updates)
     return tree.map(lambda o, l: o.to(l.dtype), tree.row_views(out, like),
                     like)
+
+
+def _cross_slot(per, slot_masks):
+    """The two-stage scheme's second stage: the (G, N) cohort rows
+    weighted by each cohort's masked-in size."""
+    cw = slot_masks.float().sum(1)
+    cw = cw / torch.clamp(cw.sum(), min=1e-12)
+    return torch.tensordot(cw, per, dims=1)
+
+
+def fused_aggregate_tree(updates, weights, mask, cfg, *, flat=False):
+    """Single-cohort Eq.-11 aggregation of a tree of (C, ...) leaves of any
+    float dtype; the counterpart of ``aggregation.aggregate_ref``.  A
+    one-leaf tree of a contiguous fp32 (C, N) buffer streams in place;
+    several leaves are concatenated into one fp32 matrix first.  Each
+    output leaf is cast to its dtype once.  ``flat``: as in
+    ``fused_pipeline``."""
+    out = fused_pipeline(tree.flatten_rows(updates).float()[None],
+                         weights[None], mask[None], flat=flat,
+                         **_pipeline_args(cfg))[0]
+    return _split(out, updates, 1)
+
+
+def fused_aggregate_tree_flat(updates, weights, mask, cfg):
+    """``fused_aggregate_tree`` counted on K4a-c: the counterpart of
+    ``repro/kernels/robust_pipeline.py:fused_aggregate_tree_flat``."""
+    return fused_aggregate_tree(updates, weights, mask, cfg, flat=True)
+
+
+def fused_two_stage_tree(slot_updates, slot_weights, slot_masks, cfg, *,
+                         flat=False):
+    """Cohort-batched two-stage scheme over a tree of (G, C, ...) leaves:
+    every cohort rides the G axis of one K1-K3 pipeline, then the
+    cross-slot mean weighted by cohort size, in fp32, one cast a leaf.
+    ``flat``: as in ``fused_pipeline``."""
+    per = fused_pipeline(tree.flatten_rows(slot_updates, 2).float(),
+                         slot_weights, slot_masks, flat=flat,
+                         **_pipeline_args(cfg))
+    return _split(_cross_slot(per, slot_masks), slot_updates, 2)
+
+
+def fused_two_stage_tree_flat(slot_updates, slot_weights, slot_masks, cfg):
+    """``fused_two_stage_tree`` counted on K4a-c: the counterpart of
+    ``repro/kernels/robust_pipeline.py:fused_two_stage_tree_flat``."""
+    return fused_two_stage_tree(slot_updates, slot_weights, slot_masks, cfg,
+                                flat=True)

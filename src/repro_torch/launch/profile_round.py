@@ -3,6 +3,7 @@ timed on the host clock and traced by ``torch.profiler``.
 
     PYTHONPATH=src python -m repro_torch.launch.profile_round \
         [--engine sync|async] [--aggregator A] [--compress C]
+        [--scenario NAME]
 
 ``--engine sync`` (the default) runs the FedFiTS round of
 ``chip_smoke.py``'s main path (16 clients, batch 32, 2 local epochs), with
@@ -10,14 +11,17 @@ the uplink codec ``--compress`` (none, int8, int4, signsgd, topk, randk;
 error feedback on).  ``--engine async`` runs the buffered-async round of
 ``chip_smoke.py``'s phase 5: a cohort of 16 of M=16,384 registered clients
 drawn by K7, a retry buffer of 32 rows, chronic stragglers.
+``--scenario NAME`` runs one round of a registry cell instead, as
+``chip_smoke.py``'s phase 6b runs it (paper-cnn, 16 clients, the cell's
+own engine, aggregator, codec, attack and faults).
 
 Prints the median round wall time over 10 steady-state rounds (host clock,
 ending in a synchronize), then traces one more round and prints: device
 busy time (the sum of kernel and copy times) and the idle share of the
 traced wall time, the device time under each phase span of the round
-(client_update, transport, selection, delivery, sanitize, aggregate,
-writeback) and under the port's own CUDA kernels (K1-K3, K6a-c and K7
-apart), and the kernels that take the most device time.
+(attack, client_update, transport, selection, delivery, sanitize,
+aggregate, writeback) and under the port's own CUDA kernels (K1-K3, K6a-c
+and K7 apart), and the kernels that take the most device time.
 Runs on the card unless ``--device cpu``.
 """
 from __future__ import annotations
@@ -37,11 +41,12 @@ from repro_torch.core import async_engine, fedfits
 from repro_torch.core.faults import FaultConfig
 from repro_torch.data.pipeline import build_federation
 from repro_torch.models.model import build
+from repro_torch.scenarios import engine as scenario_engine, registry
 
 ROUNDS = 10                 # timed steady-state rounds, after 2 warm-up
 ASYNC_M, ASYNC_N = 16_384, 131_072   # the async engine's population, data
-SPANS = ("client_update", "transport", "selection", "delivery", "sanitize",
-         "aggregate", "writeback")
+SPANS = ("attack", "client_update", "transport", "selection", "delivery",
+         "sanitize", "aggregate", "writeback")
 # the port's own kernels launch through ctypes, outside any torch op, so the
 # profiler does not attribute them to a span: they are summed by name.  K1-K3
 # and K6a-c are the same templated kernels (pass1_partials, gated_combine,
@@ -103,18 +108,61 @@ def _async_round(args, dev, gen):
     return step
 
 
+def _scenario_round(args, dev, gen):
+    """One round of a registry cell at paper-cnn width (``chip_smoke.py``
+    phase 6b) as ``step(t)``."""
+    s = scenario_engine.setup(args.scenario, n_clients=16, kind="images",
+                              arch="paper-cnn", device=dev)
+    sc = s.scenario
+    fed, _ = build_federation(0, kind="images", n=4000,
+                              n_clients=s.population, batch_size=32, sep=1.0,
+                              dirichlet_alpha=1.0, device=dev)
+    kw = dict(data_attack=s.data_attack, update_attack=s.update_attack,
+              malicious=s.malicious, faults=sc.faults)
+    attacker = s.update_attack if getattr(s.update_attack, "stateful", False) \
+        else None
+    params = s.model.init(gen(0))
+    if sc.async_mode:
+        draw, round_fn = async_engine.make_async_round(
+            s.model, s.fed_cfg, fed.data, batch_size=fed.batch_size,
+            eval_batch=fed.eval_batch, straggler_rows=sc.straggler_rows,
+            **kw)
+        state = async_engine.init_async_state(params, s.fed_cfg, gen(1),
+                                              attacker=attacker)
+    else:
+        round_fn = fedfits.make_round(s.model, s.fed_cfg, **kw)
+        state = fedfits.init_state(params, 16, s.fed_cfg, gen(1),
+                                   attacker=attacker)
+        g_data = gen(2)
+
+    def step(t):
+        nonlocal state
+        if sc.async_mode:
+            state, _ = round_fn(state, draw(state))
+        else:
+            state, _ = round_fn(state, fed.data_fn(t, g_data))
+
+    return step
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--engine", default="sync", choices=["sync", "async"])
     ap.add_argument("--aggregator", default="fedavg",
                     choices=["fedavg", "trimmed_mean", "median", "krum"])
     ap.add_argument("--compress", default="none", choices=COMPRESS)
+    ap.add_argument("--scenario", default=None,
+                    choices=sorted(registry.all_scenarios()), metavar="NAME",
+                    help="one round of this registry cell instead")
     ap.add_argument("--device", default=None)
     args = ap.parse_args(argv)
     dev = device_mod.resolve(args.device)
     gen = lambda s: torch.Generator(device=dev).manual_seed(s)
-    step = (_async_round if args.engine == "async" else _sync_round)(
-        args, dev, gen)
+    if args.scenario:
+        step = _scenario_round(args, dev, gen)
+    else:
+        step = (_async_round if args.engine == "async" else _sync_round)(
+            args, dev, gen)
 
     walls = []
     for t in range(1, ROUNDS + 3):
@@ -148,8 +196,14 @@ def main(argv=None):
         by_kernel[e.name] = (n + e.self_device_time_total / 1e3, c + 1)
 
     name = torch.cuda.get_device_name(0) if dev.type == "cuda" else "cpu"
-    print(f"device {name}, engine {args.engine}, aggregator "
-          f"{args.aggregator}, compress {args.compress}")
+    if args.scenario:
+        sc = registry.get(args.scenario)
+        print(f"device {name}, scenario {sc.name}: engine "
+              f"{'async' if sc.async_mode else 'sync'}, attack {sc.attack}, "
+              f"aggregator {sc.aggregator}, compress {sc.compress}")
+    else:
+        print(f"device {name}, engine {args.engine}, aggregator "
+              f"{args.aggregator}, compress {args.compress}")
     print(f"round wall ms: median {statistics.median(walls):.3f} over "
           f"{len(walls)} rounds (min {min(walls):.3f}, max {max(walls):.3f})")
     print(f"traced round: wall {traced_ms:.3f} ms, device busy "

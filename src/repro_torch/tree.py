@@ -51,15 +51,15 @@ def unflatten(like, flat_leaves):
     return out
 
 
-def flatten_rows(tree) -> torch.Tensor:
-    """(C, N) matrix of a tree of (C, ...) leaves.  A one-leaf tree of a
-    contiguous matrix comes back as a view (the round's update buffer);
-    several leaves are concatenated."""
+def flatten_rows(tree, lead: int = 1) -> torch.Tensor:
+    """(*lead, N) matrix of a tree of leaves with ``lead`` leading axes in
+    common.  A one-leaf tree of a contiguous matrix comes back as a view
+    (the round's update buffer); several leaves are concatenated."""
     ls = leaves(tree)
-    c = ls[0].shape[0]
+    shape = ls[0].shape[:lead]
     if len(ls) == 1:
-        return ls[0].reshape(c, -1)
-    return torch.cat([l.reshape(c, -1) for l in ls], dim=1)
+        return ls[0].reshape(*shape, -1)
+    return torch.cat([l.reshape(*shape, -1) for l in ls], dim=-1)
 
 
 def row_views(flat: torch.Tensor, like):

@@ -1,9 +1,11 @@
 """The port on the card: each CUDA kernel against its plain version (and
-K6a-c bitwise against K1-K3 on the masked decode, K7's candidates bitwise
-against ``block_topd_plain``), the wrappers' checks and launch counts, and
-a round on the card (dense, int8 and buffered-async) against the same
-round on the CPU.  Needs a CUDA device; skips without one.  Imports
-no jax, so it runs where only the port is installed:
+K6a-c bitwise against K1-K3 on the masked decode, K5 bitwise against K2's
+rank modes, the flat wrappers K4a-c bitwise against K1-K3, K7's candidates
+bitwise against ``block_topd_plain``), the Gram kernels K3 and K6c past 64
+rows, the wrappers' checks and launch counts, and a round on the card
+(dense, int8 and buffered-async) against the same round on the CPU.
+Needs a CUDA device; skips without one.  Imports no jax, so it runs where
+only the port is installed:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
@@ -25,6 +27,7 @@ from repro_torch.configs.paper_models import MLP_CONFIG
 from repro_torch.core import async_engine, fedfits, faults
 from repro_torch.data.pipeline import build_federation
 from repro_torch.kernels import population_select as ps
+from repro_torch.kernels import robust_agg as ra
 from repro_torch.kernels import robust_pipeline as rp
 from repro_torch.models.model import build
 
@@ -85,7 +88,7 @@ def test_wrappers_check_and_count(card):
     with pytest.raises(ValueError):
         rp.gated_combine(x.transpose(1, 2), m, w, mode="mean")
     with pytest.raises(ValueError):
-        rp.pairwise_gram(torch.zeros(1, 65, 10, device=card))
+        rp.pairwise_gram(torch.zeros(1, 10, 65, device=card).transpose(1, 2))
 
 
 @pytest.mark.parametrize("aggregator", ["fedavg", "trimmed_mean", "krum"])
@@ -275,3 +278,89 @@ def test_async_round_on_card_matches_cpu(card):
         for a, b in zip(tree.leaves(s_gpu.params), tree.leaves(s_cpu.params)):
             torch.testing.assert_close(a.cpu(), b, rtol=0, atol=1e-5)
     assert ps.launch_counts()["block_topd"] == 3
+
+
+@pytest.mark.parametrize("c", [96, 130])
+def test_gram_kernels_past_64_rows(card, c):
+    """K3 and K6c over several 64 x 64 output tiles (C = 130: a ragged
+    last tile) and a ragged N, against their plain versions; K6c bitwise
+    K3 on the masked decode."""
+    rng = np.random.default_rng(c)
+    n = 20_011
+    x = torch.from_numpy(rng.standard_normal((2, c, n), np.float32)).to(card)
+    _close_rel(rp.pairwise_gram(x), rp.pairwise_gram_plain(x))
+    m = torch.ones(2, c, device=card)
+    m[1, ::7] = 0.0
+    layout = codecs.WireLayout((7_000, 13_011), 128)
+    enc = codecs.Codec("int8").encode_flat(x.reshape(2 * c, n) * 1e-2,
+                                           layout)
+    q, sc = enc.q.view(2, c, n), enc.s.view(2, c, -1)
+    out = dq.dequant_pairwise_gram(q, sc, layout, m)
+    _close_rel(out, dq.dequant_pairwise_gram_plain(q, sc, layout, m))
+    _bitwise(out, rp.pairwise_gram(dq.dequant_masked(q, sc, layout, m)))
+
+
+def test_robust_agg_fwd_matches_plain_and_k2(card):
+    """K5 in both modes under full, mixed, one-member and empty masks:
+    the median bitwise its plain version, the trimmed mean within rtol
+    1e-5; bitwise K2 under the same mask; exactly 0 for an empty mask."""
+    rng = np.random.default_rng(5)
+    c, n = 17, 70_001
+    x = torch.from_numpy(rng.standard_normal((c, n), np.float32)).to(card)
+    masks = {"full": torch.ones(c), "mixed": (torch.arange(c) % 3 > 0),
+             "one": torch.arange(c) == 7, "empty": torch.zeros(c)}
+    ra.reset_launch_counts()
+    for kind, m in masks.items():
+        m = m.float().to(card)
+        for mode in ra.MODES:
+            out = ra.robust_agg_fwd(x, m, mode=mode)
+            ref = ra.robust_agg_fwd_plain(x, m, mode=mode)
+            if mode == "median":
+                assert torch.equal(out, ref), kind
+            else:
+                torch.testing.assert_close(out, ref, rtol=1e-5, atol=1e-6)
+            _bitwise(out, rp.gated_combine(x[None], m[None], m[None],
+                                           mode=mode)[0])
+            if kind == "empty":
+                assert float(out.abs().max()) == 0.0
+            if kind == "one":
+                assert torch.equal(out, x[7])
+    assert ra.launch_counts() == {"robust_agg_fwd[trimmed]": 4,
+                                  "robust_agg_fwd[median]": 4}
+    with pytest.raises(TypeError):
+        ra.robust_agg_fwd(x.double(), m)
+    with pytest.raises(ValueError):
+        ra.robust_agg_fwd(x, m, mode="mean")
+
+
+def test_flat_wrappers_are_bitwise_k1_k3(card):
+    """K4a-c are K1-K3's entry points behind their own counters: the flat
+    pipeline, the flat tree wrapper and the two-stage flat path give K1-K3's
+    results bit for bit, and count apart."""
+    x, m, w = _inputs(card)
+    rp.reset_launch_counts()
+    for agg in ("fedavg", "trimmed_mean", "median", "krum"):
+        _bitwise(rp.fused_pipeline(x, w, m, aggregator=agg, flat=True),
+                 rp.fused_pipeline(x, w, m, aggregator=agg))
+    _bitwise(rp.pairwise_sq_dists_blocked(x, m), rp.pairwise_sq_dists(x, m))
+    flat = rp.flat_launch_counts()
+    assert flat == {"cosine_gate_partials_flat": 4,
+                    "pairwise_sq_dists_blocked": 2,
+                    "gated_combine_flat[mean]": 2,
+                    "gated_combine_flat[trimmed]": 1,
+                    "gated_combine_flat[median]": 1}
+    assert rp.launch_counts()["cosine_gate_partials"] == 4
+    cfg = FedConfig(n_clients=64, aggregator="trimmed_mean")
+    upd = {"a": x[0, :, :1000].reshape(64, 10, 100), "b": x[0, :, 1000:]}
+    for o, r in zip(tree.leaves(rp.fused_aggregate_tree_flat(upd, w[0], m[0],
+                                                             cfg)),
+                    tree.leaves(rp.fused_aggregate_tree(upd, w[0], m[0],
+                                                        cfg))):
+        _bitwise(o, r)
+    slot = {"a": x[:2, :, :1000].reshape(2, 64, 10, 100),
+            "b": x[:2, :, 1000:]}
+    for o, r in zip(tree.leaves(rp.fused_two_stage_tree_flat(
+                        slot, w[:2], m[:2], cfg)),
+                    tree.leaves(rp.fused_two_stage_tree(slot, w[:2], m[:2],
+                                                        cfg))):
+        _bitwise(o, r)
