@@ -83,6 +83,48 @@ Phases, one line each (a failure raises, so the exit code is not 0):
               the CPU port with the card's draws: the same team or cohort,
               gated, lost and epoch masks, params within 1e-5 (int8: one
               quantisation step).
+  2c. attention
+              K8 (``paged_flash_decode``, csrc/paged_decode.cu) against its
+              plain version at the serving shape (16 slots, Hq=24, Hkv=8,
+              dh=128, page 16, 24 pages a slot; a slot with every page
+              full, one with page + 1 rows, one with 1 row, one inactive,
+              which must be exactly 0) and at tiny-lm's dh=64, g=2 with
+              pages of 8 and 32, on fp32 and int8 pools and bf16 and fp32
+              queries; K9 (``flash_attention_fwd``, csrc/flash_attention.cu)
+              at B=2, Hq=24, Hkv=8, S=1024, dh=128 and at dh=64 with S=384
+              and S=200 (ragged), bf16 and fp32, window 0 and 256.  Times
+              by CUDA events; K9's library call is
+              ``scaled_dot_product_attention`` (causal, GQA; a boolean
+              band for the window), which the port never calls.
+  7. serving  minitron-4b at full width and depth (5.1e9 parameters drawn
+              in fp32 on the card, cast once to bf16) behind
+              ``ServeEngine``: 16 slots, pages of 16, max_len 384, prompts
+              of 128, K8 as the decode attention.  48 requests from
+              ``draw_requests`` (generations log-uniform in [16, 256]) run
+              continuously; every request must emit max_new tokens, every
+              page come back, K8 launch 32 times a decode step.  A
+              12-request subset (generations in [8, 64]) over 8 slots, so
+              that continuous admits mid-run: the fixed engine must take
+              more steps and give the same tokens; the ``attn="ref"``
+              engine; int8 KV (every token, 3.88x fewer KV bytes); the
+              dense full-cache loop.  First decode-step logits of 8
+              requests, from a fresh state and from one where they land in
+              recycled slots and pages beside live requests, must agree
+              with the ref engine's within SERVE_LOGIT_REL of the largest
+              (the same argmax where the top-2 gap exceeds that), and two
+              paging faults of that state (a wrong first page, one stale
+              row read) must fail the same check.  Then 13 steady decode
+              steps at 16 slots, the last 3 traced (device busy, idle
+              share, K8's share).  Prints decode-step ms and tokens/s
+              beside the card.
+  8. forward  ``Model.forward`` on (2, 1024) tokens at full width and
+              depth with attn_impl="pallas": K9 must launch 32 times, the
+              logits be finite, and the last hidden state agree with the
+              plain attention's within FWD_HIDDEN_REL of the largest, while
+              K9 with the keys more than 896 rows back dropped must fail
+              that check; a 2-layer fp32 cut within 1e-4; the first decode
+              step of that cut on the card and on the CPU port within 1e-4
+              of the largest logit.  The params and pools are freed.
 The last three lines are the nvidia-smi line, the kernels JSON and the
 result JSON.  Without a CUDA device, or without the repository's
 src/repro_torch beside this file, it exits non-zero and prints no result.
@@ -98,10 +140,11 @@ from pathlib import Path
 
 SRC = Path(__file__).resolve().parent / "src"
 
-# H100 SXM data-sheet peaks: HBM bytes/s and
-# fp32 FLOP/s outside the tensor cores
+# H100 SXM data-sheet peaks: HBM bytes/s, fp32 FLOP/s outside the tensor
+# cores and dense bf16 FLOP/s on them
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
+BF16_OPS_PER_S = 989e12
 
 # tolerances, kernel vs plain version on the same card.  The median picks
 # entries, so it is bitwise.  Per-column sums over C clients (mean,
@@ -166,13 +209,41 @@ REPLAY_CELLS = ("hetero_fedfits", "gate_aware_int8_dropout",
                 "async_late_poison_krum+retries4")
 ROBUST_ROUNDS, ROBUST_K = 6, 16
 DEVICE = "cuda"
+# phases 2c, 7, 8: K8, K9, serving and the full forward on minitron-4b
+K8_SOURCE = "src/repro_torch/csrc/paged_decode.cu"
+K9_SOURCE = "src/repro_torch/csrc/flash_attention.cu"
+K8_REPLACES = "src/repro/kernels/paged_decode.py:98"
+K9_REPLACES = "src/repro/kernels/flash_attention.py:82"
+SERVE_ARCH = "minitron-4b"
+SERVE_SLOTS, SERVE_PAGE, SERVE_MAXP, SERVE_PROMPT = 16, 16, 24, 128
+SERVE_CFG = dict(max_slots=SERVE_SLOTS, page_size=SERVE_PAGE,
+                 max_len=SERVE_PAGE * SERVE_MAXP, prompt_pad=SERVE_PROMPT)
+SUB_SLOTS = 8
+SUB_CFG = dict(SERVE_CFG, max_slots=SUB_SLOTS)
+FWD_SEQ, FWD_WINDOW = 1024, 256
+# K8 against its plain version: fp32 sums over up to 384 keys in other
+# chunkings (the tests' bound).  K9: the same tiles and order of tiles, the
+# dot products summed in another order: fp32 within 1e-5, bf16 within one
+# bf16 ulp of the output plus that.
+K8_ATOL, K9_ATOL = 2e-5, 1e-5
+# bf16 model paths that differ only in the attention kernel, as a share of
+# the largest value, set from readings on the H100 (PERF.md): first-step
+# logits 0.0141-0.0144 sound, 0.060 and 0.42 under the two paging faults;
+# the forward's last hidden state 0.0274 sound, 0.208 with a key block
+# dropped
+SERVE_LOGIT_REL = 2.0 ** -5
+FWD_HIDDEN_REL = 2.0 ** -4
+# fp32 paths: 2 layers of full-width matmuls (sums over 3,072 and 9,216
+# terms) in other orders
+FWD_FP32_ATOL = 1e-4
+ROUND1_LOGIT_REL = 1e-4
 
 
-def bound(bytes_moved, ops):
-    """(bound_ms, bound_by): the larger of bytes over HBM rate and fp32
-    operations over the fp32 peak."""
+def bound(bytes_moved, ops, ops_per_s=FP32_OPS_PER_S):
+    """(bound_ms, bound_by): the larger of bytes over HBM rate and the
+    operations over the peak rate of the inputs' type (fp32 unless given)."""
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / FP32_OPS_PER_S * 1e3
+    t_ops = ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -1344,6 +1415,558 @@ def _robustness():
     return counts
 
 
+# ---------------------------------------------------------------------------
+# phases 2c, 7 and 8: the transformer, serving, K8 and K9
+# ---------------------------------------------------------------------------
+
+def paged_work(lengths, page, maxp, hq, hkv, dh, pool_item, q_item):
+    """Bytes and operations of K8 on these lengths: each live K and V row
+    once (plus its two fp32 scales on int8 pools), q and the fp32 output;
+    4 dh flops a (query head, live key) pair."""
+    keys = int(lengths.clamp(0, maxp * page).sum())
+    s = lengths.shape[0]
+    scales = 2 * keys * hkv * 4 if pool_item == 1 else 0
+    moved = 2 * keys * hkv * dh * pool_item + scales + s * hq * dh * (
+        q_item + 4)
+    return moved, 4 * keys * hq * dh
+
+
+def band_pairs(s, window):
+    """(query, key) pairs in the causal band of width ``window`` (0: all
+    earlier keys)."""
+    return sum(min(i + 1, window) if window else i + 1 for i in range(s))
+
+
+def flash_work(b, hq, hkv, s, dh, window, item):
+    """Bytes and operations of K9: q, k, v and o once; 4 dh flops a live
+    (row, key) pair of each query head."""
+    return ((2 * b * hq + 2 * b * hkv) * s * dh * item,
+            4 * b * hq * dh * band_pairs(s, window))
+
+
+def _attn_entry(name, source, replaces, err, kern, plain, lib, work, shape,
+                ops_per_s=FP32_OPS_PER_S):
+    bound_ms, bound_by = bound(*work, ops_per_s)
+    entry = {"name": name, "route": "cuda", "source": source,
+             "replaces": replaces, "launches": None, "max_abs_err": err,
+             "ms": time_ms(kern), "plain_ms": time_ms(plain),
+             "bound_ms": bound_ms, "bound_by": bound_by,
+             "library_ms": time_ms(lib) if lib else None, "shape": shape}
+    print(f"[attention] {name} {shape}: {entry['ms']:.4f} ms, plain "
+          f"{entry['plain_ms']:.4f} ms, library {entry['library_ms']}, "
+          f"bound {bound_ms:.4f} ms ({bound_by})")
+    return entry
+
+
+def _paged_inputs(seed, s, maxp, page, hq, hkv, dh):
+    """Random pools, a permuted page table and ragged lengths: every page
+    full, page + 1 rows, one row, an inactive slot, the rest random."""
+    import torch
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+    n = s * maxp + 3
+    rand = lambda *shape: torch.randn(shape, generator=g, device=DEVICE)
+    q = rand(s, hq, dh).bfloat16()
+    kp, vp = rand(n, page, hkv, dh), rand(n, page, hkv, dh)
+    table = torch.randperm(n, generator=g, device=DEVICE)[:s * maxp]
+    lengths = torch.randint(1, maxp * page + 1, (s,), generator=g,
+                            device=DEVICE)
+    lengths[:4] = torch.tensor([maxp * page, page + 1, 1, 0])
+    return (q, kp, vp, table.view(s, maxp).int().contiguous(),
+            lengths.int())
+
+
+def _atol(name, out, ref, atol):
+    err = float((out - ref).abs().max())
+    if not err <= atol:
+        raise AssertionError(f"{name}: kernel disagrees with its plain "
+                             f"version (max abs err {err:.3e} > {atol})")
+    return err
+
+
+def _bf16_close(name, out, ref):
+    """Within one bf16 ulp of the plain output plus K9_ATOL."""
+    import torch
+    o, r = out.float(), ref.float()
+    ulp = torch.exp2(torch.floor(torch.log2(r.abs().clamp_min(2.0 ** -126)))
+                     - 7)
+    err = float((o - r).abs().max())
+    if not bool(((o - r).abs() <= ulp + K9_ATOL).all()):
+        raise AssertionError(f"{name}: kernel disagrees with its plain "
+                             f"version beyond one bf16 ulp (max abs err "
+                             f"{err:.3e})")
+    return err
+
+
+def _attention_kernels():
+    """Phase 2c: K8 and K9 against their plain versions on the card, at the
+    serving and forward shapes of phases 7-8 and at tiny-lm's head dim;
+    returns the report entries."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import paged_decode as pd
+    from repro_torch.kernels.flash_attention_ref import band_mask
+    from repro_torch.models.attention import _paged_quant
+
+    errs = {"paged_flash_decode": 0.0, "paged_flash_decode[int8]": 0.0,
+            "flash_attention_fwd": 0.0}
+    for page, maxp, hq, hkv, dh in ((SERVE_PAGE, SERVE_MAXP, 24, 8, 128),
+                                    (8, 48, 8, 4, 64), (32, 12, 8, 4, 64)):
+        q, kp, vp, table, lengths = _paged_inputs(page + dh, SERVE_SLOTS,
+                                                  maxp, page, hq, hkv, dh)
+        kq, ks = _paged_quant(kp)
+        vq, vs = _paged_quant(vp)
+        for name, pools, sc in (
+                ("paged_flash_decode", (kp, vp), {}),
+                ("paged_flash_decode[int8]", (kq, vq),
+                 dict(k_scale=ks, v_scale=vs))):
+            for qx in (q, q.float()):
+                out = pd.paged_flash_decode(qx, *pools, table, lengths, **sc)
+                ref = pd.paged_flash_decode_plain(qx, *pools, table, lengths,
+                                                  **sc)
+                errs[name] = max(errs[name], _atol(
+                    f"{name} page {page} dh {dh}", out, ref, K8_ATOL))
+                if float(out[3].abs().max()) != 0.0:
+                    raise AssertionError(f"{name}: inactive slot not 0")
+        torch.cuda.synchronize()
+        print(f"[attention] K8 S={SERVE_SLOTS} Hq={hq} Hkv={hkv} dh={dh} "
+              f"page {page} maxp {maxp}: fp32 and int8 pools, bf16 and fp32 "
+              "queries agree with the plain version; the inactive slot is 0")
+    for b, hq, hkv, s, dh in ((2, 24, 8, FWD_SEQ, 128), (2, 8, 4, 384, 64),
+                              (2, 8, 4, 200, 64)):
+        g = torch.Generator(device=DEVICE).manual_seed(s + dh)
+        qkv = [torch.randn(b, h, s, dh, generator=g, device=DEVICE)
+               for h in (hq, hkv, hkv)]
+        for window in (0, FWD_WINDOW):
+            for dtype in (torch.bfloat16, torch.float32):
+                x = [t.to(dtype) for t in qkv]
+                out = fa.flash_attention_fwd(*x, causal=True, window=window)
+                ref = fa.flash_attention_fwd_plain(*x, causal=True,
+                                                   window=window)
+                label = f"flash_attention_fwd {dtype} S={s} w={window}"
+                errs["flash_attention_fwd"] = max(
+                    errs["flash_attention_fwd"],
+                    _bf16_close(label, out, ref) if dtype == torch.bfloat16
+                    else _atol(label, out, ref, K9_ATOL))
+        torch.cuda.synchronize()
+        print(f"[attention] K9 B={b} Hq={hq} Hkv={hkv} S={s} dh={dh}: bf16 "
+              f"and fp32, window 0 and {FWD_WINDOW}, agree with the plain "
+              "version")
+
+    report = []
+    q, kp, vp, table, lengths = _paged_inputs(0, SERVE_SLOTS, SERVE_MAXP,
+                                              SERVE_PAGE, 24, 8, 128)
+    kq, ks = _paged_quant(kp)
+    vq, vs = _paged_quant(vp)
+    shape = {"S": SERVE_SLOTS, "Hq": 24, "Hkv": 8, "dh": 128,
+             "page": SERVE_PAGE, "maxp": SERVE_MAXP,
+             "keys": int(lengths.sum())}
+    for name, pools, sc, item in (
+            ("paged_flash_decode", (kp, vp), {}, 4),
+            ("paged_flash_decode[int8]", (kq, vq),
+             dict(k_scale=ks, v_scale=vs), 1)):
+        report.append(_attn_entry(
+            name, K8_SOURCE, K8_REPLACES, errs[name],
+            lambda pools=pools, sc=sc: pd.paged_flash_decode(
+                q, *pools, table, lengths, **sc),
+            lambda pools=pools, sc=sc: pd.paged_flash_decode_plain(
+                q, *pools, table, lengths, **sc), None,
+            paged_work(lengths, SERVE_PAGE, SERVE_MAXP, 24, 8, 128, item, 2),
+            shape))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    g = torch.Generator(device=DEVICE).manual_seed(0)
+    qkv = [torch.randn(2, h, FWD_SEQ, 128, generator=g, device=DEVICE)
+           .bfloat16() for h in (24, 8, 8)]
+    entries = []
+    for window in (0, FWD_WINDOW):
+        band = band_mask(FWD_SEQ, True, window, DEVICE)
+        lib = (lambda: sdpa(*qkv, is_causal=True, enable_gqa=True)) \
+            if not window else \
+            (lambda band=band: sdpa(*qkv, attn_mask=band, enable_gqa=True))
+        entries.append(_attn_entry(
+            "flash_attention_fwd", K9_SOURCE, K9_REPLACES,
+            errs["flash_attention_fwd"],
+            lambda window=window: fa.flash_attention_fwd(
+                *qkv, causal=True, window=window),
+            lambda window=window: fa.flash_attention_fwd_plain(
+                *qkv, causal=True, window=window), lib,
+            flash_work(2, 24, 8, FWD_SEQ, 128, window, 2),
+            {"B": 2, "Hq": 24, "Hkv": 8, "S": FWD_SEQ, "dh": 128,
+             "dtype": "bfloat16", "window": window}, BF16_OPS_PER_S))
+    full, windowed = entries
+    full["window"] = {k: windowed[k] for k in ("ms", "plain_ms", "bound_ms",
+                                               "bound_by", "library_ms",
+                                               "shape")}
+    report.append(full)
+    return report
+
+
+def _admit(engine, cache, st, reqs):
+    """Admit ``reqs`` in order; returns (cache, st, the slot of each)."""
+    import torch
+    slots = []
+    for r in reqs:
+        prompt = torch.zeros(engine.scfg.prompt_pad, dtype=torch.int64)
+        prompt[:len(r.tokens)] = torch.tensor(r.tokens)
+        cache, st, out = engine._admit(engine.params, cache, st,
+                                       prompt.to(engine.device),
+                                       len(r.tokens), r.max_new, r.req_id)
+        slots.append(int(out["slot"]))
+    return cache, st, slots
+
+
+def _step_logits(engine, cache, st, table=None, length=None):
+    """fp32 (S, V) logits of the decode step's own forward call on this
+    state; ``table`` / ``length`` stand in for the state's to model a
+    paging fault."""
+    import torch
+    from repro_torch.models import transformer
+    from repro_torch.serve import engine as serve_engine
+    table = st.table if table is None else table
+    length = st.length if length is None else length
+    view = serve_engine._with_ctx(cache, table, length, st.active,
+                                  torch.zeros_like(st.length))
+    logits, _, _ = transformer.forward(engine.params, engine.cfg,
+                                       tokens=st.tok,
+                                       positions=st.length[:, None],
+                                       cache=view)
+    return logits[:, 0].float()
+
+
+def _first_step_logits(engine, reqs, warm=(), faults=False):
+    """The first decode-step logits of ``reqs``, one row each in order.
+
+    With ``warm``, those requests are admitted first and decoded until
+    len(reqs) slots are free again, so ``reqs`` land in recycled slots and
+    pages (stale rows of the warm requests past their lengths) beside live
+    requests.  With ``faults``, also returns the logits under two paging
+    faults of that state: each request reading the first page of the next
+    one ("page"), and each reading one row past its length ("row")."""
+    import torch
+    cache, st = engine.fresh_state()
+    if warm:
+        cache, st, _ = _admit(engine, cache, st, warm)
+        free = engine.scfg.max_slots - len(warm)
+        while free < len(reqs):
+            cache, st, out = engine._decode(engine.params, cache, st)
+            free = engine.scfg.max_slots - int(st.active.sum())
+    cache, st, slots = _admit(engine, cache, st, reqs)
+    rows = torch.tensor(slots, device=st.active.device)
+    sound = _step_logits(engine, cache, st)[rows]
+    if not faults:
+        return sound
+    table = st.table.clone()
+    table[rows, 0] = st.table[rows.roll(-1), 0]
+    length = torch.where(torch.isin(torch.arange(
+        st.length.shape[0], device=rows.device), rows), st.length + 1,
+        st.length)
+    return sound, {"page": _step_logits(engine, cache, st, table=table)[rows],
+                   "row": _step_logits(engine, cache, st,
+                                       length=length)[rows]}
+
+
+def _logits_close(label, out, ref, rel, control=False):
+    """max |out - ref| <= tol = rel x max |ref|, and the same argmax in every
+    row whose top-2 gap in ``ref`` exceeds tol.  Raises unless that holds,
+    or, for a ``control`` (a fault the check must see), unless it fails."""
+    err = float((out - ref).abs().max())
+    scale = float(ref.abs().max())
+    tol = rel * scale
+    top2 = ref.topk(2, dim=-1).values
+    clear = (top2[:, 0] - top2[:, 1]) > tol
+    same = out.argmax(-1) == ref.argmax(-1)
+    ok = err <= tol and bool(same[clear].all())
+    print(f"[{label}] first decode-step logits max abs diff {err:.3e} "
+          f"({err / scale:.5f} of max |logit| {scale:.3f}; tol {rel:.5f}); "
+          f"argmax equal in {int(same.sum())}/{same.numel()} rows "
+          f"({int(clear.sum())} with a clear top-2 gap): "
+          f"{'holds' if ok else 'fails'}"
+          f"{' (a control: must fail)' if control else ''}")
+    if ok == control:
+        raise AssertionError(f"{label}: the logits check "
+                             f"{'holds' if ok else 'fails'}")
+    return err
+
+
+def _step_ms(stats):
+    ms = sorted(1e3 * t for t in stats["step_s"])
+    return ms[len(ms) // 2], ms[0], ms[-1]
+
+
+def _serve_line(label, stats, smi):
+    med, lo, hi = _step_ms(stats)
+    print(f"[serve] {label}: {stats['tokens']} tokens in {stats['steps']} "
+          f"decode steps, {stats['wall_s']:.3f} s, {stats['tokens_per_s']:.1f}"
+          f" tokens/s; decode step ms median {med:.3f} (min {lo:.3f}, max "
+          f"{hi:.3f}) | {smi}")
+
+
+def _complete(label, results, stats, reqs, scfg):
+    for r in reqs:
+        if len(results[r.req_id]) != r.max_new:
+            raise AssertionError(f"{label}: req {r.req_id} emitted "
+                                 f"{len(results[r.req_id])} of {r.max_new}")
+    if stats["free_pages_end"] != scfg.total_pages:
+        raise AssertionError(f"{label}: {stats['free_pages_end']} of "
+                             f"{scfg.total_pages} pages back in the pool")
+
+
+def _traced_decode(engine, reqs):
+    """Steady decode steps at full occupancy: ``reqs`` admitted, 3 warm-up
+    steps, 10 timed on the host clock (each ending in a synchronize), then
+    3 traced: device busy ms, idle share and K8's share of device time."""
+    import statistics
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    cache, st, _ = _admit(engine, *engine.fresh_state(), reqs)
+    walls = []
+    for i in range(13):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cache, st, _ = engine._decode(engine.params, cache, st)
+        torch.cuda.synchronize()
+        if i >= 3:
+            walls.append(1e3 * (time.perf_counter() - t0))
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            cache, st, _ = engine._decode(engine.params, cache, st)
+        torch.cuda.synchronize()
+        traced = 1e3 * (time.perf_counter() - t0)
+    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in dev) / 1e3
+    by_name = {}
+    for e in dev:
+        by_name[e.name] = by_name.get(e.name, 0.0) + \
+            e.self_device_time_total / 1e3
+    k8 = sum(ms for n, ms in by_name.items() if "pd_kernel" in n)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    print(f"[serve] steady decode at {len(reqs)} slots: step ms median "
+          f"{statistics.median(walls):.3f} (min {min(walls):.3f}, max "
+          f"{max(walls):.3f}); 3 traced steps: wall {traced:.3f} ms, device "
+          f"busy {busy:.3f} ms, idle share {1 - busy / traced:.3f}, K8 "
+          f"{k8:.3f} ms ({k8 / max(busy, 1e-9):.3f} of device time), "
+          f"{len(dev)} device events")
+    for name, ms in top:
+        print(f"[serve]   {ms:8.3f} ms  {name[:90]}")
+
+
+def _serving(smi, box):
+    """Phase 7: minitron-4b at full width and depth behind the serving
+    engines.  Leaves the params in ``box`` for phase 8; returns the launch
+    counts of the K8 paths."""
+    import types
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import paged_decode as pd
+    from repro_torch.launch.serve import draw_requests, run_dense
+    from repro_torch.models import transformer
+    from repro_torch.models.model import build
+    from repro_torch.serve import ServeConfig, ServeEngine, kv_bytes_read
+    from repro_torch.serve.scheduler import pages_needed
+
+    t0 = time.perf_counter()
+    cfg = get_config(SERVE_ARCH)
+    torch.cuda.reset_peak_memory_stats()
+    params = transformer.cast_params(
+        build(cfg).init(torch.Generator(device=DEVICE).manual_seed(0)), cfg)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    print(f"[serve] {cfg.name}: {n_params:,} parameters drawn in fp32 on the "
+          f"card and cast once to {cfg.dtype} "
+          f"({torch.cuda.max_memory_allocated() / 1e9:.2f} GB peak) in "
+          f"{time.perf_counter() - t0:.1f} s")
+    scfg = ServeConfig(**SERVE_CFG, attn="pallas")
+    engine = ServeEngine(cfg, scfg, params)
+    engine.run(draw_requests(1, SERVE_PROMPT, 2, 2, cfg.vocab_size, seed=9))
+    reqs = draw_requests(48, SERVE_PROMPT, 16, 256, cfg.vocab_size, seed=0)
+    counts = {}
+    pd.reset_launch_counts()
+    results, stats = engine.run(reqs)
+    counts["paged_flash_decode"] = pd.launch_counts()["paged_flash_decode"]
+    _complete("continuous", results, stats, reqs, scfg)
+    if counts["paged_flash_decode"] != cfg.n_layers * stats["steps"]:
+        raise AssertionError(f"K8 launched {counts['paged_flash_decode']} "
+                             f"times in {stats['steps']} decode steps")
+    _serve_line(f"continuous, 48 requests, K8 x{counts['paged_flash_decode']}"
+                f" ({cfg.n_layers} a step)", stats, smi)
+
+    # the subset runs over fewer slots than requests, so that continuous
+    # admits mid-run into recycled slots and pages and fixed does not
+    sub = draw_requests(12, SERVE_PROMPT, 8, 64, cfg.vocab_size, seed=1)
+    sub_cfg = ServeConfig(**SUB_CFG, attn="pallas")
+    sub_engine = ServeEngine(cfg, sub_cfg, params)
+    cont, s_cont = sub_engine.run(sub)
+    fixed, s_fixed = sub_engine.run(sub, continuous=False)
+    _complete("continuous subset", cont, s_cont, sub, sub_cfg)
+    _complete("fixed", fixed, s_fixed, sub, sub_cfg)
+    if not s_cont["steps"] < s_fixed["steps"]:
+        raise AssertionError("continuous admitted nothing mid-run: "
+                             f"{s_cont['steps']} steps, fixed "
+                             f"{s_fixed['steps']}")
+    if cont != fixed:
+        raise AssertionError("continuous and fixed engines disagree")
+    _serve_line(f"continuous, 12 requests over {SUB_SLOTS} slots", s_cont,
+                smi)
+    _serve_line(f"fixed, 12 requests over {SUB_SLOTS} slots (same tokens)",
+                s_fixed, smi)
+    ref_engine = ServeEngine(cfg, ServeConfig(**SUB_CFG, attn="ref"), params)
+    ref, s_ref = ref_engine.run(sub)
+    _complete("ref", ref, s_ref, sub, sub_cfg)
+    same = sum(a == b for r in sub for a, b in zip(ref[r.req_id],
+                                                   cont[r.req_id]))
+    _serve_line(f"ref attention, 12 requests ({same} of "
+                f"{sum(r.max_new for r in sub)} tokens as K8's)", s_ref, smi)
+    # first decode-step logits of 8 requests: the ref engine's from a fresh
+    # state against K8's from a fresh state and from one where they land
+    # in recycled slots and pages beside 8 live requests, and under two
+    # paging faults of that state, which the check must see
+    first = sub[:SUB_SLOTS]
+    warm = draw_requests(SERVE_SLOTS, SERVE_PROMPT, 2, 32, cfg.vocab_size,
+                         seed=3)
+    ref_logits = _first_step_logits(ref_engine, first)
+    _logits_close("serve K8 vs ref", _first_step_logits(sub_engine, first),
+                  ref_logits, SERVE_LOGIT_REL)
+    mixed, faulted = _first_step_logits(engine, first, warm=warm,
+                                        faults=True)
+    _logits_close("serve K8 in recycled slots vs ref", mixed, ref_logits,
+                  SERVE_LOGIT_REL)
+    _logits_close("serve K8, each request reading the next one's first "
+                  "page", faulted["page"], ref_logits, SERVE_LOGIT_REL,
+                  control=True)
+    _logits_close("serve K8, each request reading one row past its length",
+                  faulted["row"], ref_logits, SERVE_LOGIT_REL, control=True)
+    del ref_engine, sub_engine
+
+    scfg8 = ServeConfig(**SUB_CFG, attn="pallas", kv_int8=True)
+    pd.reset_launch_counts()
+    res8, s8 = ServeEngine(cfg, scfg8, params).run(sub)
+    counts["paged_flash_decode[int8]"] = \
+        pd.launch_counts()["paged_flash_decode[int8]"]
+    _complete("int8", res8, s8, sub, scfg8)
+    pages = sum(pages_needed(len(r.tokens), r.max_new, sub_cfg) for r in sub)
+    ratio = kv_bytes_read(cfg, sub_cfg, pages) / kv_bytes_read(cfg, scfg8,
+                                                               pages)
+    if ratio < 3.0:
+        raise AssertionError(f"int8 reads only {ratio:.2f}x fewer KV bytes")
+    same8 = sum(a == b for r in sub for a, b in zip(res8[r.req_id],
+                                                    cont[r.req_id]))
+    _serve_line(f"int8 KV, 12 requests, K8[int8] x"
+                f"{counts['paged_flash_decode[int8]']}, {ratio:.2f}x fewer KV "
+                f"bytes ({same8} tokens as fp32 KV's)", s8, smi)
+    args = types.SimpleNamespace(max_slots=16, prompt_len=SERVE_PROMPT,
+                                 gen_max=64, requests=12, temperature=0.0)
+    dense = run_dense(build(cfg), cfg, args, params,
+                      torch.Generator(device=DEVICE).manual_seed(1))
+    print(f"[serve] dense full cache, 12 requests padded to 64: "
+          f"{dense['tokens']} tokens in {dense['wall_s']} s, "
+          f"{dense['tokens_per_s']} tokens/s | {smi}")
+    _traced_decode(engine, reqs[:SERVE_SLOTS])
+    print(f"[serve] phase 7 took {time.perf_counter() - t0:.1f} s, peak "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    box.append(params)
+    return counts
+
+
+def _leaves(tree_):
+    from repro_torch import tree
+    return tree.leaves(tree_)
+
+
+def _forward(box, smi):
+    """Phase 8: ``Model.forward`` at full width and depth on (2, 1024)
+    tokens through K9, against the plain attention; a 2-layer fp32 cut;
+    round 1 of serving on the CPU port.  Takes the params out of ``box``
+    and frees them.  Returns K9's launch count on the forward path."""
+    import torch
+    from repro_torch import tree
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch.serve import draw_requests
+    from repro_torch.models import transformer
+    from repro_torch.models.model import build
+    from repro_torch.serve import ServeConfig, ServeEngine
+
+    t0 = time.perf_counter()
+    params = box.pop()
+    cfg = get_config(SERVE_ARCH).replace(attn_impl="pallas")
+    toks = torch.randint(0, cfg.vocab_size, (2, FWD_SEQ), device=DEVICE,
+                         generator=torch.Generator(device=DEVICE)
+                         .manual_seed(2))
+    fa.reset_launch_counts()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    logits = build(cfg).forward(params, {"tokens": toks})
+    torch.cuda.synchronize()
+    fwd_ms = 1e3 * (time.perf_counter() - t1)
+    k9 = fa.launch_counts()["flash_attention_fwd"]
+    if k9 != cfg.n_layers:
+        raise AssertionError(f"K9 launched {k9} times in a "
+                             f"{cfg.n_layers}-layer forward")
+    if tuple(logits.shape) != (2, FWD_SEQ, cfg.padded_vocab) or not bool(
+            torch.isfinite(logits[..., :cfg.vocab_size]).all()):
+        raise AssertionError("Model.forward: logits not finite or misshapen")
+    del logits
+    hid, hid_ms = {}, {}
+    for impl in ("pallas", "xla"):
+        t1 = time.perf_counter()
+        hid[impl] = transformer.forward(
+            params, cfg.replace(attn_impl=impl), tokens=toks,
+            collect_logits=False)[0].float()
+        torch.cuda.synchronize()
+        hid_ms[impl] = 1e3 * (time.perf_counter() - t1)
+    # a control the check must see: K9 dropping the keys more than
+    # FWD_SEQ - 128 rows back (one key block for the last 128 rows)
+    hid["fault"] = transformer.forward(
+        params, cfg.replace(sliding_window=FWD_SEQ - 128), tokens=toks,
+        collect_logits=False)[0].float()
+    scale = float(hid["xla"].abs().max())
+    for impl, control in (("pallas", False), ("fault", True)):
+        err = float((hid[impl] - hid["xla"]).abs().max())
+        ok = err <= FWD_HIDDEN_REL * scale
+        print(f"[forward] {impl}: last hidden vs attn_impl=xla max abs diff "
+              f"{err:.3e} ({err / scale:.5f} of max |h| {scale:.3f}; tol "
+              f"{FWD_HIDDEN_REL:.5f}): {'holds' if ok else 'fails'}"
+              f"{' (a control: must fail)' if control else ''}")
+        if ok == control:
+            raise AssertionError(f"forward {impl} vs plain: the check "
+                                 f"{'holds' if ok else 'fails'}")
+    print(f"[forward] {cfg.name} Model.forward (2, {FWD_SEQ}) {cfg.dtype}, "
+          f"K9 x{k9}: logits finite; host-clock ms: Model.forward "
+          f"{fwd_ms:.1f}, hidden only {hid_ms['pallas']:.1f} (K9) vs "
+          f"{hid_ms['xla']:.1f} (plain attention) | {smi}")
+    del hid, params
+    torch.cuda.empty_cache()
+    print(f"[forward] params freed: {torch.cuda.memory_allocated() / 1e9:.2f}"
+          " GB still allocated")
+
+    cfg2 = cfg.replace(n_layers=2, dtype="float32")
+    p2 = build(cfg2).init(torch.Generator(device=DEVICE).manual_seed(3))
+    h2 = {impl: transformer.forward(p2, cfg2.replace(attn_impl=impl),
+                                    tokens=toks, collect_logits=False)[0]
+          for impl in ("pallas", "xla")}
+    err2 = float((h2["pallas"] - h2["xla"]).abs().max())
+    if err2 > FWD_FP32_ATOL:
+        raise AssertionError(f"2-layer fp32 forward: K9 vs plain {err2:.3e}")
+    print(f"[forward] 2-layer fp32 cut: last hidden K9 vs attn_impl=xla max "
+          f"abs diff {err2:.3e} (tol {FWD_FP32_ATOL})")
+    del h2
+    scfg = ServeConfig(**SERVE_CFG, attn="pallas")
+    reqs = draw_requests(4, SERVE_PROMPT, 8, 64, cfg.vocab_size, seed=1)
+    on_card = _first_step_logits(ServeEngine(cfg2, scfg, p2), reqs)
+    p2cpu = tree.map(lambda t: t.cpu(), p2)
+    del p2
+    torch.cuda.empty_cache()
+    on_cpu = _first_step_logits(ServeEngine(cfg2, scfg, p2cpu,
+                                            device="cpu"), reqs)
+    _logits_close("serve round 1 on the CPU port", on_card.cpu(), on_cpu,
+                  ROUND1_LOGIT_REL)
+    print(f"[forward] phase 8 took {time.perf_counter() - t0:.1f} s")
+    return k9
+
+
 def main():
     _import_port()
     import torch
@@ -1365,6 +1988,7 @@ def main():
             entry["c96"] = c96[entry["name"]]
     report += flat_report
     report.append(_topd_checks())
+    report += _attention_kernels()
     fed, test = build_federation(0, kind="images", n=4000, n_clients=16,
                                  batch_size=32)
 
@@ -1379,6 +2003,9 @@ def main():
     robust_counts = _robustness()
     for entry in flat_report:
         counts[entry["name"]] = robust_counts[entry["name"]]
+    box = []
+    counts.update(_serving(smi, box))
+    counts["flash_attention_fwd"] = _forward(box, smi)
     for entry in report:
         entry["launches"] = counts[entry["name"]]
     print(smi)

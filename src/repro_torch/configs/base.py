@@ -1,7 +1,10 @@
 """Model and federated configuration — the port's copy of
 ``repro/configs/base.py``.
 
-``ModelConfig`` keeps the fields the paper models read.  ``FedConfig``
+``ModelConfig`` keeps the fields the paper models and the dense
+transformer read, with the JAX package's defaults (the MoE, SSM, VLM and
+audio fields come with ROADMAP queue 1 item 13; JAX's ``remat`` is left
+out, as the port has no activation rematerialisation).  ``FedConfig``
 keeps every field of the JAX one, with the same defaults, so a config
 written for one package reads the same in the other; the options this
 slice does not run raise ``NotImplementedError`` in
@@ -11,26 +14,79 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Optional
+from typing import Optional, Tuple
 
 
 @dataclass(frozen=True)
 class ModelConfig:
     name: str
-    arch_type: str                    # cnn | mlp in this slice
-    n_layers: int                     # conv blocks (cnn) / dense layers (mlp)
-    d_model: int                      # base channels (cnn) / n_features (mlp)
+    arch_type: str                    # dense | cnn | mlp in the port so far
+    n_layers: int                     # blocks (dense) / conv blocks (cnn) /
+                                      # dense layers (mlp)
+    d_model: int                      # width / base channels / n_features
     n_heads: int
     n_kv_heads: int
-    d_ff: int                         # dense width
-    vocab_size: int                   # n_classes
-    dtype: str = "float32"
+    d_ff: int
+    vocab_size: int                   # vocabulary / n_classes
+    head_dim: int = 0                 # 0 -> d_model // n_heads
+    qkv_bias: bool = False
+    rope_theta: float = 1.0e4
+    norm_eps: float = 1.0e-5
+    tie_embeddings: bool = False
+    scan_unroll: bool = False         # accepted for parity with JAX's
+                                      # configs and ignored: its two values
+                                      # compute the same function, and the
+                                      # port has one layer loop
+    block_pattern: Tuple[str, ...] = ()   # empty -> derived from arch_type
+    embed_inputs: bool = True         # False: the caller passes embeddings
+    sliding_window: int = 0           # 0 = full attention
+    attn_impl: str = "xla"            # xla (plain) | pallas (K9 on the card)
+    dtype: str = "bfloat16"
     param_dtype: str = "float32"
-    remat: bool = False
+    loss_chunk: int = 0               # chunk the LM loss over the sequence
     source: str = ""                  # citation of the public config
+
+    @property
+    def resolved_head_dim(self) -> int:
+        return self.head_dim or self.d_model // self.n_heads
+
+    @property
+    def padded_vocab(self) -> int:
+        """Vocab rounded up to 128 (padded logits masked to -1e30)."""
+        return -(-self.vocab_size // 128) * 128
+
+    @property
+    def layers(self) -> Tuple[str, ...]:
+        """Per-layer block kinds (derives the default pattern)."""
+        if self.block_pattern:
+            if len(self.block_pattern) != self.n_layers:
+                raise ValueError("block_pattern needs one kind a layer")
+            return self.block_pattern
+        if self.arch_type in ("dense", "audio"):
+            return ("attn",) * self.n_layers
+        if self.arch_type in ("moe", "hybrid", "ssm", "vlm"):
+            raise NotImplementedError(
+                f"arch_type {self.arch_type!r} comes with ROADMAP queue 1 "
+                "item 13")
+        raise ValueError(f"unknown arch_type {self.arch_type}")
 
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
+
+    def reduced(self) -> "ModelConfig":
+        """Smoke-test variant: 2 layers, d_model <= 256 (JAX's, for the
+        fields the port has)."""
+        d_model = min(self.d_model, 256)
+        n_heads = min(self.n_heads, 4)
+        return self.replace(
+            n_layers=2, d_model=d_model, n_heads=n_heads,
+            n_kv_heads=max(1, min(self.n_kv_heads, 2)),
+            head_dim=d_model // n_heads,
+            d_ff=min(self.d_ff, 512) if self.d_ff else 0,
+            vocab_size=min(self.vocab_size, 512),
+            sliding_window=(min(self.sliding_window, 64)
+                            if self.sliding_window else 0),
+            block_pattern=(), dtype="float32")
 
 
 @dataclass(frozen=True)

@@ -17,6 +17,7 @@ import torch
 from repro_torch import tree
 from repro_torch.comm import codecs
 from repro_torch.core import async_engine, clientstore
+from repro_torch.serve import scheduler
 
 _RECORDS = {("q", "s"): codecs.QuantLeaf, ("bits", "s"): codecs.SignLeaf,
             ("idx", "val"): codecs.SparseLeaf}
@@ -86,3 +87,35 @@ def buffer_from_numpy(jbuf, params, fed_cfg):
     return buf._replace(owner=col(jbuf.owner), n_k=col(jbuf.n_k),
                         age=col(jbuf.age), remaining=col(jbuf.remaining),
                         active=col(jbuf.active))
+
+
+def pools_from_numpy(np_pools, device="cpu", page_axis=1):
+    """JAX paged KV pools (a tree whose ``kp``/``vp``/``ks``/``vs`` leaves
+    have their page axis at ``page_axis``: 1 for the engine's stacked
+    pools, 0 for one layer's cache) -> the port's, with the zero drop page
+    appended after the last page.  Other leaves (the scheduler context)
+    are copied as they are."""
+    def walk(t, key=None):
+        if isinstance(t, dict):
+            return {k: walk(v, k) for k, v in t.items()}
+        a = np.asarray(t)
+        if key in ("kp", "vp", "ks", "vs"):
+            shape = list(a.shape)
+            shape[page_axis] = 1
+            a = np.concatenate([a, np.zeros(shape, a.dtype)], page_axis)
+        return torch.tensor(a, device=device)
+
+    return walk(np_pools)
+
+
+def slot_state_from_numpy(jst, generator, device="cpu"):
+    """A JAX ``SlotState`` (numpy fields) -> the port's: the same columns
+    (token ids and request ids as int64), no telemetry column, and
+    ``generator`` in place of the PRNG key."""
+    col = lambda a, dtype=None: torch.tensor(np.asarray(a), dtype=dtype,
+                                             device=device)
+    return scheduler.SlotState(
+        tok=col(jst.tok, torch.int64), length=col(jst.length),
+        budget=col(jst.budget), active=col(jst.active),
+        req_id=col(jst.req_id, torch.int64), alloc=col(jst.alloc),
+        table=col(jst.table), free=col(jst.free), gen=generator)

@@ -1,0 +1,253 @@
+"""GQA self-attention and its KV caches (port of
+``repro/models/attention.py``).
+
+Execution modes of ``attention_fwd``:
+  * no cache (train / scoring): full-sequence causal attention, optional
+    sliding window; ``attn_impl="pallas"`` at S >= 128 routes the
+    score / softmax / value contraction to K9 (``kernels/flash_attention``),
+    as the JAX package routes it to its Pallas kernel;
+  * full cache: prefill-fill or decode against a (B, L, Hkv, dh) cache;
+  * paged pools (serving): prefill scatter, and decode append + attend
+    through K8 (``attn_impl="pallas"``) or the dense gather reference.
+The ring cache and cross-attention come with ROADMAP queue 1 item 13.
+
+**In place.**  The JAX package returns new caches; here the K/V rows are
+written into the caller's cache tensors (which may be views of the
+transformer's stacked cache), a full cache's ``length`` is advanced in
+place, and the same dict comes back.  A pool at full minitron width is
+0.4-1.6 GB, so it is never copied.
+
+**Dropped rows.**  The JAX scatters drop rows with ``mode="drop"``
+(destination page ``n_pages``).  Here every paged pool holds one extra page
+at index ``n_pages`` (``init_paged_kv_cache``) that no page table names:
+dropped rows land there and are never read.  Only dropped rows can share a
+destination, so the duplicates that ``index_put_`` resolves in no defined
+order on CUDA all land on that page.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import flash_attention_ops
+from repro_torch.kernels.paged_decode import paged_flash_decode
+from repro_torch.kernels.paged_decode_ref import paged_decode_ref
+from repro_torch.models.layers import apply_rope, dense_init
+
+NEG_INF = -1e30
+
+
+def init_attention(generator, cfg, lead=()):
+    d, hq, hkv = cfg.d_model, cfg.n_heads, cfg.n_kv_heads
+    dh = cfg.resolved_head_dim
+    p = {"wq": dense_init(generator, (d, hq * dh), lead=lead),
+         "wk": dense_init(generator, (d, hkv * dh), lead=lead),
+         "wv": dense_init(generator, (d, hkv * dh), lead=lead),
+         "wo": dense_init(generator, (hq * dh, d), lead=lead)}
+    if cfg.qkv_bias:
+        for name, width in (("bq", hq), ("bk", hkv), ("bv", hkv)):
+            p[name] = torch.zeros((*lead, width * dh),
+                                  device=generator.device)
+    return p
+
+
+def _proj(params, name, x, heads, dh, dtype):
+    y = x @ params["w" + name].to(dtype)
+    if "b" + name in params:
+        y = y + params["b" + name].to(dtype)
+    return y.reshape(*x.shape[:-1], heads, dh)
+
+
+def _sdpa(q, k, v, mask):
+    """q: (B, S, Hkv, G, dh); k/v: (B, T, Hkv, dh); mask broadcastable to
+    (B, 1, 1, S, T) -> (B, S, Hkv, G, dh) fp32."""
+    scale = q.shape[-1] ** -0.5
+    scores = torch.einsum("bshgd,bthd->bhgst", q.float() * scale, k.float())
+    scores = torch.where(mask, scores, NEG_INF)
+    probs = torch.softmax(scores, dim=-1)
+    return torch.einsum("bhgst,bthd->bshgd", probs, v.float())
+
+
+def causal_mask(s, t_offset=0, window=0, device=None):
+    """(S, T) boolean; query i at absolute position i + t_offset attends
+    key j."""
+    qpos = torch.arange(s, device=device)[:, None] + t_offset
+    kpos = torch.arange(s + t_offset, device=device)[None, :]
+    m = kpos <= qpos
+    if window:
+        m &= kpos > qpos - window
+    return m
+
+
+def attention_fwd(params, x, cfg, positions, *, window=0, cache=None,
+                  kv_source=None, layer_idx=0, rope=None):
+    """Returns (out, cache).  x: (B, S, d); ``rope``: the positions'
+    ``layers.rope_table``, if the caller computed it.  cache:
+      None                     -> full sequence, no cache returned
+      {"k","v","length"}       -> full cache decode / prefill-fill
+      {"kp","vp","table",...}  -> paged pools (``init_paged_kv_cache``)
+    """
+    if kv_source is not None or (cache is not None and "ck" in cache):
+        raise NotImplementedError(
+            "cross-attention comes with ROADMAP queue 1 item 13")
+    if cache is not None and "pos" in cache:
+        raise NotImplementedError(
+            "the sliding-window ring cache comes with ROADMAP queue 1 item 13")
+    dtype = x.dtype
+    hq, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    g = hq // hkv
+    B, S, _ = x.shape
+
+    q = apply_rope(_proj(params, "q", x, hq, dh, dtype), positions,
+                   cfg.rope_theta, rope)
+    k_new = apply_rope(_proj(params, "k", x, hkv, dh, dtype), positions,
+                       cfg.rope_theta, rope)
+    v_new = _proj(params, "v", x, hkv, dh, dtype)
+
+    if cache is None:
+        if cfg.attn_impl == "pallas" and S >= 128:
+            out = flash_attention_ops.flash_attention(
+                q, k_new, v_new, causal=True, window=window)
+        else:
+            mask = causal_mask(S, window=window, device=x.device)
+            out = _sdpa(q.reshape(B, S, hkv, g, dh), k_new, v_new,
+                        mask[None, None, None])
+        out = out.to(dtype).reshape(B, S, hq * dh) @ params["wo"].to(dtype)
+        return out, None
+
+    if "table" in cache:
+        return _paged_fwd(params, cache, q, k_new, v_new, cfg, window)
+
+    # ---- full cache: prefill-fill or decode ----
+    k, v, length = cache["k"], cache["v"], cache["length"]
+    L = k.shape[1]
+    start = length.clamp(0, L - S)                # dynamic_update_slice
+    idx = start + torch.arange(S, device=x.device)
+    k.index_copy_(1, idx, k_new.to(k.dtype))
+    v.index_copy_(1, idx, v_new.to(v.dtype))
+    kpos = torch.arange(L, device=x.device)
+    qpos = length + torch.arange(S, device=x.device)
+    mask = kpos[None, :] <= qpos[:, None]
+    if window:
+        mask &= kpos[None, :] > qpos[:, None] - window
+    out = _sdpa(q.reshape(B, S, hkv, g, dh), k, v, mask[None, None, None])
+    out = out.reshape(B, S, hq * dh).to(dtype) @ params["wo"].to(dtype)
+    length.add_(S)
+    return out, cache
+
+
+def _paged_quant(x):
+    """int8 KV append quantisation: x (..., Hkv, dh) -> (codes int8 of
+    x.shape, scales fp32 of x.shape[:-1]).  Blockwise absmax with
+    qblk = dh and 127 levels, one scale a cache row and head, written as the
+    codec's ``quant_encode``: ``amax / 127`` divided (eager JAX's value), a
+    NaN quotient code 0."""
+    flat = x.reshape(-1, x.shape[-1]).float()
+    amax = flat.abs().amax(1)
+    s = torch.where(amax > 0, amax / torch.full_like(amax, 127.0),
+                    torch.ones_like(amax))
+    q = torch.clamp(torch.round(flat / s[:, None]), -127.0, 127.0)
+    q = torch.nan_to_num(q, nan=0.0).to(torch.int8)
+    return q.reshape(x.shape), s.reshape(x.shape[:-1])
+
+
+def _paged_fwd(params, cache, q, k_new, v_new, cfg, window):
+    """Paged-pool branch of attention_fwd (serving; no sliding window, as
+    in the JAX package).
+
+    Cache contract (see ``init_paged_kv_cache``):
+      kp, vp    (n_pages + 1, page, Hkv, dh)  shared pools (fp32 or int8
+                                              codes); page n_pages drops
+      ks, vs    (n_pages + 1, page, Hkv) fp32 per-(row, head) scales (int8)
+      table     (A, maxp) int32     per-slot page table (unallocated = 0)
+      length    (A,) int32          valid tokens already in the slot
+      active    (A,) fp32           1 = slot holds a live request
+      new_valid (A,) int32          prefill only: valid rows of x
+
+    Prefill (S > 1) scatters rows [0, new_valid) into the slot's pages;
+    decode (S == 1) appends one row at ``length`` a live slot and attends
+    through K8 (``attn_impl="pallas"``) or the dense gather reference.
+    """
+    dtype = k_new.dtype
+    hq, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    g = hq // hkv
+    B, S = q.shape[0], q.shape[1]
+    kp, vp, table = cache["kp"], cache["vp"], cache["table"]
+    n_pages, page = kp.shape[0] - 1, kp.shape[1]
+    maxp = table.shape[1]
+    int8 = "ks" in cache
+    length, active = cache["length"], cache["active"]
+    dev = q.device
+
+    if S > 1:
+        mask = causal_mask(S, window=window, device=dev)
+        out = _sdpa(q.reshape(B, S, hkv, g, dh), k_new, v_new,
+                    mask[None, None, None]).reshape(B, S, hq * dh)
+        pos = torch.arange(S, device=dev)
+        valid = pos[None, :] < cache["new_valid"][:, None]         # (B, S)
+        prow = (pos // page).clamp(0, maxp - 1)
+        pg = table.gather(1, prow[None].expand(B, S).long())
+        dest = torch.where(valid, pg, n_pages)
+        row = (pos % page).expand(B, S)
+        _append(cache, dest, row, k_new, v_new, int8)
+        out = out.to(dtype) @ params["wo"].to(dtype)
+        return out, cache
+
+    prow = (length // page).clamp(0, maxp - 1)
+    pg = table.gather(1, prow[:, None].long())[:, 0]
+    dest = torch.where(active > 0, pg, n_pages)
+    _append(cache, dest, length % page, k_new[:, 0], v_new[:, 0], int8)
+    n_keys = torch.where(active > 0, length + 1, 0).to(torch.int32)
+    attend = paged_flash_decode if cfg.attn_impl == "pallas" \
+        else paged_decode_ref
+    out3 = attend(q[:, 0], kp, vp, table, n_keys,
+                  k_scale=cache["ks"] if int8 else None,
+                  v_scale=cache["vs"] if int8 else None)
+    out = out3.reshape(B, 1, hq * dh).to(dtype) @ params["wo"].to(dtype)
+    return out, cache
+
+
+def _append(cache, dest, row, k, v, int8):
+    """Write K/V rows at (page dest, row) of the pools, in place (int8:
+    codes and scales)."""
+    if int8:
+        k, ks = _paged_quant(k)
+        v, vs = _paged_quant(v)
+        cache["ks"][dest, row] = ks
+        cache["vs"][dest, row] = vs
+    cache["kp"][dest, row] = k.to(cache["kp"].dtype)
+    cache["vp"][dest, row] = v.to(cache["vp"].dtype)
+
+
+def init_kv_cache(cfg, batch, max_len, *, ring=False, dtype=torch.bfloat16,
+                  device=None):
+    if ring:
+        raise NotImplementedError(
+            "the sliding-window ring cache comes with ROADMAP queue 1 item 13")
+    shape = (batch, max_len, cfg.n_kv_heads, cfg.resolved_head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device),
+            "length": torch.zeros((), dtype=torch.int32, device=device)}
+
+
+def init_paged_kv_cache(cfg, slots, num_pages, page_size, max_pages, *,
+                        int8=False, dtype=torch.float32, device=None):
+    """One attention layer's paged pool cache (serving).  The pools hold
+    ``num_pages + 1`` pages: the last is the drop page (module docstring).
+    Unallocated table entries stay 0, a valid pool index masked out by
+    length / active.  ``int8`` stores codes plus per-(row, head) fp32
+    scales (see ``_paged_quant``)."""
+    hkv, dh = cfg.n_kv_heads, cfg.resolved_head_dim
+    shape = (num_pages + 1, page_size, hkv, dh)
+    pool_dtype = torch.int8 if int8 else dtype
+    c = {"kp": torch.zeros(shape, dtype=pool_dtype, device=device),
+         "vp": torch.zeros(shape, dtype=pool_dtype, device=device),
+         "table": torch.zeros((slots, max_pages), dtype=torch.int32,
+                              device=device),
+         "length": torch.zeros((slots,), dtype=torch.int32, device=device),
+         "active": torch.zeros((slots,), device=device),
+         "new_valid": torch.zeros((slots,), dtype=torch.int32,
+                                  device=device)}
+    if int8:
+        c["ks"] = torch.ones(shape[:-1], device=device)
+        c["vs"] = torch.ones(shape[:-1], device=device)
+    return c

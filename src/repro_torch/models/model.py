@@ -1,16 +1,23 @@
-"""Model facade (port of ``repro/models/model.py`` for the paper models).
+"""Model facade (port of ``repro/models/model.py``: the paper models and
+the dense decoder transformer).
 
 ``build(cfg)`` returns a ``Model`` with
-  init(generator)          -> params (on the generator's device)
-  loss(params, batch)      -> (loss, {"loss", "acc"})
-  forward(params, batch)   -> logits
+  init(generator)               -> params (on the generator's device)
+  loss(params, batch)           -> (loss, metrics)
+  forward(params, batch)        -> logits (full sequence)
+and, for the transformer,
+  init_cache(batch, max_len)    -> full KV cache
+  prefill(params, batch, cache) -> (last-position logits, cache)
+  decode(params, batch, cache, pos) -> (logits, cache)
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
 from typing import Any, Callable
 
-from repro_torch.models import small
+import torch
+
+from repro_torch.models import small, transformer
 
 
 @dataclass(frozen=True)
@@ -19,6 +26,9 @@ class Model:
     init: Callable
     loss: Callable
     forward: Callable
+    init_cache: Callable = None
+    prefill: Callable = None
+    decode: Callable = None
 
 
 def build(cfg) -> Model:
@@ -29,12 +39,48 @@ def build(cfg) -> Model:
         init = lambda g: small.init_mlp_clf(g, cfg)
         fwd = small.mlp_clf_fwd
     else:
-        raise NotImplementedError(
-            f"arch_type {cfg.arch_type!r}: the transformer stack comes with "
-            "ROADMAP queue 1 item 13")
+        return _transformer_model(cfg)
 
     def loss(params, batch):
         l, a = small.classifier_loss(fwd(params, batch["x"]), batch["y"])
         return l, {"loss": l, "acc": a}
 
     return Model(cfg, init, loss, forward=lambda p, b: fwd(p, b["x"]))
+
+
+def _transformer_model(cfg) -> Model:
+    def forward(params, batch):
+        logits, _, _ = transformer.forward(
+            params, cfg, tokens=batch.get("tokens"),
+            embeds=batch.get("embeds"),
+            image_embeds=batch.get("image_embeds"))
+        return logits
+
+    def init_cache(batch_size, max_len, ring=False, dtype=torch.bfloat16,
+                   device=None):
+        return transformer.init_cache(cfg, batch_size, max_len, ring=ring,
+                                      dtype=dtype, device=device)
+
+    def prefill(params, batch, cache):
+        # last-position logits only: nothing downstream reads the others
+        hidden, cache, _ = transformer.forward(
+            params, cfg, tokens=batch.get("tokens"),
+            embeds=batch.get("embeds"), cache=cache, collect_logits=False)
+        return transformer.lm_head(params, cfg, hidden[:, -1:]), cache
+
+    def decode(params, batch, cache, pos):
+        """batch: {tokens: (B, 1)} or {embeds: (B, 1, d)}; pos: the
+        position of the token (an int or a 0-d tensor)."""
+        x = batch.get("tokens")
+        x = x if x is not None else batch.get("embeds")
+        positions = (torch.full((x.shape[0], 1), pos, device=x.device)
+                     if isinstance(pos, int)
+                     else pos.to(x.device).expand(x.shape[0], 1))
+        logits, cache, _ = transformer.forward(
+            params, cfg, tokens=batch.get("tokens"),
+            embeds=batch.get("embeds"), positions=positions, cache=cache)
+        return logits, cache
+
+    return Model(cfg, lambda g: transformer.init_transformer(g, cfg),
+                 lambda p, b: transformer.loss_fn(p, cfg, b), forward,
+                 init_cache, prefill, decode)

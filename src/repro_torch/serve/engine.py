@@ -1,0 +1,326 @@
+"""Continuous-batching serving engine: paged KV and slotted decode (port
+of ``repro/serve/engine.py``).
+
+The **decode step** runs every slot at once, (max_slots, 1) tokens through
+the transformer over the paged pools; the **admit step** prefills one
+request into a freshly taken page run and samples its first token.  Both
+are plain functions that update the pools in place and return a new
+``SlotState`` and a small output dict; they read nothing back to the host.
+The host loop (``run``) makes one host read of that dict a step (as the
+JAX engine's ``jax.device_get``), attributes tokens to requests and admits
+from the pending queue while the ``HostLedger`` says a slot and pages are
+free.
+
+Cache layout: the pools (``kp``/``vp`` and the int8 ``ks``/``vs``) are
+stacked over the transformer's layer units, (n_units, N + 1, page, Hkv,
+dh) with the drop page last (``models/attention.py``).  The scheduler
+context (page table, lengths, active mask) lives in ``SlotState`` and is
+broadcast into the per-call cache view (``_with_ctx``).
+
+Sampling: argmax at temperature 0; else a draw of Gumbel noise from the
+state's ``torch.Generator`` and the pure function ``sample`` =
+argmax(logits / T + g), which is what ``jax.random.categorical`` computes
+from its own Gumbel draw.
+
+``run(requests, continuous=False)`` is the fixed-batch baseline: the same
+steps, but admission only into an all-empty fleet.
+"""
+from __future__ import annotations
+
+import time
+from typing import Dict, List, Sequence, Tuple
+
+import torch
+
+from repro_torch import device as device_mod, tree
+from repro_torch.models import attention as attn_lib
+from repro_torch.models import transformer
+from repro_torch.serve import scheduler as sched
+from repro_torch.serve.scheduler import (HostLedger, Request, ServeConfig,
+                                         SlotState)
+
+POOL_KEYS = ("kp", "vp", "ks", "vs")
+
+
+def init_paged_cache(cfg, scfg: ServeConfig, device=None):
+    """Stacked page pools for the layer units (pools only; the scheduler
+    context is put in per call by ``_with_ctx``)."""
+    cycle, n_units = transformer.layer_cycle(cfg)
+    if any(k != "attn" for k in cycle):
+        raise NotImplementedError(
+            f"paged serving of {cycle} comes with ROADMAP queue 1 item 13")
+    one = attn_lib.init_paged_kv_cache(
+        cfg, 1, scfg.total_pages, scfg.page_size, 1, int8=scfg.kv_int8,
+        dtype=torch.float32, device=device)
+    return {f"b{i}": {k: v.expand(n_units, *v.shape).clone()
+                      for k, v in one.items() if k in POOL_KEYS}
+            for i in range(len(cycle))}
+
+
+def _with_ctx(pools, table, length, active, new_valid):
+    """Cache view for one forward call: the pools plus the scheduler
+    context broadcast over the stacked layer units (views, no copy)."""
+    ctx = {"table": table, "length": length, "active": active,
+           "new_valid": new_valid}
+    out = {}
+    for name, block in pools.items():
+        n_units = block["kp"].shape[0]
+        b = dict(block)
+        for k, v in ctx.items():
+            b[k] = v.expand(n_units, *v.shape)
+        out[name] = b
+    return out
+
+
+def _strip_ctx(cache):
+    """The pools out of a forward's cache view (the same tensors, written
+    in place; the context stays with ``SlotState``)."""
+    return {name: {k: v for k, v in block.items() if k in POOL_KEYS}
+            for name, block in cache.items()}
+
+
+def kv_bytes_read(cfg, scfg: ServeConfig, pages_in_use: float) -> float:
+    """KV bytes one decode step streams from the pools (all layers): live
+    pages x rows x heads x head dim x itemsize x {k, v}, plus the fp32
+    scale planes on the int8 path."""
+    cycle, n_units = transformer.layer_cycle(cfg)
+    hkv, dh = cfg.n_kv_heads, cfg.resolved_head_dim
+    rows = pages_in_use * scfg.page_size
+    item = 1 if scfg.kv_int8 else 4
+    per_layer = 2.0 * rows * hkv * (dh * item + (4 if scfg.kv_int8 else 0))
+    return per_layer * n_units * len(cycle)
+
+
+def sample(logits, temperature, gumbel=None):
+    """Next tokens from (S, V) logits: argmax at temperature 0, else
+    argmax(logits / T + gumbel) (a categorical draw given the noise)."""
+    if temperature > 0:
+        return torch.argmax(logits / temperature + gumbel, -1)
+    return torch.argmax(logits, -1)
+
+
+def _draw(gen, shape, temperature, device):
+    """Gumbel noise for ``sample`` (None at temperature 0)."""
+    if temperature <= 0:
+        return None
+    e = torch.empty(shape, device=device).exponential_(generator=gen)
+    return -torch.log(e)
+
+
+def _set_row(x, slot, value):
+    """x with row ``slot`` set to ``value``; x unchanged where ``slot`` is
+    the drop index x.shape[0] (JAX's ``.at[sl].set(..., mode="drop")``)."""
+    hit = torch.arange(x.shape[0], device=x.device) == slot
+    hit = hit.reshape(-1, *([1] * (x.dim() - 1)))
+    return torch.where(hit, value, x).to(x.dtype)
+
+
+class ServeEngine:
+    """The admit and decode steps over one model and serving config, and
+    the host loop.  ``params`` must lie on ``device`` (the card unless
+    ``device="cpu"``)."""
+
+    def __init__(self, cfg, scfg: ServeConfig, params, *, seed: int = 0,
+                 device=None):
+        self.device = device_mod.resolve(device)
+        if tree.leaves(params)[0].device.type != self.device.type:
+            raise ValueError(f"params are not on {self.device}")
+        self.cfg = cfg.replace(
+            attn_impl="pallas" if scfg.attn == "pallas" else "xla")
+        self.scfg = scfg
+        self.params = params
+        self.seed = seed
+        self._decode = self._make_decode()
+        self._admit = self._make_admit()
+
+    # -- state ---------------------------------------------------------
+    def fresh_state(self) -> Tuple[dict, SlotState]:
+        cache = init_paged_cache(self.cfg, self.scfg, self.device)
+        gen = torch.Generator(self.device).manual_seed(self.seed)
+        return cache, sched.init_slot_state(self.scfg, gen, self.device)
+
+    # -- decode step ---------------------------------------------------
+    def _make_decode(self):
+        cfg, scfg = self.cfg, self.scfg
+        s, n, maxp = scfg.max_slots, scfg.total_pages, scfg.pages_per_slot
+
+        def decode(params, pools, st: SlotState):
+            dev = st.active.device
+            view = _with_ctx(pools, st.table, st.length, st.active,
+                             torch.zeros((s,), dtype=torch.int32,
+                                         device=dev))
+            logits, view, _ = transformer.forward(
+                params, cfg, tokens=st.tok, positions=st.length[:, None],
+                cache=view)
+            lg = logits[:, 0]
+            g = _draw(st.gen, lg.shape, scfg.temperature, dev)
+            nxt = sample(lg, scfg.temperature, g)
+            act = st.active
+            new_len = st.length + (act > 0).to(torch.int32)
+            done = (act > 0) & ((new_len >= st.budget) | (nxt == scfg.eos_id))
+            done_f = done.float()
+            owned = (torch.arange(maxp, device=dev)[None, :]
+                     < st.alloc[:, None]) & done[:, None]
+            free = sched.set_masked(st.free, st.table, 1.0, owned)
+            new_active = act * (1.0 - done_f)
+            vals = {"serve/slot_occupancy": new_active.sum(),
+                    "serve/evicted": done_f.sum(),
+                    "serve/tokens": act.sum(),
+                    "serve/pages_in_use": n - free.sum()}
+            st2 = st._replace(
+                tok=nxt[:, None], length=new_len, active=new_active,
+                alloc=torch.where(done, 0, st.alloc), free=free)
+            out = {"next": nxt, "emitted": act, "finished": done_f,
+                   "req": st.req_id, "vals": vals}
+            return _strip_ctx(view), st2, out
+
+        return decode
+
+    # -- admit step ----------------------------------------------------
+    def _make_admit(self):
+        cfg, scfg = self.cfg, self.scfg
+        s, n, maxp = scfg.max_slots, scfg.total_pages, scfg.pages_per_slot
+        pmax = scfg.prompt_pad
+
+        def admit(params, pools, st: SlotState, prompt, plen, max_new,
+                  req_id):
+            """prompt: (prompt_pad,) int64 on the device; plen, max_new,
+            req_id: host ints."""
+            dev = st.active.device
+            slot, has_slot = sched.pick_free_slot(st.active)
+            budget = min(plen + max_new - 1, scfg.max_len)
+            need = -(-budget // scfg.page_size)
+            pages, fits, free2 = sched.take_pages(st.free, need, maxp)
+            ok = has_slot & fits
+            live = ok & (max_new >= 2)
+            # a max_new = 1 request completes at admission: its transient
+            # pages go straight back (appends overwrite stale rows before
+            # any mask exposes them)
+            free3 = torch.where(live, free2, st.free)
+            row = torch.where(ok, pages, 0)
+            i32 = dict(dtype=torch.int32, device=dev)
+            view = _with_ctx(pools, row[None], torch.zeros((1,), **i32),
+                             torch.ones((1,), device=dev),
+                             torch.where(ok, plen, 0).to(torch.int32)[None])
+            hidden, view, _ = transformer.forward(
+                params, cfg, tokens=prompt[None],
+                positions=torch.arange(pmax, device=dev)[None], cache=view,
+                collect_logits=False)
+            lg = transformer.lm_head(params, cfg,
+                                     hidden[0, plen - 1][None, None])[0]
+            g = _draw(st.gen, lg.shape, scfg.temperature, dev)
+            tok0 = sample(lg, scfg.temperature, g)[0]
+            sl = torch.where(ok, slot, s)                    # s = drop row
+            live_f = live.float()
+            active2 = _set_row(st.active, sl, live_f)
+            vals = {"serve/slot_occupancy": active2.sum(),
+                    "serve/admitted": ok.float(),
+                    "serve/evicted": ok.float() * (1.0 - live_f),
+                    "serve/tokens": ok.float(),
+                    "serve/pages_in_use": n - free3.sum()}
+            st2 = st._replace(
+                tok=_set_row(st.tok, sl, tok0),
+                length=_set_row(st.length, sl, plen),
+                budget=_set_row(st.budget, sl, budget),
+                active=active2, req_id=_set_row(st.req_id, sl, req_id),
+                alloc=_set_row(st.alloc, sl,
+                               torch.where(live, need, 0).to(torch.int32)),
+                table=_set_row(st.table, sl, row), free=free3)
+            out = {"ok": ok, "slot": slot, "tok0": tok0, "vals": vals}
+            return _strip_ctx(view), st2, out
+
+        return admit
+
+    # -- host loop -----------------------------------------------------
+    def run(self, requests: Sequence[Request], *, telemetry=None,
+            continuous: bool = True) -> Tuple[Dict[int, List[int]], dict]:
+        """Serve ``requests``; returns ({req_id: tokens}, stats).
+
+        continuous=True: admit whenever a slot and pages free up.
+        continuous=False: the fixed-batch baseline, admitting only into an
+        all-empty fleet (the same steps; scheduling is the only
+        difference)."""
+        if telemetry is not None:
+            raise NotImplementedError(
+                "serving telemetry comes with ROADMAP queue 1 item e")
+        scfg = self.scfg
+        for r in requests:
+            sched.validate_request(r, scfg)
+        ledger = HostLedger(scfg)
+        pending = list(requests)
+        cache, st = self.fresh_state()
+        results: Dict[int, List[int]] = {r.req_id: [] for r in requests}
+        occupancy_trail: List[int] = []
+        step_s: List[float] = []
+        steps = total_emitted = 0
+        t0 = time.perf_counter()
+        while pending or ledger.n_active > 0:
+            group_open = ledger.n_active == 0
+            while pending:
+                r = pending[0]
+                need = sched.pages_needed(len(r.tokens), r.max_new, scfg)
+                if not ledger.can_admit(need):
+                    break
+                if not continuous and not group_open:
+                    break
+                pending.pop(0)
+                want_slot = ledger.next_slot()
+                prompt = torch.zeros((scfg.prompt_pad,), dtype=torch.int64)
+                prompt[:len(r.tokens)] = torch.tensor(r.tokens)
+                cache, st, out = self._admit(
+                    self.params, cache, st, prompt.to(self.device),
+                    len(r.tokens), r.max_new, r.req_id)
+                out = _to_host(out)
+                if not out["ok"] or out["slot"] != want_slot:
+                    raise RuntimeError(
+                        f"scheduler mirror diverged on req {r.req_id}: "
+                        f"device ok={out['ok']} slot={out['slot']}, host "
+                        f"slot={want_slot}")
+                results[r.req_id].append(out["tok0"])
+                total_emitted += 1
+                if r.max_new >= 2:
+                    ledger.admit_at(want_slot, need)
+            if ledger.n_active == 0:
+                if pending:
+                    raise RuntimeError("scheduler stalled with pending "
+                                       "requests (pool too small?)")
+                break
+            ts = time.perf_counter()
+            cache, st, out = self._decode(self.params, cache, st)
+            out = _to_host(out)
+            step_s.append(time.perf_counter() - ts)
+            steps += 1
+            for i in range(scfg.max_slots):
+                if out["emitted"][i] > 0:
+                    results[out["req"][i]].append(out["next"][i])
+                    total_emitted += 1
+                if out["finished"][i] > 0:
+                    ledger.evict(i)
+            occupancy_trail.append(int(out["vals"]["serve/slot_occupancy"]))
+        wall = time.perf_counter() - t0
+        stats = {
+            "engine": "continuous" if continuous else "fixed",
+            "steps": steps,
+            "tokens": total_emitted,
+            "wall_s": wall,
+            "tokens_per_s": total_emitted / max(wall, 1e-9),
+            "occupancy_trail": occupancy_trail,
+            "step_s": step_s,
+            "free_pages_end": ledger.free_pages,
+        }
+        return results, stats
+
+
+def _to_host(out):
+    """The step's small output dict on the host, in one transfer: tensors
+    to Python numbers and lists."""
+    flat = tree.leaves(out)
+    host = torch.cat([t.reshape(-1).double() for t in flat]).cpu().tolist()
+    vals, i = [], 0
+    for t in flat:
+        k = t.numel()
+        v = [int(x) if not t.is_floating_point() else x
+             for x in host[i:i + k]]
+        vals.append(v if t.dim() else v[0])
+        i += k
+    return tree.unflatten(out, vals)

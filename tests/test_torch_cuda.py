@@ -2,8 +2,10 @@
 K6a-c bitwise against K1-K3 on the masked decode, K5 bitwise against K2's
 rank modes, the flat wrappers K4a-c bitwise against K1-K3, K7's candidates
 bitwise against ``block_topd_plain``), the Gram kernels K3 and K6c past 64
-rows, the wrappers' checks and launch counts, and a round on the card
-(dense, int8 and buffered-async) against the same round on the CPU.
+rows, the attention kernels K8 (paged flash-decode) and K9 (flash
+attention), the wrappers' checks and launch counts, a round on the card
+(dense, int8 and buffered-async) against the same round on the CPU, and
+the tiny-lm serving engine on the card against the CPU port's tokens.
 Needs a CUDA device; skips without one.  Imports no jax, so it runs where
 only the port is installed:
 
@@ -12,7 +14,9 @@ only the port is installed:
 Tolerances: the median bitwise; per-column sums over clients rtol 1e-5 /
 atol 1e-6; sums over ~6.5e4 columns (cosine partials, Gram) at 1e-5 of
 the largest magnitude, because the kernel and torch reduce in other
-orders.
+orders.  K8 within 2e-5 of its plain version (fp32 sums over up to 384
+keys in other chunkings); K9 in fp32 within 1e-5, in bf16 within one bf16
+ulp of the output plus 1e-5.
 """
 import numpy as np
 import pytest
@@ -26,10 +30,15 @@ from repro_torch.configs.paper_models import CNN_CONFIG
 from repro_torch.configs.paper_models import MLP_CONFIG
 from repro_torch.core import async_engine, fedfits, faults
 from repro_torch.data.pipeline import build_federation
+from repro_torch.configs.registry import get_config
+from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import paged_decode as pd
 from repro_torch.kernels import population_select as ps
 from repro_torch.kernels import robust_agg as ra
 from repro_torch.kernels import robust_pipeline as rp
+from repro_torch.models.attention import _paged_quant
 from repro_torch.models.model import build
+from repro_torch.serve import ServeConfig, ServeEngine
 
 pytestmark = pytest.mark.cuda
 
@@ -364,3 +373,119 @@ def test_flat_wrappers_are_bitwise_k1_k3(card):
                     tree.leaves(rp.fused_two_stage_tree(slot, w[:2], m[:2],
                                                         cfg))):
         _bitwise(o, r)
+
+
+def _paged(card, s=6, maxp=5, page=16, hq=24, hkv=8, dh=128, seed=0):
+    rng = np.random.default_rng(seed)
+    n = s * maxp + 2
+    q = torch.from_numpy(rng.standard_normal((s, hq, dh), np.float32))
+    kp = torch.from_numpy(rng.standard_normal((n, page, hkv, dh),
+                                              np.float32))
+    vp = torch.from_numpy(rng.standard_normal((n, page, hkv, dh),
+                                              np.float32))
+    table = torch.from_numpy(rng.permutation(n)[:s * maxp]
+                             .reshape(s, maxp).astype(np.int32))
+    lengths = torch.tensor([maxp * page, page + 1, 1, 0]
+                           + [maxp * page - 3] * (s - 4), dtype=torch.int32)
+    return [t.to(card) for t in (q, kp, vp, table, lengths)]
+
+
+@pytest.mark.parametrize("page,hq,hkv,dh", [(16, 24, 8, 128), (8, 8, 4, 64),
+                                            (32, 8, 4, 64)])
+def test_paged_decode_matches_plain(card, page, hq, hkv, dh):
+    """K8 with fp32 and int8 pools, fp32 and bf16 queries: every page full,
+    page + 1 rows, one row, an inactive slot (exactly 0)."""
+    q, kp, vp, table, lengths = _paged(card, page=page, hq=hq, hkv=hkv,
+                                       dh=dh)
+    kq, ks = _paged_quant(kp)
+    vq, vs = _paged_quant(vp)
+    for qx in (q, q.bfloat16()):
+        for pools, sc in (((kp, vp), {}),
+                          ((kq, vq), dict(k_scale=ks, v_scale=vs))):
+            out = pd.paged_flash_decode(qx, *pools, table, lengths, **sc)
+            ref = pd.paged_flash_decode_plain(qx, *pools, table, lengths,
+                                              **sc)
+            torch.testing.assert_close(out, ref, atol=2e-5, rtol=0)
+            assert float(out[3].abs().max()) == 0.0
+
+
+def test_paged_decode_wrapper_checks_and_counts(card):
+    q, kp, vp, table, lengths = _paged(card, s=5)
+    pd.reset_launch_counts()
+    pd.paged_flash_decode(q, kp, vp, table, lengths)
+    kq, ks = _paged_quant(kp)
+    pd.paged_flash_decode(q, kq, _paged_quant(vp)[0], table, lengths,
+                          k_scale=ks, v_scale=ks)
+    assert pd.launch_counts() == {"paged_flash_decode": 1,
+                                  "paged_flash_decode[int8]": 1}
+    with pytest.raises(TypeError):
+        pd.paged_flash_decode(q.half(), kp, vp, table, lengths)
+    with pytest.raises(TypeError):
+        pd.paged_flash_decode(q, kp.double(), vp.double(), table, lengths)
+    with pytest.raises(TypeError):
+        pd.paged_flash_decode(q, kp, vp, table.long(), lengths)
+    with pytest.raises(ValueError):
+        pd.paged_flash_decode(q, kp, vp, table, lengths[:3])
+    assert sum(pd.launch_counts().values()) == 2
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("S,dh,window", [(256, 128, 0), (256, 128, 64),
+                                         (200, 64, 0), (200, 64, 64),
+                                         (77, 128, 0)])
+def test_flash_attention_matches_plain(card, dtype, S, dh, window):
+    rng = np.random.default_rng(S + dh + window)
+    q, k, v = (torch.from_numpy(rng.standard_normal((2, h, S, dh),
+                                                    np.float32))
+               .to(card, dtype) for h in (6, 2, 2))
+    out = fa.flash_attention_fwd(q, k, v, causal=True, window=window)
+    ref = fa.flash_attention_fwd_plain(q, k, v, causal=True, window=window)
+    assert out.dtype == dtype and out.shape == ref.shape
+    if dtype == torch.float32:
+        torch.testing.assert_close(out, ref, atol=1e-5, rtol=0)
+    else:
+        o, r = out.float(), ref.float()
+        ulp = torch.exp2(torch.floor(torch.log2(
+            r.abs().clamp_min(2.0 ** -126))) - 7)
+        assert bool(((o - r).abs() <= ulp + 1e-5).all())
+
+
+def test_flash_attention_wrapper_checks_and_counts(card):
+    q = torch.randn(1, 4, 130, 64, device=card)
+    k = torch.randn(1, 2, 130, 64, device=card)
+    fa.reset_launch_counts()
+    out = fa.flash_attention_fwd(q, k, k, causal=True)
+    # the model layout's transposed views go in without a copy
+    qt = q.transpose(1, 2).contiguous().transpose(1, 2)
+    kt = k.transpose(1, 2).contiguous().transpose(1, 2)
+    torch.testing.assert_close(fa.flash_attention_fwd(qt, kt, kt), out,
+                               atol=1e-6, rtol=0)
+    assert fa.launch_counts() == {"flash_attention_fwd": 2}
+    with pytest.raises(TypeError):
+        fa.flash_attention_fwd(q.half(), k.half(), k.half())
+    with pytest.raises(TypeError):
+        fa.flash_attention_fwd(q, k.bfloat16(), k)
+    with pytest.raises(ValueError):
+        fa.flash_attention_fwd(torch.randn(1, 4, 8, 320, device=card),
+                               torch.randn(1, 2, 8, 320, device=card),
+                               torch.randn(1, 2, 8, 320, device=card))
+    assert fa.launch_counts() == {"flash_attention_fwd": 2}
+
+
+@pytest.mark.parametrize("kv_int8", [False, True])
+def test_serving_engine_on_card_matches_cpu(card, kv_int8):
+    """tiny-lm.reduced() (fp32): the K8 engine on the card emits the CPU
+    port's tokens, and launches K8 once a layer and decode step."""
+    from repro_torch.launch.serve import draw_requests
+    cfg = get_config("tiny-lm").reduced()
+    params = build(cfg).init(torch.Generator().manual_seed(0))
+    scfg = ServeConfig(max_slots=4, page_size=8, max_len=48, prompt_pad=8,
+                       attn="pallas", kv_int8=kv_int8)
+    reqs = draw_requests(8, 6, 2, 24, cfg.vocab_size, seed=5)
+    cpu, _ = ServeEngine(cfg, scfg, params, seed=2, device="cpu").run(reqs)
+    pd.reset_launch_counts()
+    on_card = tree.map(lambda t: t.to(card), params)
+    res, stats = ServeEngine(cfg, scfg, on_card, seed=2).run(reqs)
+    assert res == cpu
+    assert stats["free_pages_end"] == scfg.total_pages
+    assert sum(pd.launch_counts().values()) == 2 * stats["steps"]

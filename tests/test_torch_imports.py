@@ -29,7 +29,14 @@ bad = sorted(m for m in sys.modules
 print(len(names), bad, all(m in names for m in (
     "repro_torch.scenarios", "repro_torch.scenarios.engine",
     "repro_torch.scenarios.registry", "repro_torch.core.attacks",
-    "repro_torch.kernels.robust_agg_ops")))
+    "repro_torch.kernels.robust_agg_ops", "repro_torch.serve",
+    "repro_torch.serve.engine", "repro_torch.serve.scheduler",
+    "repro_torch.launch.serve", "repro_torch.kernels.paged_decode",
+    "repro_torch.kernels.paged_decode_ref",
+    "repro_torch.kernels.flash_attention",
+    "repro_torch.kernels.flash_attention_ops",
+    "repro_torch.kernels.flash_attention_ref",
+    "repro_torch.models.transformer", "repro_torch.configs.registry")))
 """
 
 
@@ -44,7 +51,7 @@ def test_port_imports_no_jax_and_no_repro():
                          capture_output=True, text=True, timeout=120,
                          check=True).stdout.split()
     assert int(out[0]) >= 20, out            # every module was imported
-    assert out[1:] == ["[]", "True"], out     # scenarios and attacks too
+    assert out[1:] == ["[]", "True"], out     # scenarios, serving, K8/K9 too
 
 
 def test_entry_points_raise_without_cuda():
@@ -60,6 +67,14 @@ def test_entry_points_raise_without_cuda():
                     lambda t, g: None, 1)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         build_federation(0, n=40, n_clients=2)
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.serve import ServeConfig, ServeEngine
+    cfg = get_config("tiny-lm").reduced()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ServeEngine(cfg, ServeConfig(), build(cfg).init(torch.Generator()))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        launch_serve.main(["--arch", "tiny-lm", "--reduced"])
 
 
 def test_unported_options_raise():
