@@ -5,7 +5,9 @@
 
 Phases, one line each (a failure raises, so the exit code is not 0):
   1. card     nvidia-smi's name and power limit, the device, the build of
-              every CUDA kernel from src/repro_torch/csrc (nvcc, sm_90a).
+              every CUDA kernel from src/repro_torch/csrc (nvcc, sm_90a),
+              and ptxas's registers and spills for K9's two bodies and
+              the Gram's (K3 / K6c) instantiations.
   2. kernels  each kernel against its plain PyTorch version on the card,
               at the main path's shape (G=1, C=16, N=421,642) and at
               (G=2, C=64, N=65,573) with ragged N, an empty cohort and a
@@ -21,8 +23,10 @@ Phases, one line each (a failure raises, so the exit code is not 0):
               same mask.  The flat wrappers K4a-c bitwise K1-K3 (the flat
               tree path against the leafwise one, all four aggregators),
               the two-stage scheme at G=2 against its plain path, and K3
-              and K6c at C=96 (two 64-row output tiles).  Times by CUDA
-              events.
+              and K6c at C=96 (six 32 x 32 output tiles a split).  Times
+              by CUDA events, K3's and K6c's printed beside those of the
+              design before the register micro-tiles (GRAM_BEFORE_MS) and,
+              with ``bmm``'s, by torch.profiler (device only).
   2b. top-d   K7 (``block_topd``) against its plain version on the card,
               values and indices bitwise, at M=1,000,000/d=64,
               M=16,384/d=16 (the async path's shape), M=10,007/d=64 with
@@ -92,10 +96,13 @@ Phases, one line each (a failure raises, so the exit code is not 0):
               pages of 8 and 32, on fp32 and int8 pools and bf16 and fp32
               queries; K9 (``flash_attention_fwd``, csrc/flash_attention.cu)
               at B=2, Hq=24, Hkv=8, S=1024, dh=128 and at dh=64 with S=384
-              and S=200 (ragged), bf16 and fp32, window 0 and 256.  Times
-              by CUDA events; K9's library call is
-              ``scaled_dot_product_attention`` (causal, GQA; a boolean
-              band for the window), which the port never calls.
+              and S=200 (ragged), bf16 (the tensor-core body: wgmma, TMA)
+              and fp32 (the FMA body), window 0 and 256.  Times by CUDA
+              events, K9's printed beside the FMA design's (K9_BEFORE_MS)
+              and, with its library call's, by torch.profiler (device
+              only); the library call is ``scaled_dot_product_attention``
+              (causal, GQA; a boolean band for the window), which the port
+              never calls.
   7. serving  minitron-4b at full width and depth (5.1e9 parameters drawn
               in fp32 on the card, cast once to bf16) behind
               ``ServeEngine``: 16 slots, pages of 16, max_len 384, prompts
@@ -186,7 +193,14 @@ CUDA_SOURCE = "src/repro_torch/csrc/robust_pipeline.cu"
 CUDA_SOURCE_K6 = "src/repro_torch/csrc/comm_codecs.cu"
 CUDA_SOURCE_K7 = "src/repro_torch/csrc/population_select.cu"
 CUDA_SOURCE_K5 = "src/repro_torch/csrc/robust_agg.cu"
-GRAM_WIDE_SHAPE = (1, 96, 65_573)          # K3 / K6c past one 64-row tile
+GRAM_WIDE_SHAPE = (1, 96, 65_573)          # K3 / K6c past one 32-row tile
+# the earlier designs' times, as PERF.md section 6 records them (NVIDIA H100
+# 80GB HBM3, 700 W): K3 / K6c at GRAM_WIDE_SHAPE and K3 at SLICE_SHAPE on 64 x
+# 64 tiles of one output a thread, K9 at phase 2c's timed shape on the FMA
+# units
+GRAM_BEFORE_MS = {"pairwise_gram": 0.5213, "dequant_pairwise_gram": 0.7220,
+                  "pairwise_gram C=16": 0.0707}
+K9_BEFORE_MS = {0: 1.0381, 256: 0.4915}
 K7_REPLACES = "src/repro/kernels/population_select.py:98"
 # (M, d, blk) of phase 2b; the async path's shape is the second
 TOPD_CASES = ((1_000_000, 64, 4096), (16_384, 16, 4096), (10_007, 64, 4096),
@@ -296,6 +310,24 @@ def time_ms(fn):
     return start.elapsed_time(stop) / TIMED_CALLS
 
 
+def device_ms(fn, calls=10):
+    """Mean device time of one call, the kernels' own time by
+    torch.profiler: free of the host's launch gaps, which CUDA events
+    around back-to-back calls count when a wrapper's host work outlasts
+    its kernel."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.events()
+               if e.device_type == DeviceType.CUDA) / calls / 1e3
+
+
 def _import_port():
     if not (SRC / "repro_torch" / "csrc").is_dir():
         raise SystemExit("chip_smoke.py: src/repro_torch not found beside "
@@ -320,7 +352,54 @@ def _card():
           f"{time.perf_counter() - t0:.1f} s")
     for r in regs:
         print(f"[card] ptxas {r}")
+    for name, info in ptxas_report(_build.build_log()).items():
+        print(f"[card] ptxas {name}: {info}")
     return smi
+
+
+def _kernel_name(mangled):
+    """'fa_mma_kernel<2>', 'gram_partials<32, QuantRows>' for the new
+    bodies' mangled names, else None."""
+    import re
+    m = re.search(r"(fa_mma_kernel|gram_partials)I(\w+?)EEv", mangled)
+    if not m:
+        return None
+    args = [t.group(1) or t.group(0) for t in re.finditer(
+        r"Li(\d+)E|DenseRows|QuantRows", m.group(2))]
+    return f"{m.group(1)}<{', '.join(args)}>"
+
+
+def ptxas_report(log):
+    """{kernel: "R registers, S B spill stores, L B spill loads[; note]"}
+    for K9's tensor-core body and the Gram's instantiations, from nvcc's
+    -Xptxas -v output (a note where ptxas serialized wgmma)."""
+    import re
+    out, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = _kernel_name(m.group(1))
+            if name:
+                out.setdefault(name, {})
+            continue
+        m = re.search(r"Performance Loss: (.*?) for the function '(\S+)'",
+                      line)
+        if m and _kernel_name(m.group(2)):
+            out.setdefault(_kernel_name(m.group(2)), {})["note"] = m.group(1)
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            out[name].setdefault("spills", m.group(1, 2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[name].setdefault("regs", m.group(1))
+    return {k: f"{v.get('regs')} registers, {v.get('spills', ('?',))[0]} B "
+               f"spill stores, {v.get('spills', ('?', '?'))[1]} B spill loads"
+               + (f"; {v['note']}" if "note" in v else "")
+            for k, v in sorted(out.items())}
 
 
 def _check(name, out, ref, exact=False, rel=None):
@@ -512,11 +591,20 @@ def _kernels(cnn_sizes):
                 q, s, layout, m, wm, mode=mode),
             lambda mode=mode, wm=wm: cc.dequant_gated_combine_plain(
                 q, s, layout, m, wm, mode=mode), None)
-    return [_timed_entry(name, CUDA_SOURCE_K6 if name.partition("[")[0]
-                         in DEQUANT_OF else CUDA_SOURCE, SLICE_SHAPE,
-                         errs[name], kern, plain, lib, nq=layout.n_scales,
-                         n_leaves=len(cnn_sizes))
-            for name, (kern, plain, lib) in calls.items()]
+    report = [_timed_entry(name, CUDA_SOURCE_K6 if name.partition("[")[0]
+                           in DEQUANT_OF else CUDA_SOURCE, SLICE_SHAPE,
+                           errs[name], kern, plain, lib, nq=layout.n_scales,
+                           n_leaves=len(cnn_sizes))
+              for name, (kern, plain, lib) in calls.items()]
+    k3 = next(e for e in report if e["name"] == "pairwise_gram")
+    kern, _, lib = calls["pairwise_gram"]
+    k3["device_ms"], k3["library_device_ms"] = device_ms(kern), device_ms(lib)
+    before = GRAM_BEFORE_MS["pairwise_gram C=16"]
+    print(f"[kernels] pairwise_gram {SLICE_SHAPE}: {k3['ms']:.4f} ms against "
+          f"the earlier design's {before} ms ({before / k3['ms']:.1f}x); "
+          f"device "
+          f"{k3['device_ms']:.4f} ms (bmm {k3['library_device_ms']:.4f})")
+    return report
 
 
 def _timed_entry(name, source, shape, err, kern, plain, lib, **work):
@@ -650,8 +738,13 @@ def _k5_and_flat(cnn_sizes):
         c96[name] = {"shape": list(GRAM_WIDE_SHAPE), "ms": time_ms(kern),
                      "plain_ms": time_ms(plain),
                      "library_ms": time_ms(lib) if lib else None,
-                     "bound_ms": b, "bound_by": by}
-        print(f"[kernels] {name} {GRAM_WIDE_SHAPE}: {c96[name]}")
+                     "bound_ms": b, "bound_by": by,
+                     "device_ms": device_ms(kern),
+                     "library_device_ms": device_ms(lib) if lib else None}
+        print(f"[kernels] {name} {GRAM_WIDE_SHAPE}: {c96[name]}; "
+              f"{c96[name]['ms']:.4f} ms against the earlier design's "
+              f"{GRAM_BEFORE_MS[name]} ms "
+              f"({GRAM_BEFORE_MS[name] / c96[name]['ms']:.1f}x)")
 
     calls = {
         "robust_agg_fwd[trimmed]": (
@@ -1582,20 +1675,29 @@ def _attention_kernels():
         lib = (lambda: sdpa(*qkv, is_causal=True, enable_gqa=True)) \
             if not window else \
             (lambda band=band: sdpa(*qkv, attn_mask=band, enable_gqa=True))
+        kern = lambda window=window: fa.flash_attention_fwd(
+            *qkv, causal=True, window=window)
         entries.append(_attn_entry(
             "flash_attention_fwd", K9_SOURCE, K9_REPLACES,
-            errs["flash_attention_fwd"],
-            lambda window=window: fa.flash_attention_fwd(
-                *qkv, causal=True, window=window),
+            errs["flash_attention_fwd"], kern,
             lambda window=window: fa.flash_attention_fwd_plain(
                 *qkv, causal=True, window=window), lib,
             flash_work(2, 24, 8, FWD_SEQ, 128, window, 2),
             {"B": 2, "Hq": 24, "Hkv": 8, "S": FWD_SEQ, "dh": 128,
              "dtype": "bfloat16", "window": window}, BF16_OPS_PER_S))
+        entries[-1]["device_ms"] = device_ms(kern)
+        entries[-1]["library_device_ms"] = device_ms(lib)
+    for window, entry in zip((0, FWD_WINDOW), entries):
+        before = K9_BEFORE_MS[window]
+        print(f"[attention] flash_attention_fwd window {window}: "
+              f"{entry['ms']:.4f} ms against the FMA design's "
+              f"{before} ms ({before / entry['ms']:.1f}x); SDPA "
+              f"{entry['library_ms']:.4f} ms; device {entry['device_ms']:.4f}"
+              f" ms (SDPA {entry['library_device_ms']:.4f})")
     full, windowed = entries
-    full["window"] = {k: windowed[k] for k in ("ms", "plain_ms", "bound_ms",
-                                               "bound_by", "library_ms",
-                                               "shape")}
+    full["window"] = {k: windowed[k] for k in (
+        "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape",
+        "device_ms", "library_device_ms")}
     report.append(full)
     return report
 

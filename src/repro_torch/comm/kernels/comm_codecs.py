@@ -156,16 +156,18 @@ def dequant_pairwise_gram(q, s, layout, mask):
     (its Gram accumulation; the distances are formed in torch, by
     ``robust_pipeline.sq_dists_from_gram``).  Bound: operations (2 C^2
     flops a column outweigh the code bytes).  Design: K3's kernel with the
-    int8 row source."""
+    int8 row source, its stages dequantized through registers (one scale
+    lookup a column and stage) and its chunks from ``gram_split``."""
     (mask,) = _check(q, s, layout, mask)
     if not rp._dispatch(q):
         return dequant_pairwise_gram_plain(q, s, layout, mask)
     ptrs, dims = _quant_args(q, s, layout, mask)
     G, C, N = q.shape
-    part = torch.empty(G, rp._cdiv(N, rp.GRAM_CHUNK), C * C, device=q.device)
+    nsplit, chunk = rp.gram_split(G, C, N, rp.sm_count(q.device))
+    part = torch.empty(G, nsplit, C * C, device=q.device)
     out = torch.empty(G, C, C, device=q.device)
     rp._launch(_build.load().cc_gram, *ptrs, part.data_ptr(), out.data_ptr(),
-               *dims, rp.GRAM_CHUNK)
+               *dims, chunk)
     dequant_pairwise_gram.launches += 1
     return out
 

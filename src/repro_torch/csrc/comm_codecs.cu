@@ -16,8 +16,10 @@
 // bytes; the rank network's C^2 compares per column come to about as much on
 // the fp32 units.  The design is K1-K3's: one thread per column, byte loads
 // coalesced across a warp (32 neighbouring columns of one client row), one
-// scale lookup per column.  Vectorised loads are later work: N = 421,642 is
-// 2 mod 4, so the rows of the (C, N) code matrix do not start 4-byte aligned.
+// scale lookup per column (the Gram: per column and stage, its stages
+// dequantized through registers).  Vectorised loads are later work:
+// N = 421,642 is 2 mod 4, so the rows of the (C, N) code matrix do not start
+// 4-byte aligned.
 //
 // Each entry point launches on the caller's stream and returns
 // cudaGetLastError(); the Python wrapper raises when it is not 0.

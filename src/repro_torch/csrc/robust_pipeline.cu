@@ -14,8 +14,9 @@
 // per column and the Gram's C^2 FMAs per column stay under that on the fp32
 // units.  The design keeps the loads coalesced (a warp reads 32 neighbouring
 // columns of one client row) and holds the (C, cols) tile in shared memory so
-// the O(C^2) network reads no device memory.  Speed beyond that (TMA, wgmma
-// for the Gram) is later work.
+// the O(C^2) network reads no device memory.  The Gram multiplies from
+// register micro-tiles over double-buffered cp.async stages (past C ~ 50 it is
+// bound by operations; robust_pipeline.cuh says how).
 //
 // Each entry point launches on the caller's stream and returns
 // cudaGetLastError(); the Python wrapper raises when it is not 0.

@@ -17,6 +17,14 @@
 // cross-block sum is written as per-block partials and summed by a second
 // launch (reduce_partials) in a fixed order.  No float atomics: a run is
 // bitwise repeatable.
+//
+// The Gram (gram_partials, K3 / K4c / K6c) is bound by operations on the
+// fp32 units past C ~ 50 (C (C + 1) / 2 FMAs a column against 4 C bytes) and
+// by bytes at C = 16.  Its design: 64-thread blocks, one upper-triangle
+// output tile of 16 x 16 (C <= 16) or 32 x 32 each, a 2 x 2 or 4 x 4 register
+// micro-tile a thread fed by float4 reads of double-buffered shared-memory
+// stages, and column chunks sized by robust_pipeline.py:gram_split to fill
+// the card (at least 2 waves of blocks at the main path's shapes).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -26,19 +34,22 @@
 namespace {
 
 constexpr float kBig = 1e30f;        // masked-out rows rank past every real row
-constexpr int kGramTK = 32;          // Gram tile depth (columns per smem stage)
-constexpr int kGramTile = 64;        // Gram output tile: at most 64 x 64 a block
-constexpr int kGramThreads = 256;
+constexpr int kGramThreads = 64;     // a Gram block: 8 x 8 threads
 constexpr int kReduceThreads = 256;  // 8 warps, one output each
 
-// fp32 rows: x (G*C, N).
+// fp32 rows: x (G*C, N).  kAsync: the Gram stages them by cp.async.
 struct DenseRows {
+  static constexpr bool kAsync = true;
   const float* __restrict__ x;
   int N;
   __device__ __forceinline__ int scale_col(int) const { return 0; }
   __device__ __forceinline__ float load(size_t r, int col, int) const {
     return x[r * N + col];
   }
+  __device__ __forceinline__ const float* at(size_t r, int col) const {
+    return x + r * N + col;
+  }
+  __device__ __forceinline__ bool live(size_t) const { return true; }
 };
 
 // int8 codes q (G*C, N) and fp32 scales s (G*C, NQ), laid out leaf after leaf
@@ -49,6 +60,7 @@ struct DenseRows {
 // is 0 reads as 0: a scale of inf (a non-finite client) would make 0 * inf =
 // NaN reach the sums even at weight 0.
 struct QuantRows {
+  static constexpr bool kAsync = false;
   const int8_t* __restrict__ q;
   const float* __restrict__ s;
   const int* __restrict__ table;
@@ -63,7 +75,12 @@ struct QuantRows {
     return __ldg(table + L + 1 + lo) + (col - __ldg(table + lo)) / qblk;
   }
   __device__ __forceinline__ float load(size_t r, int col, int sc) const {
-    if (!(mask[r] > 0.f)) return 0.f;
+    if (!live(r)) return 0.f;
+    return value(r, col, sc);
+  }
+  __device__ __forceinline__ bool live(size_t r) const { return mask[r] > 0.f; }
+  // the element of a row known to be masked in
+  __device__ __forceinline__ float value(size_t r, int col, int sc) const {
     return (float)q[r * N + col] * s[r * NQ + sc];
   }
 };
@@ -199,75 +216,180 @@ __global__ void gated_combine(Src src, const float* __restrict__ mask,
   out[(size_t)g * N + col] = r;
 }
 
-// K3/K6c: block (split s, output tile y, cohort g) accumulates one tile of the
+// K3/K6c: block (output tile, split s, cohort g) accumulates one tile of the
 // C x C Gram of its column chunk in fp32 FMA (not TF32).  A tile is rows
-// [i0, i0 + ni) x columns [j0, j0 + nj) of the Gram, ni, nj <= kGramTile, so any
-// C runs.  The Gram is symmetric, so only tiles with i0 <= j0 are launched and
+// [i0, i0 + ni) x columns [j0, j0 + nj) of the Gram, ni, nj <= TS, so any C
+// runs.  The Gram is symmetric, so only tiles with i0 <= j0 are launched and
 // an off-diagonal tile writes each output at (i, j) and (j, i); fmaf(a, b, v)
 // is fmaf(b, a, v) exactly, so the mirror is the value the (j, i) tile would
-// have computed.  For C <= kGramTile there is one tile and local output o is
-// Gram entry (o / C, o % C).  Thread t owns local outputs t, t + 256, ... (R of
-// them).  The (rows, TK) stages are padded to TK + 1 floats a row so the 32
-// lanes reading 32 different rows at one depth hit 32 different banks; a
-// diagonal tile reads one stage twice.  Each output is one fmaf chain over its
-// chunk in column order, whatever the tiling.
-template <int R, class Src>
-__global__ void gram_partials(Src src, float* __restrict__ part, int C, int N,
-                              int chunk) {
-  __shared__ float stage_i[kGramTile * (kGramTK + 1)];
-  __shared__ float stage_j[kGramTile * (kGramTK + 1)];
-  const int s = blockIdx.x, g = blockIdx.z, t = threadIdx.x;
-  const int nt = (C + kGramTile - 1) / kGramTile;
-  int ti = 0, rem = blockIdx.y;  // y -> upper-triangle tile (ti, ti + rem)
+// have computed.  Each output is one fmaf chain over its chunk in column
+// order, whatever the tiling; a diagonal tile reads one stage twice.
+//
+// 64 threads, 8 x 8; thread (ty, tx) owns the MT x MT micro-tile of rows
+// ty + 8 ii and columns tx + 8 jj in registers.  A stage holds the tile's
+// rows (and the other tile's, off the diagonal) over TK columns, row-major
+// with rows of TK + 4 floats: at each depth k of 4 a thread reads each of
+// its rows and columns as one float4, 2 MT shared loads for 4 MT^2 FMAs, and
+// the 8 lanes of a quarter-warp reading 8 consecutive rows hit 32 banks.
+// Stages are double-buffered: the next stage is fetched while this one is
+// multiplied (cp.async for fp32 rows, registers for int8 rows, so the
+// dequant happens once an element), one barrier a stage.  Thread t fetches
+// column t % TK of every stage, so an int8 row source finds its column's
+// scale once a stage, not once an element.  Elements past the chunk or past
+// C stage as 0.
+template <int TS, bool kAsync>
+struct GramTile {
+  static constexpr int kMT = TS / 8;                 // micro-tile side
+  // stage depth: half for a source staged through registers
+  static constexpr int kTK = 1024 / TS / (kAsync ? 1 : 2);
+  static constexpr int kLD = kTK + 4;                // stage row stride
+  static constexpr int kRowsPerPass = kGramThreads / kTK;
+  static constexpr int kLoads = 2 * TS / kRowsPerPass;  // a thread a stage
+};
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;" ::"r"(
+                   (uint32_t)__cvta_generic_to_shared(dst)),
+               "l"(src), "r"(valid ? 4 : 0) : "memory");
+}
+
+// Stages a Gram block's rows over TK columns: thread t takes column t % TK
+// of rows t / TK + u * kRowsPerPass.  Stage row r < TS is Gram row ri + r,
+// r >= TS is rj + r - TS; a diagonal tile stages only its first TS rows
+// (nrows).  fp32 rows go by cp.async, int8 rows through `held`.  `live`
+// (bit u: row u is in the tile and masked in) is set once by init().
+template <int TS, class Src>
+struct GramStager {
+  using T = GramTile<TS, Src::kAsync>;
+  Src src;
+  size_t ri, rj;
+  int ni, nj, nrows, c1;
+  uint32_t live = 0;
+  float held[T::kLoads];
+
+  __device__ __forceinline__ size_t row(int u) const {
+    const int r = threadIdx.x / T::kTK + u * T::kRowsPerPass;
+    return r < TS ? ri + r : rj + r - TS;
+  }
+
+  __device__ __forceinline__ void init() {
+#pragma unroll
+    for (int u = 0; u < T::kLoads; ++u) {
+      const int r = threadIdx.x / T::kTK + u * T::kRowsPerPass;
+      if (u * T::kRowsPerPass < nrows && (r < TS ? r < ni : r - TS < nj) &&
+          src.live(row(u)))
+        live |= 1u << u;
+    }
+  }
+
+  __device__ __forceinline__ void fetch(int k0, float* buf) {
+    const int t = threadIdx.x, sk = t % T::kTK, sr = t / T::kTK;
+    const int col = k0 + sk;
+    const bool cv = col < c1;
+    const int sc = cv ? src.scale_col(col) : 0;
+#pragma unroll
+    for (int u = 0; u < T::kLoads; ++u) {
+      const bool on = cv && (live >> u & 1u);
+      if constexpr (Src::kAsync) {
+        if (u * T::kRowsPerPass < nrows)
+          cp_async4(buf + (sr + u * T::kRowsPerPass) * T::kLD + sk,
+                    on ? src.at(row(u), col) : src.at(0, 0), on);
+      } else {
+        held[u] = on ? src.value(row(u), col, sc) : 0.f;
+      }
+    }
+    if constexpr (Src::kAsync)
+      asm volatile("cp.async.commit_group;" ::: "memory");
+  }
+
+  __device__ __forceinline__ void land(float* buf) {
+    if constexpr (Src::kAsync) {
+      asm volatile("cp.async.wait_group 0;" ::: "memory");
+    } else {
+      const int t = threadIdx.x, sk = t % T::kTK, sr = t / T::kTK;
+#pragma unroll
+      for (int u = 0; u < T::kLoads; ++u)
+        if (u * T::kRowsPerPass < nrows)
+          buf[(sr + u * T::kRowsPerPass) * T::kLD + sk] = held[u];
+    }
+  }
+};
+
+template <int TS, class Src>
+__global__ void __launch_bounds__(kGramThreads)
+gram_partials(Src src, float* __restrict__ part, int C, int N, int chunk,
+              int nsplit) {
+  using T = GramTile<TS, Src::kAsync>;
+  constexpr int MT = T::kMT, TK = T::kTK, LD = T::kLD;
+  __shared__ __align__(16) float stage[2][2 * TS * LD];
+  const int t = threadIdx.x, g = blockIdx.y;
+  const int s = blockIdx.x % nsplit;
+  const int nt = (C + TS - 1) / TS;
+  int ti = 0, rem = blockIdx.x / nsplit;  // -> upper-triangle tile (ti, ti + rem)
   while (rem >= nt - ti) {
     rem -= nt - ti;
     ++ti;
   }
-  const int i0 = ti * kGramTile, j0 = (ti + rem) * kGramTile;
-  const int ni = min(kGramTile, C - i0), nj = min(kGramTile, C - j0);
+  const int i0 = ti * TS, j0 = (ti + rem) * TS;
+  const int ni = min(TS, C - i0), nj = min(TS, C - j0);
   const bool diag = i0 == j0;
-  const float* sj = diag ? stage_i : stage_j;
-  const int rows = diag ? ni : max(ni, nj);
-  const int c0 = s * chunk, c1 = min(c0 + chunk, N), CC = C * C;
-  float acc[R];
+  const int c0 = s * chunk, c1 = min(c0 + chunk, N);
+  const size_t base = (size_t)g * C;
+
+  GramStager<TS, Src> stager{src, base + i0, base + j0, ni, nj,
+                             diag ? TS : 2 * TS, c1};
+  stager.init();
+  const int ty = t / 8, tx = t % 8;
+  float acc[MT][MT];
 #pragma unroll
-  for (int r = 0; r < R; ++r) acc[r] = 0.f;
-  for (int k0 = c0; k0 < c1; k0 += kGramTK) {
-    for (int e = t; e < rows * kGramTK; e += blockDim.x) {
-      const int i = e / kGramTK, k = e % kGramTK, col = k0 + k;
-      const int sc = col < c1 ? src.scale_col(col) : 0;
-      if (i < ni)
-        stage_i[i * (kGramTK + 1) + k] =
-            col < c1 ? src.load((size_t)g * C + i0 + i, col, sc) : 0.f;
-      if (!diag && i < nj)
-        stage_j[i * (kGramTK + 1) + k] =
-            col < c1 ? src.load((size_t)g * C + j0 + i, col, sc) : 0.f;
+  for (int a = 0; a < MT; ++a)
+#pragma unroll
+    for (int b = 0; b < MT; ++b) acc[a][b] = 0.f;
+  int cur = 0;
+  stager.fetch(c0, stage[0]);
+  stager.land(stage[0]);
+  __syncthreads();
+  for (int k0 = c0; k0 < c1; k0 += TK) {
+    const bool more = k0 + TK < c1;
+    if (more) stager.fetch(k0 + TK, stage[cur ^ 1]);
+    const float* sa = stage[cur] + ty * LD;
+    const float* sb = stage[cur] + (diag ? 0 : TS * LD) + tx * LD;
+#pragma unroll
+    for (int k = 0; k < TK; k += 4) {
+      float4 a[MT], b[MT];
+#pragma unroll
+      for (int m = 0; m < MT; ++m) {
+        a[m] = *reinterpret_cast<const float4*>(sa + 8 * m * LD + k);
+        b[m] = *reinterpret_cast<const float4*>(sb + 8 * m * LD + k);
+      }
+#pragma unroll
+      for (int ii = 0; ii < MT; ++ii)
+#pragma unroll
+        for (int jj = 0; jj < MT; ++jj) {
+          float v = acc[ii][jj];
+          v = fmaf(a[ii].x, b[jj].x, v);
+          v = fmaf(a[ii].y, b[jj].y, v);
+          v = fmaf(a[ii].z, b[jj].z, v);
+          v = fmaf(a[ii].w, b[jj].w, v);
+          acc[ii][jj] = v;
+        }
     }
+    if (more) stager.land(stage[cur ^ 1]);
     __syncthreads();
+    cur ^= 1;
+  }
+  float* pg = part + ((size_t)g * nsplit + s) * C * C;
 #pragma unroll
-    for (int r = 0; r < R; ++r) {
-      const int o = t + r * blockDim.x;
-      if (o < ni * nj) {
-        const float* a = stage_i + (o / nj) * (kGramTK + 1);
-        const float* b = sj + (o % nj) * (kGramTK + 1);
-        float v = acc[r];
-#pragma unroll 8
-        for (int k = 0; k < kGramTK; ++k) v = fmaf(a[k], b[k], v);
-        acc[r] = v;
+  for (int ii = 0; ii < MT; ++ii)
+#pragma unroll
+    for (int jj = 0; jj < MT; ++jj) {
+      const int i = ty + 8 * ii, j = tx + 8 * jj;
+      if (i < ni && j < nj) {
+        pg[(size_t)(i0 + i) * C + j0 + j] = acc[ii][jj];
+        if (!diag) pg[(size_t)(j0 + j) * C + i0 + i] = acc[ii][jj];
       }
     }
-    __syncthreads();
-  }
-  float* pg = part + ((size_t)g * gridDim.x + s) * CC;
-#pragma unroll
-  for (int r = 0; r < R; ++r) {
-    const int o = t + r * blockDim.x;
-    if (o < ni * nj) {
-      const int i = i0 + o / nj, j = j0 + o % nj;
-      pg[(size_t)i * C + j] = acc[r];
-      if (!diag) pg[(size_t)j * C + i] = acc[r];
-    }
-  }
 }
 
 // part (G, P, M) -> out (G, M): one warp per output, lanes stride P in order.
@@ -326,25 +448,25 @@ int launch_combine(Src src, const float* mask, const float* w, float* out, int G
   return (int)cudaGetLastError();
 }
 
-// -> part (G, ceil(N/chunk), C*C) scratch, out (G, C, C).  Any C whose
-// nt (nt + 1) / 2 upper-triangle tiles, nt = ceil(C/64), fit the grid's y axis
-// (C <= 23,104).
+// -> part (G, nsplit, C*C) scratch, out (G, C, C), nsplit = ceil(N/chunk)
+// (robust_pipeline.py:gram_split picks chunk).  Output tiles of 16 x 16 (2 x 2
+// micro-tiles) for C <= 16, else 32 x 32 (4 x 4): the upper triangle's
+// nt (nt + 1) / 2 tiles, nt = ceil(C / TS), times nsplit on the grid's x axis.
 template <class Src>
 int launch_gram(Src src, float* part, float* out, int G, int C, int N, int chunk,
                 cudaStream_t st) {
   const int nsplit = (N + chunk - 1) / chunk;
-  const int nt = (C + kGramTile - 1) / kGramTile;
-  const int ntiles = nt * (nt + 1) / 2;
-  if (ntiles > 65535) return (int)cudaErrorInvalidValue;
-  const dim3 grid(nsplit, ntiles, G);
-  const int side = min(C, kGramTile);
-  const int per = (side * side + kGramThreads - 1) / kGramThreads;
-  if (per <= 1)
-    gram_partials<1, Src><<<grid, kGramThreads, 0, st>>>(src, part, C, N, chunk);
-  else if (per <= 4)
-    gram_partials<4, Src><<<grid, kGramThreads, 0, st>>>(src, part, C, N, chunk);
+  const int ts = C <= 16 ? 16 : 32;
+  const long long nt = (C + ts - 1) / ts;
+  const long long blocks = nt * (nt + 1) / 2 * nsplit;
+  if (blocks >= (1ll << 31) || G > 65535) return (int)cudaErrorInvalidValue;
+  const dim3 grid((unsigned)blocks, G);
+  if (ts == 16)
+    gram_partials<16, Src><<<grid, kGramThreads, 0, st>>>(src, part, C, N, chunk,
+                                                          nsplit);
   else
-    gram_partials<16, Src><<<grid, kGramThreads, 0, st>>>(src, part, C, N, chunk);
+    gram_partials<32, Src><<<grid, kGramThreads, 0, st>>>(src, part, C, N, chunk,
+                                                          nsplit);
   launch_reduce(part, out, G, nsplit, C * C, st);
   return (int)cudaGetLastError();
 }

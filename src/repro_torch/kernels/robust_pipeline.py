@@ -40,7 +40,7 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.robust_agg import _BIG, stable_ranks
 
 COLS = 128              # K1/K2: columns per block, one thread each
-GRAM_CHUNK = 2048       # K3: columns per block
+GRAM_BLOCKS_PER_SM = 4  # K3/K6c: blocks to aim for, 4 a SM of the card
 PLAIN_CHUNK = 8192      # plain versions: columns per step (bounds the
                         # (C, C, chunk) compare tensor)
 SMEM_LIMIT = 232448     # bytes of shared memory a Hopper block may use
@@ -67,6 +67,33 @@ def _launch(fn, *args):
     rc = fn(*args, torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"{fn.__name__} failed: CUDA error {rc}")
+
+
+def gram_tile(c):
+    """(side, stage depth) of the Gram kernel's output tiles at C rows, as
+    ``launch_gram`` in ``csrc/robust_pipeline.cuh`` picks them: 16 x 16
+    tiles of 2 x 2 micro-tiles for C <= 16, else 32 x 32 of 4 x 4."""
+    side = 16 if c <= 16 else 32
+    return side, 1024 // side
+
+
+def gram_split(g, c, n, sms):
+    """(nsplit, chunk) of K3 / K6c on a (G, C, N) matrix on a card of
+    ``sms`` SMs: nsplit column chunks of ``chunk`` columns (a multiple of
+    the stage depth) cover N exactly, so that the upper triangle's tiles
+    times nsplit times G come to at least GRAM_BLOCKS_PER_SM * sms blocks
+    where N allows.  K3 and K6c take it alike, so K6c stays bitwise K3 on
+    the masked decode."""
+    side, depth = gram_tile(c)
+    nt = _cdiv(c, side)
+    want = _cdiv(GRAM_BLOCKS_PER_SM * sms, g * nt * (nt + 1) // 2)
+    chunk = max(depth, n // want // depth * depth)
+    return _cdiv(n, chunk), chunk
+
+
+def sm_count(device):
+    """The SM count of a CUDA device, which sizes ``gram_split``."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def _dispatch(x):
@@ -192,12 +219,12 @@ def _gram(x, wrapper):
         return pairwise_gram_plain(x)
     _check_cuda(x)
     G, C, N = x.shape
-    nsplit = _cdiv(N, GRAM_CHUNK)
+    nsplit, chunk = gram_split(G, C, N, sm_count(x.device))
     part = torch.empty(G, nsplit, C * C, device=x.device)
     out = torch.empty(G, C, C, device=x.device)
     lib = _build.load()
     _launch(lib.rp_gram, x.data_ptr(), part.data_ptr(), out.data_ptr(),
-            G, C, N, GRAM_CHUNK)
+            G, C, N, chunk)
     wrapper.launches += 1
     return out
 
@@ -235,11 +262,15 @@ def pairwise_gram(x):
 
     Replaces ``repro/kernels/robust_pipeline.py:pairwise_sq_dists_leafwise``
     (its Gram accumulation; the distances are formed in torch).  Bound:
-    bytes (one read of x; C(C+1) flops per column, the symmetric half).
-    Design: each block accumulates one (at most 64 x 64) output tile of
-    the upper triangle over its 2048-column chunk from padded
-    shared-memory stages and mirrors it, so any C runs; partials are
-    summed in a fixed order by a second launch.
+    bytes at C = 16 (one read of x), operations on the fp32 units past
+    C ~ 50 (C(C+1) flops per column, the symmetric half).  Design: each
+    block of 64 threads accumulates one output tile of the upper triangle
+    (16 x 16 for C <= 16, else 32 x 32) over its column chunk and mirrors
+    it, so any C runs; each thread holds a 2 x 2 or 4 x 4 register
+    micro-tile fed by float4 reads of double-buffered (cp.async) stages,
+    one fmaf chain an output in column order; ``gram_split`` sizes the
+    chunks to fill the card, and the partials are summed in a fixed order
+    by a second launch.
     """
     return _gram(x, pairwise_gram)
 

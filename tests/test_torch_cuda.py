@@ -472,6 +472,97 @@ def test_flash_attention_wrapper_checks_and_counts(card):
     assert fa.launch_counts() == {"flash_attention_fwd": 2}
 
 
+def _k9_close(out, ref):
+    """fp32 within 1e-5; bf16 within one bf16 ulp of the plain output plus
+    1e-5 (the tolerances of test_flash_attention_matches_plain)."""
+    assert out.dtype == ref.dtype and out.shape == ref.shape
+    if out.dtype == torch.float32:
+        torch.testing.assert_close(out, ref, atol=1e-5, rtol=0)
+    else:
+        o, r = out.float(), ref.float()
+        ulp = torch.exp2(torch.floor(torch.log2(
+            r.abs().clamp_min(2.0 ** -126))) - 7)
+        assert bool(((o - r).abs() <= ulp + 1e-5).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("S,dh,window", [(256, 256, 0), (200, 256, 64),
+                                         (200, 72, 0), (130, 40, 64),
+                                         (150, 192, 0), (200, 80, 64),
+                                         (256, 96, 0)])
+def test_flash_attention_other_head_dims_match_plain(card, dtype, S, dh,
+                                                     window):
+    """dh 256 (the tensor-core body's two-stage ring in bf16), dh 192, dh
+    80 and 96 (a multiple of 16 but not of 64: the tensor-core body's
+    partial 64-column chunk, zero-filled by TMA and cut by the store's
+    column guard) and head dims that are not a multiple of 16 (the FMA
+    body, in bf16 too)."""
+    rng = np.random.default_rng(S + dh + window)
+    q, k, v = (torch.from_numpy(rng.standard_normal((2, h, S, dh),
+                                                    np.float32))
+               .to(card, dtype) for h in (4, 2, 2))
+    _k9_close(fa.flash_attention_fwd(q, k, v, causal=True, window=window),
+              fa.flash_attention_fwd_plain(q, k, v, causal=True,
+                                           window=window))
+
+
+def test_flash_attention_tensor_core_body_checks(card):
+    """bf16 in the model layout goes in without a copy; a stride that is
+    not a 16-byte multiple (TMA's rule) raises."""
+    q = torch.randn(2, 256, 6, 64, device=card).bfloat16()
+    kv = torch.randn(2, 256, 2, 64, device=card).bfloat16()
+    fa.reset_launch_counts()
+    out = fa.flash_attention_fwd(q.transpose(1, 2), kv.transpose(1, 2),
+                                 kv.transpose(1, 2), window=64)
+    _k9_close(out, fa.flash_attention_fwd_plain(
+        q.transpose(1, 2).contiguous(), kv.transpose(1, 2).contiguous(),
+        kv.transpose(1, 2).contiguous(), window=64))
+    wide = torch.randn(1, 2, 128, 68, device=card).bfloat16()
+    with pytest.raises(ValueError):
+        fa.flash_attention_fwd(wide[..., :64], wide[..., :64],
+                               wide[..., :64])
+    assert fa.launch_counts() == {"flash_attention_fwd": 1}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_raises_under_grad_on_card(card, dtype):
+    q = torch.randn(1, 2, 128, 64, device=card, dtype=dtype,
+                    requires_grad=True)
+    k = torch.randn(1, 1, 128, 64, device=card, dtype=dtype)
+    fa.reset_launch_counts()
+    with pytest.raises(RuntimeError, match="item g"):
+        fa.flash_attention_fwd(q, k, k)
+    with torch.no_grad():
+        out = fa.flash_attention_fwd(q, k, k)
+    assert out.grad_fn is None
+    assert fa.launch_counts() == {"flash_attention_fwd": 1}
+
+
+def test_flash_attention_bf16_kernel_runs_hgmma(card):
+    """The loaded library's bf16 K9 body issues wgmma (SASS HGMMA) fed by
+    TMA (UTMALDG); the FMA body does neither."""
+    import shutil
+    import subprocess
+    from repro_torch.kernels import _build
+    so = _build.load()._name
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "--dump-sass", str(so)], check=True,
+                          capture_output=True, text=True).stdout
+    ops = {}
+    name = None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :")[1].strip()
+            ops[name] = set()
+        elif name is not None:
+            ops[name].update(op for op in ("HGMMA", "UTMALDG") if op in line)
+    mma = [n for n in ops if "fa_mma_kernel" in n]
+    fma = [n for n in ops if "fa_fwd_kernel" in n]
+    assert mma and fma
+    assert all(ops[n] == {"HGMMA", "UTMALDG"} for n in mma)
+    assert not any(ops[n] for n in fma)
+
+
 @pytest.mark.parametrize("kv_int8", [False, True])
 def test_serving_engine_on_card_matches_cpu(card, kv_int8):
     """tiny-lm.reduced() (fp32): the K8 engine on the card emits the CPU

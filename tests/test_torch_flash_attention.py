@@ -3,7 +3,9 @@ same numpy inputs: on the CPU the port runs K9's plain version; the JAX
 side runs its Pallas kernel in interpret mode, over the sweep of
 ``tests/test_kernels.py::test_flash_attention_sweep``.
 ``tests/test_torch_cuda.py`` and ``chip_smoke.py`` hold the CUDA kernel
-against the plain version on the card.
+against the plain version on the card.  K9 is forward only, as the
+reference's Pallas path: under grad with an input that requires grad it
+raises (held here on the CPU), and forward-only use runs as before.
 
 Tolerances: fp32 within 1e-5 (the two online softmaxes visit key blocks of
 64 and 128 rows, so they sum in other orders); bf16 within one bf16 ulp of
@@ -19,9 +21,12 @@ import torch
 from repro.kernels.flash_attention import flash_attention_fwd as jfwd
 from repro.kernels.flash_attention_ops import flash_attention as jops
 from repro.kernels.flash_attention_ref import flash_attention_ref as jref
+from repro_torch.configs import registry
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import flash_attention_ops
 from repro_torch.kernels.flash_attention_ref import flash_attention_ref
+from repro_torch.kernels.robust_pipeline import SMEM_LIMIT
+from repro_torch.models.model import build
 
 FP32_ATOL = 1e-5
 
@@ -116,3 +121,85 @@ def test_kv_block_range_is_the_live_band(q0, window, lo_hi):
         live &= cols > rows - window
     tiles = np.nonzero(live.reshape(fa.BLK, -1, fa.BLK).any((0, 2)))[0]
     assert (tiles.min(), tiles.max() + 1) == lo_hi
+
+
+@pytest.mark.parametrize("tile", [fa.BLK, fa.MMA_Q_TILE])
+@pytest.mark.parametrize("S,window", [(77, 0), (200, 0), (200, 64),
+                                      (300, 64), (256, 0)])
+def test_plain_k9_does_not_depend_on_its_q_tile(tile, S, window):
+    """The plain version at the FMA body's 64-row and the tensor-core
+    body's 128-row q tiles (64-key tiles both) against the oracle: the
+    tiles change only the order of the fp32 sums, so it stays the
+    kernel's yardstick after the tile change."""
+    arrays = _qkv(2, S, 6, 2, 64, seed=S + window)
+    t = [torch.from_numpy(a) for a in arrays]
+    out = fa.flash_attention_fwd_plain(*t, causal=True, window=window,
+                                       tile=tile)
+    ref = np.asarray(jref(*[jnp.asarray(a) for a in arrays], causal=True,
+                          window=window))
+    np.testing.assert_allclose(out.numpy(), ref, atol=FP32_ATOL)
+    other = fa.BLK + fa.MMA_Q_TILE - tile
+    np.testing.assert_allclose(
+        out.numpy(), fa.flash_attention_fwd_plain(
+            *t, causal=True, window=window, tile=other).numpy(),
+        atol=FP32_ATOL)
+
+
+def test_plain_k9_takes_the_tiles_of_the_body_the_kernel_takes():
+    assert fa.q_tile(torch.bfloat16, 128) == fa.MMA_Q_TILE
+    assert fa.q_tile(torch.bfloat16, 72) == fa.BLK
+    assert fa.q_tile(torch.float32, 128) == fa.BLK
+    assert fa.tensor_cores(torch.bfloat16, 64)
+    assert not fa.tensor_cores(torch.bfloat16, 40)
+    assert not fa.tensor_cores(torch.float32, 64)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("dh", [64, 128, 256])
+def test_k9_shared_memory_fits(dtype, dh):
+    assert 0 < fa.smem_bytes(dh, dtype) <= SMEM_LIMIT
+
+
+@pytest.mark.parametrize("which", [0, 1, 2])
+@pytest.mark.parametrize("entry", ["fwd", "ops"])
+def test_k9_raises_under_grad(which, entry):
+    """An input that requires grad, with grad enabled, raises on the CPU
+    too (the reference's Pallas path raises under jax.grad); K9 never
+    returns an output that drops the attention's gradient."""
+    t = [torch.from_numpy(a) for a in _qkv(1, 128, 2, 1, 64, seed=2)]
+    t[which].requires_grad_(True)
+    if entry == "ops":
+        t = [x.transpose(1, 2) for x in t]
+        call = flash_attention_ops.flash_attention
+    else:
+        call = fa.flash_attention_fwd
+    with pytest.raises(RuntimeError, match="item g"):
+        call(*t, causal=True)
+    with torch.no_grad():
+        out = call(*t, causal=True)
+    ref = call(*[x.detach() for x in t], causal=True)
+    assert out.grad_fn is None and ref.grad_fn is None
+    torch.testing.assert_close(out, ref, atol=0, rtol=0)
+
+
+def test_transformer_pallas_forward_runs_on_plain_params():
+    """The model's params carry no requires_grad, so the full-sequence
+    forward through K9 at S = 128 runs as before; params that require
+    grad make it raise instead of training without the attention's
+    gradient."""
+    cfg = registry.get_config("minitron-4b").reduced().replace(
+        n_heads=2, n_kv_heads=1, head_dim=128, attn_impl="pallas")
+    model = build(cfg)
+    params = model.init(torch.Generator().manual_seed(0))
+    toks = {"tokens": torch.from_numpy(_tokens(cfg, 2, 128))}
+    out = model.forward(params, toks)
+    assert out.shape[:2] == (2, 128) and bool(torch.isfinite(out).all())
+    for p in params["layers"]["b0"]["attn"].values():
+        p.requires_grad_(True)
+    with pytest.raises(RuntimeError, match="item g"):
+        model.forward(params, toks)
+
+
+def _tokens(cfg, b, s):
+    return np.random.RandomState(0).randint(0, cfg.vocab_size,
+                                            (b, s)).astype(np.int64)

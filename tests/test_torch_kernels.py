@@ -161,3 +161,29 @@ def test_wrappers_refuse_other_devices():
     x = torch.zeros(1, 2, 8, device="meta")
     with pytest.raises(ValueError):
         rp.cosine_gate_partials(x, torch.ones(1, 2, device="meta"))
+
+
+@pytest.mark.parametrize("g,c,n", [(1, 96, 65_573), (1, 16, 421_642),
+                                   (2, 64, 65_573), (1, 80, 421_642),
+                                   (3, 130, 20_011), (1, 5, 1_000),
+                                   (1, 16, 31)])
+def test_gram_split_covers_n_and_fills_the_card(g, c, n):
+    """K3 / K6c's column chunks: a multiple of the stage depth, covering
+    N exactly (the last chunk non-empty), and at the main path's shapes
+    (async Krum past 64 rows, the sync path at C = 16) at least two waves
+    of blocks on the H100's 132 SMs."""
+    nsplit, chunk = rp.gram_split(g, c, n, 132)
+    side, depth = rp.gram_tile(c)
+    assert chunk % depth == 0
+    assert (nsplit - 1) * chunk < n <= nsplit * chunk
+    nt = -(-c // side)
+    blocks = g * nsplit * nt * (nt + 1) // 2
+    if n >= 65_573:
+        assert blocks >= 2 * 132
+    assert rp.gram_split(g, c, n, 132) == (nsplit, chunk)
+
+
+def test_gram_tiles_follow_c():
+    assert rp.gram_tile(16) == (16, 64)
+    assert rp.gram_tile(17) == (32, 32)
+    assert rp.gram_tile(96) == (32, 32)
