@@ -6,8 +6,10 @@
 Phases, one line each (a failure raises, so the exit code is not 0):
   1. card     nvidia-smi's name and power limit, the device, the build of
               every CUDA kernel from src/repro_torch/csrc (nvcc, sm_90a),
-              and ptxas's registers and spills for K9's two bodies and
-              the Gram's (K3 / K6c) instantiations.
+              and ptxas's registers and spills for K9's two bodies, the
+              Gram's (K3 / K6c), the combine's register bodies
+              (``combine_mean``, ``combine_ranks``) and K8's
+              (``pd_kernel<row block, vector, vectors a lane, pool>``).
   2. kernels  each kernel against its plain PyTorch version on the card,
               at the main path's shape (G=1, C=16, N=421,642) and at
               (G=2, C=64, N=65,573) with ragged N, an empty cohort and a
@@ -26,7 +28,11 @@ Phases, one line each (a failure raises, so the exit code is not 0):
               and K6c at C=96 (six 32 x 32 output tiles a split).  Times
               by CUDA events, K3's and K6c's printed beside those of the
               design before the register micro-tiles (GRAM_BEFORE_MS) and,
-              with ``bmm``'s, by torch.profiler (device only).
+              with ``bmm``'s, by torch.profiler (device only).  K2's body in
+              each entry point (K2, K4b, K5, K6b) is also timed device only
+              (``w @ X`` beside the mean) and printed beside the shared-tile
+              design's times (K2_BEFORE_MS); the mean's wrapper is timed on
+              the host over HOST_CALLS calls with no synchronize.
   2b. top-d   K7 (``block_topd``) against its plain version on the card,
               values and indices bitwise, at M=1,000,000/d=64,
               M=16,384/d=16 (the async path's shape), M=10,007/d=64 with
@@ -94,7 +100,10 @@ Phases, one line each (a failure raises, so the exit code is not 0):
               full, one with page + 1 rows, one with 1 row, one inactive,
               which must be exactly 0) and at tiny-lm's dh=64, g=2 with
               pages of 8 and 32, on fp32 and int8 pools and bf16 and fp32
-              queries; K9 (``flash_attention_fwd``, csrc/flash_attention.cu)
+              queries, two calls bitwise equal (the splits merge in a fixed
+              order); K8's times also device only and its wrapper's host
+              time, printed beside the shared-memory design's
+              (K8_BEFORE_MS); K9 (``flash_attention_fwd``, csrc/flash_attention.cu)
               at B=2, Hq=24, Hkv=8, S=1024, dh=128 and at dh=64 with S=384
               and S=200 (ragged), bf16 (the tensor-core body: wgmma, TMA)
               and fp32 (the FMA body), window 0 and 256.  Times by CUDA
@@ -133,7 +142,10 @@ Phases, one line each (a failure raises, so the exit code is not 0):
               step of that cut on the card and on the CPU port within 1e-4
               of the largest logit.  The params and pools are freed.
 The last three lines are the nvidia-smi line, the kernels JSON and the
-result JSON.  Without a CUDA device, or without the repository's
+result JSON.  ``python3 chip_smoke.py --kernels`` runs phases 1, 2, 2b and
+2c alone and ends with the nvidia-smi line and the kernels JSON (launches
+null), with no result line: the quick check of the kernels, and the way to
+time a parent commit's kernels with this script.  Without a CUDA device, or without the repository's
 src/repro_torch beside this file, it exits non-zero and prints no result.
 """
 from __future__ import annotations
@@ -201,6 +213,18 @@ GRAM_WIDE_SHAPE = (1, 96, 65_573)          # K3 / K6c past one 32-row tile
 GRAM_BEFORE_MS = {"pairwise_gram": 0.5213, "dequant_pairwise_gram": 0.7220,
                   "pairwise_gram C=16": 0.0707}
 K9_BEFORE_MS = {0: 1.0381, 256: 0.4915}
+# K8 at phase 2c's timed shape (fp32 / int8 pools) and K2's three modes at
+# SLICE_SHAPE (ranges over several runs) before the register designs, as
+# PERF.md section 6 records them (NVIDIA H100 80GB HBM3, 700 W)
+K8_BEFORE_MS = {"paged_flash_decode": 0.0703,
+                "paged_flash_decode[int8]": 0.0976}
+K2_BEFORE_MS = {"mean": "0.0292-0.0437", "trimmed": "0.0678-0.0694",
+                "median": "0.0670-0.0734"}
+# rows whose device-only time (torch.profiler) phase 2 also records: K2's
+# body in each of its entry points
+DEVICE_TIMED = ("gated_combine", "dequant_gated_combine", "robust_agg_fwd",
+                "gated_combine_flat")
+HOST_CALLS = 1000
 K7_REPLACES = "src/repro/kernels/population_select.py:98"
 # (M, d, blk) of phase 2b; the async path's shape is the second
 TOPD_CASES = ((1_000_000, 64, 4096), (16_384, 16, 4096), (10_007, 64, 4096),
@@ -320,12 +344,31 @@ def device_ms(fn, calls=10):
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    return sum(e.self_device_time_total for e in prof.events()
-               if e.device_type == DeviceType.CUDA) / calls / 1e3
+    for _ in range(3):              # a trace that caught no kernel is retaken
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        total = sum(e.self_device_time_total for e in prof.events()
+                    if e.device_type == DeviceType.CUDA)
+        if total > 0:
+            break
+    return total / calls / 1e3
+
+
+def host_us(fn, calls=HOST_CALLS):
+    """Host time of one wrapper call in microseconds: ``calls`` calls back
+    to back with no synchronize between them (the launches queue on the
+    device), then one synchronize outside the timed loop."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return 1e6 * t / calls
 
 
 def _import_port():
@@ -358,14 +401,22 @@ def _card():
 
 
 def _kernel_name(mangled):
-    """'fa_mma_kernel<2>', 'gram_partials<32, QuantRows>' for the new
-    bodies' mangled names, else None."""
+    """'fa_mma_kernel<2>', 'gram_partials<32, QuantRows>',
+    'combine_ranks<DenseRows, 16, 2, C == B>' (bucket, columns a thread),
+    'pd_kernel<3, 4, 1, int8>' (row block, vector width, vectors a lane,
+    pool) for the register and tensor-core bodies' mangled names, else
+    None."""
     import re
-    m = re.search(r"(fa_mma_kernel|gram_partials)I(\w+?)EEv", mangled)
+    m = re.search(r"(fa_mma_kernel|gram_partials|combine_mean|combine_ranks"
+                  r"|pd_kernel)I(\w+?)EEv", mangled)
     if not m:
         return None
-    args = [t.group(1) or t.group(0) for t in re.finditer(
-        r"Li(\d+)E|DenseRows|QuantRows", m.group(2))]
+    flag = {"pd_kernel": ("fp32", "int8"),              # the pool type
+            "combine_ranks": ("C < B", "C == B")}.get(m.group(1), ("0", "1"))
+    args = [t.group(1) or (flag[int(t.group(0)[2])] if t.group(0)[:2] == "Lb"
+                           else t.group(0))
+            for t in re.finditer(r"Li(\d+)E|DenseRows|QuantRows|Lb[01]",
+                                 m.group(2))]
     return f"{m.group(1)}<{', '.join(args)}>"
 
 
@@ -596,6 +647,10 @@ def _kernels(cnn_sizes):
                            errs[name], kern, plain, lib, nq=layout.n_scales,
                            n_leaves=len(cnn_sizes))
               for name, (kern, plain, lib) in calls.items()]
+    mean = next(e for e in report if e["name"] == "gated_combine[mean]")
+    mean["host_us"] = host_us(calls["gated_combine[mean]"][0])
+    print(f"[kernels] gated_combine[mean] wrapper: {mean['host_us']:.2f} us "
+          f"of host time a call ({HOST_CALLS} calls, no synchronize)")
     k3 = next(e for e in report if e["name"] == "pairwise_gram")
     kern, _, lib = calls["pairwise_gram"]
     k3["device_ms"], k3["library_device_ms"] = device_ms(kern), device_ms(lib)
@@ -629,6 +684,12 @@ def _timed_entry(name, source, shape, err, kern, plain, lib, **work):
     print(f"[kernels] {name} {shape}: {entry['ms']:.4f} ms, plain "
           f"{entry['plain_ms']:.4f} ms, library {entry['library_ms']}, "
           f"bound {bound_ms:.4f} ms ({bound_by})")
+    if base in DEVICE_TIMED:
+        entry["device_ms"] = device_ms(kern)
+        entry["library_device_ms"] = device_ms(lib) if lib else None
+        print(f"[kernels] {name} {shape}: device {entry['device_ms']:.4f} ms "
+              f"(library {entry['library_device_ms']}) against the earlier "
+              f"design's {K2_BEFORE_MS[mode.rstrip(']')]} ms by events")
     return entry
 
 
@@ -1620,10 +1681,15 @@ def _attention_kernels():
                     f"{name} page {page} dh {dh}", out, ref, K8_ATOL))
                 if float(out[3].abs().max()) != 0.0:
                     raise AssertionError(f"{name}: inactive slot not 0")
+                again = pd.paged_flash_decode(qx, *pools, table, lengths,
+                                              **sc)
+                if not torch.equal(out, again):
+                    raise AssertionError(f"{name}: two calls differ")
         torch.cuda.synchronize()
         print(f"[attention] K8 S={SERVE_SLOTS} Hq={hq} Hkv={hkv} dh={dh} "
               f"page {page} maxp {maxp}: fp32 and int8 pools, bf16 and fp32 "
-              "queries agree with the plain version; the inactive slot is 0")
+              "queries agree with the plain version; the inactive slot is 0; "
+              "two calls are bitwise equal")
     for b, hq, hkv, s, dh in ((2, 24, 8, FWD_SEQ, 128), (2, 8, 4, 384, 64),
                               (2, 8, 4, 200, 64)):
         g = torch.Generator(device=DEVICE).manual_seed(s + dh)
@@ -1665,6 +1731,17 @@ def _attention_kernels():
                 q, *pools, table, lengths, **sc), None,
             paged_work(lengths, SERVE_PAGE, SERVE_MAXP, 24, 8, 128, item, 2),
             shape))
+        entry = report[-1]
+        kern = lambda pools=pools, sc=sc: pd.paged_flash_decode(
+            q, *pools, table, lengths, **sc)
+        entry["device_ms"] = device_ms(kern)
+        entry["host_us"] = host_us(kern)
+        before = K8_BEFORE_MS[name]
+        print(f"[attention] {name}: {entry['ms']:.4f} ms against the "
+              f"earlier design's {before} ms ({before / entry['ms']:.1f}x); "
+              f"device {entry['device_ms']:.4f} ms, bound "
+              f"{entry['bound_ms']:.4f} ms; wrapper {entry['host_us']:.2f} us "
+              f"of host time a call ({HOST_CALLS} calls, no synchronize)")
     sdpa = torch.nn.functional.scaled_dot_product_attention
     g = torch.Generator(device=DEVICE).manual_seed(0)
     qkv = [torch.randn(2, h, FWD_SEQ, 128, generator=g, device=DEVICE)
@@ -2069,7 +2146,7 @@ def _forward(box, smi):
     return k9
 
 
-def main():
+def main(argv=()):
     _import_port()
     import torch
     if not torch.cuda.is_available():
@@ -2091,6 +2168,10 @@ def main():
     report += flat_report
     report.append(_topd_checks())
     report += _attention_kernels()
+    if "--kernels" in argv:         # the kernel phases alone: no result line
+        print(smi)
+        print(json.dumps({"kernels": report}))
+        return 0
     fed, test = build_federation(0, kind="images", n=4000, n_clients=16,
                                  batch_size=32)
 
@@ -2119,4 +2200,4 @@ def main():
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -138,12 +138,10 @@ def dequant_gated_combine(q, s, layout, gated_mask, weights, *, mode,
                                            mode=mode, trim_frac=trim_frac)
     ptrs, dims = _quant_args(q, s, layout, gated_mask)
     G, C, N = q.shape
-    if 4 * (C * rp.COLS + 2 * C) > rp.SMEM_LIMIT:
-        raise ValueError(f"C={C}: the (C, {rp.COLS}) tile exceeds shared "
-                         "memory")
+    rp.check_combine_smem(C, N, mode)
     out = torch.empty(G, N, device=q.device)
     rp._launch(_build.load().cc_combine, *ptrs, weights.data_ptr(),
-               out.data_ptr(), *dims, rp.COLS, rp.MODES[mode],
+               out.data_ptr(), *dims, rp.COMBINE_THREADS, rp.MODES[mode],
                float(trim_frac))
     dequant_gated_combine.launches[mode] += 1
     return out

@@ -14,12 +14,11 @@
 // Bound at the main path's shape (G=1, C=16, N=421,642, NQ=3,297): 6.75 MB of
 // codes and 0.21 MB of scales, about 2.1 us at 3.35 TB/s, a quarter of K1's
 // bytes; the rank network's C^2 compares per column come to about as much on
-// the fp32 units.  The design is K1-K3's: one thread per column, byte loads
-// coalesced across a warp (32 neighbouring columns of one client row), one
-// scale lookup per column (the Gram: per column and stage, its stages
-// dequantized through registers).  Vectorised loads are later work:
-// N = 421,642 is 2 mod 4, so the rows of the (C, N) code matrix do not start
-// 4-byte aligned.
+// the fp32 units.  The design is K1-K3's: one thread per column (the combine:
+// per 1, 2 or 4 columns, read as one char / char2 / char4 load of a row, the
+// width that divides N so that every row's loads stay aligned), loads
+// coalesced across a warp, one scale lookup per column (the Gram: per
+// column and stage, its stages dequantized through registers).
 //
 // Each entry point launches on the caller's stream and returns
 // cudaGetLastError(); the Python wrapper raises when it is not 0.

@@ -10,15 +10,16 @@
 //   median   the mean of the rows ranked floor((n-1)/2) and ceil((n-1)/2).
 // No gate and no weights.  These are exactly K2's rank modes (compare
 // _robust_body with robust_pipeline.py:_combine_block), so the entry point
-// runs gated_combine<DenseRows> from robust_pipeline.cuh with the team mask
+// runs launch_combine<DenseRows> from robust_pipeline.cuh with the team mask
 // as both the mask and the (unread) weights: K5 is bitwise K2 under the same
 // mask by construction.  An empty mask gives exactly 0.
 //
 // Bound at the main path's shape (C=16, N=421,642): one read of the 27.0 MB
 // matrix and one write of the (N,) row, about 8.6 us at 3.35 TB/s; the C^2
-// compares per column stay under that on the fp32 units.  Design: K2's, one
-// thread per column over a (C, 128) shared-memory tile, so C is bounded by
-// shared memory (about 450), not by the TPU kernel's C <= 64.
+// compares per column stay under that on the fp32 units.  Design: K2's, each
+// column ranked from registers for C <= 64 and from a (C, 128) shared-memory
+// tile past that, so C is bounded by shared memory (about 450), not by the
+// TPU kernel's C <= 64.
 //
 // Returns cudaGetLastError(); the Python wrapper raises when it is not 0.
 

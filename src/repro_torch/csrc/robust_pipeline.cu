@@ -13,8 +13,10 @@
 // 27.0 MB matrix once, about 8 us at 3.35 TB/s; the rank network's C^2 compares
 // per column and the Gram's C^2 FMAs per column stay under that on the fp32
 // units.  The design keeps the loads coalesced (a warp reads 32 neighbouring
-// columns of one client row) and holds the (C, cols) tile in shared memory so
-// the O(C^2) network reads no device memory.  The Gram multiplies from
+// columns of one client row, or 32 neighbouring vectors of 2 or 4 in the
+// combine) and holds K1's (C, cols) tile in shared memory and the combine's
+// columns in registers, so the O(C^2) network reads no device memory.  The
+// Gram multiplies from
 // register micro-tiles over double-buffered cp.async stages (past C ~ 50 it is
 // bound by operations; robust_pipeline.cuh says how).
 //

@@ -8,7 +8,7 @@
 //              scale, found through the leaf table;
 //              a masked-out row reads as 0
 // Everything after the load (stable_rank, column_median, the pass-1 partial
-// sums, gated_combine's three modes, gram_partials, reduce_partials) is one
+// sums, the combine's three modes, gram_partials, reduce_partials) is one
 // copy.  So K6 on (codes, scales, mask) is bitwise K1-K3 on the fp32 matrix
 // where(mask, q * s, 0), by construction.
 //
@@ -17,6 +17,18 @@
 // cross-block sum is written as per-block partials and summed by a second
 // launch (reduce_partials) in a fixed order.  No float atomics: a run is
 // bitwise repeatable.
+//
+// The combine (K2 / K4b / K5 / K6b) is bound by bytes: one read of the
+// (C, N) matrix, one write of the row.  Its design: a thread owns V
+// consecutive columns (V = 4, 2 or 1, the widest that divides N, so that
+// every row's vector loads are aligned, N being each row's stride) and
+// holds them in registers, with no shared tile and no barrier.  The mean
+// streams the rows, kMeanRows loads in flight a thread.  Trimmed and median
+// load the column's C values once and rank them from registers in a
+// network unrolled over a bucket of 16, 32 or 64 rows (rows past C skipped
+// by a predicate); past 64 rows they keep the (C, cols) shared tile.  Each
+// output is the same arithmetic in the same order on every path, so K4b
+// and K5 are bitwise K2 and K6b bitwise K2 on the masked decode.
 //
 // The Gram (gram_partials, K3 / K4c / K6c) is bound by operations on the
 // fp32 units past C ~ 50 (C (C + 1) / 2 FMAs a column against 4 C bytes) and
@@ -36,6 +48,7 @@ namespace {
 constexpr float kBig = 1e30f;        // masked-out rows rank past every real row
 constexpr int kGramThreads = 64;     // a Gram block: 8 x 8 threads
 constexpr int kReduceThreads = 256;  // 8 warps, one output each
+constexpr int kMeanRows = 4;         // row loads a mean thread has in flight
 
 // fp32 rows: x (G*C, N).  kAsync: the Gram stages them by cp.async.
 struct DenseRows {
@@ -50,6 +63,22 @@ struct DenseRows {
     return x + r * N + col;
   }
   __device__ __forceinline__ bool live(size_t) const { return true; }
+  // V consecutive columns from col (col % V == 0, N % V == 0)
+  template <int V>
+  __device__ __forceinline__ void load_vec(size_t r, int col, const int*,
+                                           float* v) const {
+    const float* p = x + r * N + col;
+    if constexpr (V == 4) {
+      const float4 t = *reinterpret_cast<const float4*>(p);
+      v[0] = t.x; v[1] = t.y; v[2] = t.z; v[3] = t.w;
+    } else if constexpr (V == 2) {
+      const float2 t = *reinterpret_cast<const float2*>(p);
+      v[0] = t.x; v[1] = t.y;
+    } else {
+      v[0] = *p;
+    }
+  }
+  bool aligned(int V) const { return (uintptr_t)x % (4 * V) == 0; }
 };
 
 // int8 codes q (G*C, N) and fp32 scales s (G*C, NQ), laid out leaf after leaf
@@ -83,6 +112,30 @@ struct QuantRows {
   __device__ __forceinline__ float value(size_t r, int col, int sc) const {
     return (float)q[r * N + col] * s[r * NQ + sc];
   }
+  // V consecutive columns from col, column k's scale in column sc[k]: value()
+  // of each, one char4 / char2 load of the codes
+  // (branch-free, so that a thread's row loads all issue before their use;
+  // a masked-out row's codes and scales are read and dropped)
+  template <int V>
+  __device__ __forceinline__ void load_vec(size_t r, int col, const int* sc,
+                                           float* v) const {
+    const bool on = live(r);
+    const int8_t* p = q + r * N + col;
+    float c[V];
+    if constexpr (V == 4) {
+      const char4 t = *reinterpret_cast<const char4*>(p);
+      c[0] = (float)t.x; c[1] = (float)t.y; c[2] = (float)t.z; c[3] = (float)t.w;
+    } else if constexpr (V == 2) {
+      const char2 t = *reinterpret_cast<const char2*>(p);
+      c[0] = (float)t.x; c[1] = (float)t.y;
+    } else {
+      c[0] = (float)*p;
+    }
+    const float* sr = s + r * NQ;
+#pragma unroll
+    for (int k = 0; k < V; ++k) v[k] = on ? c[k] * sr[sc[k]] : 0.f;
+  }
+  bool aligned(int V) const { return (uintptr_t)q % V == 0; }
 };
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -180,27 +233,23 @@ __global__ void pass1_partials(Src src, const float* __restrict__ mask,
   }
 }
 
-// K2/K6b, pass 2: one thread per column writes out[g, col].
-// mode 0 = mean (sum_i w_i x_i), 1 = trimmed, 2 = median (_combine_block).
+// K2/K6b trimmed (mode 1) and median (mode 2) past 64 rows, from the (C,
+// cols) shared tile: one thread per column writes out[g, col]
+// (_combine_block).
 template <class Src>
-__global__ void gated_combine(Src src, const float* __restrict__ mask,
-                              const float* __restrict__ w, float* __restrict__ out,
-                              int C, int N, int mode, float trim_frac) {
+__global__ void combine_tile(Src src, const float* __restrict__ mask,
+                             float* __restrict__ out, int C, int N, int mode,
+                             float trim_frac) {
   extern __shared__ float sm[];
   const int cols = blockDim.x, t = threadIdx.x;
   const int g = blockIdx.y, col = blockIdx.x * cols + t;
   float* tile = sm;               // C * cols
   float* m = tile + C * cols;     // C
-  float* wg = m + C;              // C
-  for (int i = t; i < C; i += cols) wg[i] = w[(size_t)g * C + i];
   const float n = load_tile(src, g, mask + (size_t)g * C, tile, m, C, N,
                             blockIdx.x * cols);
   if (col >= N) return;
   float r;
-  if (mode == 0) {
-    r = 0.f;
-    for (int i = 0; i < C; ++i) r += tile[i * cols + t] * wg[i];
-  } else if (mode == 1) {
+  if (mode == 1) {
     const float tr = floorf(trim_frac * n);
     float s = 0.f;
     for (int i = 0; i < C; ++i) {
@@ -214,6 +263,133 @@ __global__ void gated_combine(Src src, const float* __restrict__ mask,
                       ceilf((n - 1.f) / 2.f));
   }
   out[(size_t)g * N + col] = r;
+}
+
+template <int V>
+__device__ __forceinline__ void store_vec(float* p, const float* v) {
+  if constexpr (V == 4) {
+    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  } else if constexpr (V == 2) {
+    *reinterpret_cast<float2*>(p) = make_float2(v[0], v[1]);
+  } else {
+    *p = v[0];
+  }
+}
+
+// K2/K6b mean (mode 0): a thread owns V consecutive columns and streams the
+// C rows through registers, r += x_i * w_i in row order.
+template <class Src, int V>
+__global__ void combine_mean(Src src, const float* __restrict__ w,
+                             float* __restrict__ out, int C, int N) {
+  const int g = blockIdx.y;
+  const int col = (blockIdx.x * blockDim.x + threadIdx.x) * V;
+  if (col >= N) return;
+  int sc[V];
+#pragma unroll
+  for (int k = 0; k < V; ++k) sc[k] = src.scale_col(col + k);
+  const float* wg = w + (size_t)g * C;
+  const size_t row0 = (size_t)g * C;
+  float r[V];
+#pragma unroll
+  for (int k = 0; k < V; ++k) r[k] = 0.f;
+  for (int i0 = 0; i0 < C; i0 += kMeanRows) {
+    float xv[kMeanRows][V];
+#pragma unroll
+    for (int u = 0; u < kMeanRows; ++u)
+      if (i0 + u < C) src.template load_vec<V>(row0 + i0 + u, col, sc, xv[u]);
+#pragma unroll
+    for (int u = 0; u < kMeanRows; ++u)
+      if (i0 + u < C) {
+        const float wi = __ldg(wg + i0 + u);
+#pragma unroll
+        for (int k = 0; k < V; ++k) r[k] += xv[u][k] * wi;
+      }
+  }
+  store_vec<V>(out + (size_t)g * N + col, r);
+}
+
+// stable_rank from registers: row i's rank among xm[0 .. C-1]; B and i are
+// compile-time after unrolling, so j < i is too.  FULL: C == B, so no row
+// needs the j < C predicate.
+template <int B, bool FULL>
+__device__ __forceinline__ int register_rank(const float (&xm)[B], int i, int C) {
+  const float xi = xm[i];
+  int r = 0;
+#pragma unroll
+  for (int j = 0; j < B; ++j)
+    if (FULL || j < C) r += j < i ? (xm[j] <= xi) : (xm[j] < xi);
+  return r;
+}
+
+// K2/K6b trimmed (mode 1) and median (mode 2) for C <= B: a thread owns V
+// consecutive columns, loads their C values and the mask once into
+// registers and ranks each column there, as stable_rank and column_median
+// do from the tile.
+template <class Src, int B, int V, bool FULL>
+__global__ void combine_ranks(Src src, const float* __restrict__ mask,
+                              float* __restrict__ out, int C, int N, int mode,
+                              float trim_frac) {
+  const int g = blockIdx.y;
+  const int col = (blockIdx.x * blockDim.x + threadIdx.x) * V;
+  if (col >= N) return;
+  int sc[V];
+#pragma unroll
+  for (int k = 0; k < V; ++k) sc[k] = src.scale_col(col + k);
+  const float* mg = mask + (size_t)g * C;
+  const size_t row0 = (size_t)g * C;
+  float x[B][V], mk[B];
+  float n = 0.f;
+#pragma unroll
+  for (int j = 0; j < B; ++j) {
+    if (FULL || j < C) {
+      mk[j] = __ldg(mg + j);
+      src.template load_vec<V>(row0 + j, col, sc, x[j]);
+    } else {
+      mk[j] = 0.f;
+#pragma unroll
+      for (int k = 0; k < V; ++k) x[j][k] = 0.f;
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < B; ++j)
+    if (FULL || j < C) n += mk[j];
+  const float tr = floorf(trim_frac * n);
+  const float lo = floorf((n - 1.f) / 2.f), hi = ceilf((n - 1.f) / 2.f);
+  float r[V];
+#pragma unroll
+  for (int k = 0; k < V; ++k) {
+    float xm[B];                     // x on masked-in rows, kBig elsewhere
+#pragma unroll
+    for (int j = 0; j < B; ++j)
+      xm[j] = (FULL || j < C) && mk[j] > 0.f ? x[j][k] : kBig;
+    int rk[B];
+#pragma unroll
+    for (int i = 0; i < B; ++i)
+      rk[i] = FULL || i < C ? register_rank<B, FULL>(xm, i, C) : 0;
+    if (mode == 1) {
+      float acc = 0.f;
+#pragma unroll
+      for (int i = 0; i < B; ++i)
+        if (FULL || i < C) {
+          const float rf = (float)rk[i];
+          const float keep = (rf >= tr && rf < n - tr) ? mk[i] : 0.f;
+          acc += x[i][k] * keep;
+        }
+      r[k] = acc / fmaxf(n - 2.f * tr, 1.f);
+    } else {
+      float v_lo = 0.f, v_hi = 0.f;
+#pragma unroll
+      for (int i = 0; i < B; ++i)
+        if (FULL || i < C) {
+          const float rf = (float)rk[i];
+          const float v = x[i][k] * mk[i];
+          if (rf == lo) v_lo = v;
+          if (rf == hi) v_hi = v;
+        }
+      r[k] = 0.5f * (v_lo + v_hi);
+    }
+  }
+  store_vec<V>(out + (size_t)g * N + col, r);
 }
 
 // K3/K6c: block (output tile, split s, cohort g) accumulates one tile of the
@@ -435,16 +611,75 @@ int launch_pass1(Src src, const float* mask, float* part, float* out, int G, int
   return (int)cudaGetLastError();
 }
 
-// mask/w (G, C) -> out (G, N).  mode 0 mean, 1 trimmed, 2 median.
+// The combine's plan at (C, N), mode (robust_pipeline.py:combine_plan
+// mirrors it): V, the widest of 4, 2, 1 dividing N (and to which the rows
+// and out are aligned); the mean streams at V; trimmed and median rank in
+// registers over a bucket of 16 rows (V <= 2), 32 or 64 (V = 1), and past
+// 64 rows from the (C, cols) shared tile, one column a thread.
+inline int combine_bucket(int C) {
+  return C <= 16 ? 16 : C <= 32 ? 32 : C <= 64 ? 64 : 0;
+}
+
+template <class Src, int B, int V>
+int launch_ranks_v(Src src, const float* mask, float* out, int G, int C, int N,
+                   int cols, int mode, float trim_frac, cudaStream_t st) {
+  const dim3 grid((N + V * cols - 1) / (V * cols), G);
+  if (C == B)
+    combine_ranks<Src, B, V, true><<<grid, cols, 0, st>>>(src, mask, out, C, N,
+                                                          mode, trim_frac);
+  else
+    combine_ranks<Src, B, V, false><<<grid, cols, 0, st>>>(src, mask, out, C,
+                                                           N, mode, trim_frac);
+  return (int)cudaGetLastError();
+}
+
+template <class Src, int B>
+int launch_ranks(Src src, const float* mask, float* out, int G, int C, int N,
+                 int cols, int v, int mode, float trim_frac, cudaStream_t st) {
+  if constexpr (B == 16) {
+    if (v == 2)
+      return launch_ranks_v<Src, B, 2>(src, mask, out, G, C, N, cols, mode,
+                                       trim_frac, st);
+  }
+  return launch_ranks_v<Src, B, 1>(src, mask, out, G, C, N, cols, mode,
+                                   trim_frac, st);
+}
+
+// mask/w (G, C) -> out (G, N).  mode 0 mean, 1 trimmed, 2 median; cols
+// threads a block.
 template <class Src>
 int launch_combine(Src src, const float* mask, const float* w, float* out, int G,
                    int C, int N, int cols, int mode, float trim_frac, cudaStream_t st) {
-  const size_t smem = sizeof(float) * ((size_t)C * cols + 2 * C);
-  int err = set_smem((const void*)gated_combine<Src>, smem);
+  if (G > 65535 || cols < 32 || cols > 1024) return (int)cudaErrorInvalidValue;
+  int v = N % 4 == 0 ? 4 : N % 2 == 0 ? 2 : 1;
+  while (v > 1 && !(src.aligned(v) && (uintptr_t)out % (4 * v) == 0)) v >>= 1;
+  if (mode == 0) {
+    const dim3 grid((N + v * cols - 1) / (v * cols), G);
+    if (v == 4)
+      combine_mean<Src, 4><<<grid, cols, 0, st>>>(src, w, out, C, N);
+    else if (v == 2)
+      combine_mean<Src, 2><<<grid, cols, 0, st>>>(src, w, out, C, N);
+    else
+      combine_mean<Src, 1><<<grid, cols, 0, st>>>(src, w, out, C, N);
+    return (int)cudaGetLastError();
+  }
+  switch (combine_bucket(C)) {
+    case 16:
+      return launch_ranks<Src, 16>(src, mask, out, G, C, N, cols, v < 2 ? v : 2,
+                                   mode, trim_frac, st);
+    case 32:
+      return launch_ranks<Src, 32>(src, mask, out, G, C, N, cols, 1, mode,
+                                   trim_frac, st);
+    case 64:
+      return launch_ranks<Src, 64>(src, mask, out, G, C, N, cols, 1, mode,
+                                   trim_frac, st);
+  }
+  const size_t smem = sizeof(float) * ((size_t)C * cols + C);
+  int err = set_smem((const void*)combine_tile<Src>, smem);
   if (err) return err;
   const int nblk = (N + cols - 1) / cols;
-  gated_combine<Src><<<dim3(nblk, G), cols, smem, st>>>(src, mask, w, out, C, N, mode,
-                                                         trim_frac);
+  combine_tile<Src><<<dim3(nblk, G), cols, smem, st>>>(src, mask, out, C, N, mode,
+                                                        trim_frac);
   return (int)cudaGetLastError();
 }
 

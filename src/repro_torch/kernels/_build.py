@@ -43,9 +43,9 @@ _SIGNATURES = {
     "ps_block_topd": [_P, _P, _P, _I, _I, _I, _P],
     # x, mask, out, C, N, cols, mode, trim_frac, stream
     "ra_fwd": [_P, _P, _P, _I, _I, _I, _I, _F, _P],
-    # q, kp, vp, ks, vs, table, lengths, out, q_bf16, int8, S, hq, hkv, dh,
-    # page, maxp, scale, stream
-    "pd_decode": [_P] * 8 + [_I] * 8 + [_F, _P],
+    # q, kp, vp, ks, vs, table, lengths, out, part, counter, q_bf16, int8,
+    # S, hq, hkv, dh, page, maxp, splits, chunk, ctas, scale, stream
+    "pd_decode": [_P] * 10 + [_I] * 11 + [_F, _P],
     # q, k, v, o, strides, dtype, B, Hq, Hkv, S, dh, causal, window, scale,
     # stream
     "fa_fwd": [_P] * 5 + [_I] * 8 + [_F, _P],

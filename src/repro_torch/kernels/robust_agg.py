@@ -59,8 +59,8 @@ def robust_agg_fwd(x, mask, *, mode="trimmed", trim_frac=0.2):
     Replaces ``repro/kernels/robust_agg.py:robust_agg_fwd``.  Bound: bytes
     (one read of x, one write of the row; the C^2 compares per column stay
     under it at C = 16).  Design: K2's body (``ra_fwd`` runs
-    ``gated_combine<DenseRows>``): one thread per column ranks it from a
-    (C, 128) shared-memory tile.
+    ``launch_combine<DenseRows>``): columns ranked from registers for
+    C <= 64, from a (C, 128) shared-memory tile past that.
     """
     from repro_torch.kernels import _build, robust_pipeline as rp
     if mode not in MODES:
@@ -71,12 +71,11 @@ def robust_agg_fwd(x, mask, *, mode="trimmed", trim_frac=0.2):
         return robust_agg_fwd_plain(x, mask, mode=mode, trim_frac=trim_frac)
     (mask,) = rp._check_cuda(x[None], mask)
     C, N = x.shape
-    if 4 * (C * rp.COLS + 2 * C) > rp.SMEM_LIMIT:
-        raise ValueError(f"C={C}: the (C, {rp.COLS}) tile exceeds shared "
-                         "memory")
+    rp.check_combine_smem(C, N, mode)
     out = torch.empty(N, device=x.device)
     rp._launch(_build.load().ra_fwd, x.data_ptr(), mask.data_ptr(),
-               out.data_ptr(), C, N, rp.COLS, MODES[mode], float(trim_frac))
+               out.data_ptr(), C, N, rp.COMBINE_THREADS, MODES[mode],
+               float(trim_frac))
     robust_agg_fwd.launches[mode] += 1
     return out
 

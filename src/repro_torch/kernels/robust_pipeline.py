@@ -39,7 +39,8 @@ from repro_torch import tree
 from repro_torch.kernels import _build
 from repro_torch.kernels.robust_agg import _BIG, stable_ranks
 
-COLS = 128              # K1/K2: columns per block, one thread each
+COLS = 128              # K1/K6a: columns per block, one thread each
+COMBINE_THREADS = 128   # K2/K4b/K5/K6b: threads per block
 GRAM_BLOCKS_PER_SM = 4  # K3/K6c: blocks to aim for, 4 a SM of the card
 PLAIN_CHUNK = 8192      # plain versions: columns per step (bounds the
                         # (C, C, chunk) compare tensor)
@@ -94,6 +95,41 @@ def gram_split(g, c, n, sms):
 def sm_count(device):
     """The SM count of a CUDA device, which sizes ``gram_split``."""
     return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def combine_plan(c, n, mode):
+    """(path, vec, bucket) of the combine at (C, N) in ``mode``, as
+    ``launch_combine`` in ``csrc/robust_pipeline.cuh`` picks it for aligned
+    tensors: a thread owns ``vec`` consecutive columns, the widest of 4, 2
+    and 1 that divides N (each row starts N floats after the last, so its
+    vector loads stay aligned).  ``mean`` streams the rows (``stream``);
+    trimmed and median rank each column from registers over a bucket of
+    16 (vec <= 2), 32 or 64 rows (vec 1) (``registers``), and past 64 rows
+    from the (C, COMBINE_THREADS) shared tile, one column a thread
+    (``tile``)."""
+    vec = 4 if n % 4 == 0 else 2 if n % 2 == 0 else 1
+    if mode == "mean":
+        return "stream", vec, 0
+    for bucket in (16, 32, 64):
+        if c <= bucket:
+            return "registers", min(vec, 2) if bucket == 16 else 1, bucket
+    return "tile", 1, 0
+
+
+def combine_smem_bytes(c, n, mode):
+    """Dynamic shared memory of the combine's block: only the tile path
+    has any (the (C, COMBINE_THREADS) tile and the mask)."""
+    if combine_plan(c, n, mode)[0] != "tile":
+        return 0
+    return 4 * (c * COMBINE_THREADS + c)
+
+
+def check_combine_smem(c, n, mode):
+    """Raises where the combine's block at (C, N) would exceed shared
+    memory (trimmed or median past about 450 rows)."""
+    if combine_smem_bytes(c, n, mode) > SMEM_LIMIT:
+        raise ValueError(f"C={c}: the (C, {COMBINE_THREADS}) tile exceeds "
+                         "shared memory")
 
 
 def _dispatch(x):
@@ -201,13 +237,12 @@ def _combine(x, gated_mask, weights, mode, trim_frac, wrapper):
                                    trim_frac=trim_frac)
     gated_mask, weights = _check_cuda(x, gated_mask, weights)
     G, C, N = x.shape
-    if 4 * (C * COLS + 2 * C) > SMEM_LIMIT:
-        raise ValueError(f"C={C}: the (C, {COLS}) tile exceeds shared memory")
+    check_combine_smem(C, N, mode)
     out = torch.empty(G, N, device=x.device)
     lib = _build.load()
     _launch(lib.rp_combine, x.data_ptr(), gated_mask.data_ptr(),
-            weights.data_ptr(), out.data_ptr(), G, C, N, COLS, MODES[mode],
-            float(trim_frac))
+            weights.data_ptr(), out.data_ptr(), G, C, N, COMBINE_THREADS,
+            MODES[mode], float(trim_frac))
     wrapper.launches[mode] += 1
     return out
 
@@ -249,9 +284,11 @@ def gated_combine(x, gated_mask, weights, *, mode, trim_frac=0.2):
     median.
 
     Replaces ``repro/kernels/robust_pipeline.py:gated_combine_leafwise``.
-    Bound: bytes (one read of x, one write of the row).  Design: the K1
-    tiling; ``mean`` skips the rank network; each thread writes its
-    column.  ``.launches`` counts by mode.
+    Bound: bytes (one read of x, one write of the row).  Design: a thread
+    owns 1, 2 or 4 consecutive columns in registers (``combine_plan``):
+    ``mean`` streams the rows with vector loads; trimmed and median load
+    each column's C values once and rank them from registers (C <= 64),
+    else from a (C, 128) shared tile.  ``.launches`` counts by mode.
     """
     return _combine(x, gated_mask, weights, mode, trim_frac, gated_combine)
 

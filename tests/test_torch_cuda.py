@@ -2,8 +2,10 @@
 K6a-c bitwise against K1-K3 on the masked decode, K5 bitwise against K2's
 rank modes, the flat wrappers K4a-c bitwise against K1-K3, K7's candidates
 bitwise against ``block_topd_plain``), the Gram kernels K3 and K6c past 64
-rows, the attention kernels K8 (paged flash-decode) and K9 (flash
-attention), the wrappers' checks and launch counts, a round on the card
+rows, the combine family (K2, K4b, K5, K6b) at every register bucket,
+the shared tile and each alignment of N, the attention kernels K8 (paged
+flash-decode, with slots ending in every split, two calls bitwise equal)
+and K9 (flash attention), the wrappers' checks and launch counts, a round on the card
 (dense, int8 and buffered-async) against the same round on the CPU, and
 the tiny-lm serving engine on the card against the CPU port's tokens.
 Needs a CUDA device; skips without one.  Imports no jax, so it runs where
@@ -427,6 +429,114 @@ def test_paged_decode_wrapper_checks_and_counts(card):
     with pytest.raises(ValueError):
         pd.paged_flash_decode(q, kp, vp, table, lengths[:3])
     assert sum(pd.launch_counts().values()) == 2
+
+
+def _split_case(card, g, dh, page, hkv=1, s=40, keys=512, seed=0):
+    """Pools, a permuted table and lengths that end in every work item a
+    slot can have (``decode_splits`` at this card's SM count), at an
+    item's first key and at its last, plus an inactive slot (slot 0)."""
+    maxp = keys // page
+    sms = torch.cuda.get_device_properties(card).multi_processor_count
+    splits, chunk, _ = pd.decode_splits(maxp, page, sms, s, hkv)
+    assert s >= 2 * splits + 1
+    rng = np.random.default_rng(seed)
+    n = s * maxp + 2
+    hq = g * hkv
+    q = rng.standard_normal((s, hq, dh), np.float32)
+    kp = rng.standard_normal((n, page, hkv, dh), np.float32)
+    vp = rng.standard_normal((n, page, hkv, dh), np.float32)
+    table = rng.permutation(n)[:s * maxp].reshape(s, maxp).astype(np.int32)
+    ends = [0] + [k * chunk + 1 for k in range(splits)] \
+        + [min((k + 1) * chunk, keys) for k in range(splits)]
+    ends += list(rng.integers(1, keys + 1, s - len(ends)))
+    lengths = np.asarray(ends, np.int32)
+    return [torch.from_numpy(a).to(card)
+            for a in (q, kp, vp, table, lengths)] + [splits]
+
+
+@pytest.mark.parametrize("page", [1, 16, 32])
+@pytest.mark.parametrize("g,dh", [(3, 128), (1, 256), (8, 64), (12, 64),
+                                  (2, 50), (3, 51)])
+def test_paged_decode_every_split_count(card, g, dh, page):
+    """K8 against its plain version (atol 2e-5) with slots ending in each
+    work item, on fp32 and int8 pools with fp32 and bf16 queries, the item
+    counters back at 0 after each launch: the register row blocks of 1, 3
+    and 8 rows (and two of 8 at g = 12), dh of 256,
+    128, 64, 50 (char2 / float2 rows) and 51 (scalar rows), pages of 1,
+    16 and 32; the inactive slot exactly 0."""
+    q, kp, vp, table, lengths, splits = _split_case(card, g, dh, page)
+    assert splits > 1
+    kq, ks = _paged_quant(kp)
+    vq, vs = _paged_quant(vp)
+    for qx in (q, q.bfloat16()):
+        for pools, sc in (((kp, vp), {}),
+                          ((kq, vq), dict(k_scale=ks, v_scale=vs))):
+            out = pd.paged_flash_decode(qx, *pools, table, lengths, **sc)
+            ref = pd.paged_flash_decode_plain(qx, *pools, table, lengths,
+                                              **sc)
+            torch.testing.assert_close(out, ref, atol=2e-5, rtol=0)
+            assert float(out[0].abs().max()) == 0.0
+            assert int(pd._COUNTERS[q.device].abs().sum()) == 0
+
+
+def test_paged_decode_calls_are_bitwise_equal(card):
+    """The partials merge in a fixed order (warps, then items), so two
+    calls on the same inputs give the same bits, on fp32 and int8 pools,
+    at the serving shape and at one with 16 items a slot."""
+    cases = [_paged(card, s=16, maxp=24)[:5],
+             _split_case(card, 3, 128, 16)[:5]]
+    for q, kp, vp, table, lengths in cases:
+        kq, ks = _paged_quant(kp)
+        vq, vs = _paged_quant(vp)
+        for pools, sc in (((kp, vp), {}),
+                          ((kq, vq), dict(k_scale=ks, v_scale=vs))):
+            a = pd.paged_flash_decode(q.bfloat16(), *pools, table, lengths,
+                                      **sc)
+            b = pd.paged_flash_decode(q.bfloat16(), *pools, table, lengths,
+                                      **sc)
+            assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("nmod", [0, 1, 2, 3])
+@pytest.mark.parametrize("c", [1, 16, 48, 96, 130])
+def test_combine_family_every_bucket_and_alignment(card, c, nmod):
+    """K2, K4b, K5 and K6b in each mode at C in {1, 16, 48, 96, 130} (the
+    16, 64 register buckets and the shared tile) and N = 0, 1, 2, 3 mod 4
+    (float4 / float2 / scalar rows): K2 and K6b against their plain
+    versions (the median bitwise, sums rtol 1e-5), K4b and K5 bitwise K2,
+    and K6b bitwise K2 on the masked decode over leaves whose boundaries
+    cut a vector group (7,001 and 7,006) and whose quant blocks do too."""
+    n = 20_000 + nmod
+    rng = np.random.default_rng(c + nmod)
+    x = torch.from_numpy(rng.standard_normal((2, c, n), np.float32) * 1e-2)
+    m = torch.ones(2, c)
+    m[0, ::3] = 0.0
+    if c == 1:
+        m[0] = 1.0
+    w = m * torch.from_numpy(rng.uniform(0.1, 1.0, (2, c)).astype(np.float32))
+    w = w / w.sum(1, keepdim=True)
+    x, m, w = x.to(card), m.to(card), w.to(card)
+    layout = codecs.WireLayout((7_001, 5, n - 7_006), 128)
+    enc = codecs.Codec("int8").encode_flat(x.reshape(2 * c, n), layout)
+    q, sc = enc.q.view(2, c, n), enc.s.view(2, c, -1)
+    xm = dq.dequant_masked(q, sc, layout, m)
+    for mode in rp.MODES:
+        wm = w if mode == "mean" else m
+        out = rp.gated_combine(x, m, wm, mode=mode)
+        ref = rp.gated_combine_plain(x, m, wm, mode=mode)
+        k6 = dq.dequant_gated_combine(q, sc, layout, m, wm, mode=mode)
+        k6_ref = dq.dequant_gated_combine_plain(q, sc, layout, m, wm,
+                                                mode=mode)
+        if mode == "median":
+            assert torch.equal(out, ref)
+            assert torch.equal(k6, k6_ref)
+        else:
+            torch.testing.assert_close(out, ref, rtol=1e-5, atol=1e-6)
+            torch.testing.assert_close(k6, k6_ref, rtol=1e-5, atol=1e-6)
+        _bitwise(rp.gated_combine_flat(x, m, wm, mode=mode), out)
+        _bitwise(k6, rp.gated_combine(xm, m, wm, mode=mode))
+        if mode != "mean":
+            _bitwise(ra.robust_agg_fwd(x[0], m[0], mode=mode), out[0])
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

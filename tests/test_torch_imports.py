@@ -118,3 +118,42 @@ def test_chip_smoke_fails_without_cuda_or_repo(alone, tmp_path):
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode != 0
     assert '"ok"' not in proc.stdout
+
+
+def test_chip_smoke_names_the_register_bodies_in_ptxas_report():
+    """``chip_smoke.py`` phase 1 turns nvcc's -Xptxas -v output into one
+    line a register body: K8 by row block, vector, vectors a lane and
+    pool; the combine's rank network by bucket, columns a thread and
+    whether C fills the bucket; registers and spills as ptxas printed
+    them."""
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke
+    entries = {
+        "_ZN12_GLOBAL__N_19pd_kernelILi3ELi4ELi1EfLb0EEEvPKvPKT2_": (96, 0),
+        "_ZN12_GLOBAL__N_19pd_kernelILi8ELi4ELi1EaLb1EEEvPKvPKT2_": (128, 0),
+        "_ZN12_GLOBAL__N_113combine_ranksINS_9DenseRowsELi16ELi2ELb1EEEvT_":
+            (79, 0),
+        "_ZN12_GLOBAL__N_113combine_ranksINS_9QuantRowsELi64ELi1ELb0EEEvT_":
+            (255, 12),
+        "_ZN12_GLOBAL__N_112combine_meanINS_9QuantRowsELi2EEEvT_PKfPfii":
+            (48, 0),
+        "_ZN12_GLOBAL__N_114reduce_partialsEPKfPfii": (20, 0),
+    }
+    log = "".join(
+        f"ptxas info    : Compiling entry function '{name}' for 'sm_90a'\n"
+        f"ptxas info    : Function properties for {name}\n"
+        f"    0 bytes stack frame, {spill} bytes spill stores, {spill} bytes "
+        f"spill loads\nptxas info    : Used {regs} registers, 400 bytes "
+        "cmem[0]\n" for name, (regs, spill) in entries.items())
+    assert chip_smoke.ptxas_report(log) == {
+        "combine_mean<QuantRows, 2>":
+            "48 registers, 0 B spill stores, 0 B spill loads",
+        "combine_ranks<DenseRows, 16, 2, C == B>":
+            "79 registers, 0 B spill stores, 0 B spill loads",
+        "combine_ranks<QuantRows, 64, 1, C < B>":
+            "255 registers, 12 B spill stores, 12 B spill loads",
+        "pd_kernel<3, 4, 1, fp32>":
+            "96 registers, 0 B spill stores, 0 B spill loads",
+        "pd_kernel<8, 4, 1, int8>":
+            "128 registers, 0 B spill stores, 0 B spill loads",
+    }

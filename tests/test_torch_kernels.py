@@ -187,3 +187,58 @@ def test_gram_tiles_follow_c():
     assert rp.gram_tile(16) == (16, 64)
     assert rp.gram_tile(17) == (32, 32)
     assert rp.gram_tile(96) == (32, 32)
+
+
+@pytest.mark.parametrize("n,vec", [(421_644, 4), (421_642, 2), (421_641, 1),
+                                   (421_643, 1), (8, 4)])
+@pytest.mark.parametrize("c,path,bucket", [
+    (1, "registers", 16), (16, "registers", 16), (17, "registers", 32),
+    (32, "registers", 32), (48, "registers", 64), (64, "registers", 64),
+    (65, "tile", 0), (96, "tile", 0), (130, "tile", 0)])
+def test_combine_plan_follows_c_and_n(c, path, bucket, n, vec):
+    """The combine's vector width is the widest of 4, 2, 1 dividing N (so
+    every row of the (C, N) matrix starts aligned to it); the mean streams
+    at that width for any C; trimmed and median rank in registers over the
+    smallest bucket of 16, 32, 64 holding C (2 columns a thread at most in
+    the 16 bucket, 1 past it) and past 64 rows from the shared tile."""
+    assert rp.combine_plan(c, n, "mean") == ("stream", vec, 0)
+    rank_vec = {"registers": min(vec, 2) if bucket == 16 else 1,
+                "tile": 1}[path]
+    for mode in ("trimmed", "median"):
+        assert rp.combine_plan(c, n, mode) == (path, rank_vec, bucket)
+        assert n % rank_vec == 0
+
+
+@pytest.mark.parametrize("c", [1, 16, 64, 65, 130, 450, 451])
+def test_combine_smem_follows_the_tile(c):
+    """Only the tile path has shared memory, the (C, COMBINE_THREADS) tile
+    plus the mask; the check raises past the card's limit."""
+    for mode in rp.MODES:
+        want = 4 * (c * rp.COMBINE_THREADS + c) if c > 64 \
+            and mode != "mean" else 0
+        assert rp.combine_smem_bytes(c, 1000, mode) == want
+        if want > rp.SMEM_LIMIT:
+            with pytest.raises(ValueError):
+                rp.check_combine_smem(c, 1000, mode)
+        else:
+            rp.check_combine_smem(c, 1000, mode)
+
+
+def test_register_rank_rule_is_the_stable_rank():
+    """The register network's rule, (xm_j <= xm_i) for j < i and
+    (xm_j < xm_i) for j > i, gives ``stable_ranks`` exactly, with ties,
+    masked rows at 1e30, infinities and a NaN."""
+    rng = np.random.default_rng(3)
+    xm = rng.integers(0, 4, (11, 200)).astype(np.float32)
+    xm[2] = 1e30
+    xm[4, :50] = np.inf
+    xm[5, :30] = -np.inf
+    xm[6, 7] = np.nan
+    c = xm.shape[0]
+    rule = np.zeros(xm.shape, np.int64)
+    for i in range(c):
+        for j in range(c):
+            if j != i:
+                rule[i] += xm[j] <= xm[i] if j < i else xm[j] < xm[i]
+    np.testing.assert_array_equal(robust_agg.stable_ranks(_t(xm)).numpy(),
+                                  rule)

@@ -116,3 +116,82 @@ def test_bf16_queries_and_launch_counter_on_cpu():
     torch.testing.assert_close(out, ref, atol=FP32_ATOL, rtol=0)
     assert pd.launch_counts() == {"paged_flash_decode": 0,
                                   "paged_flash_decode[int8]": 0}
+
+
+@pytest.mark.parametrize("maxp,page,sms,s,hkv", [
+    (24, 16, 132, 16, 8),        # the serving shape: 12 items, 82 CTAs a head
+    (24, 16, 132, 1, 8),         # one slot: a CTA an item
+    (2, 16, 132, 5, 2),          # 32 positions: one item
+    (3, 1, 132, 64, 8),          # fewer positions than SPLIT_KEYS
+    (37, 7, 132, 3, 4),          # a ragged last item
+    (512, 16, 132, 1, 1),        # a long context: 256 items on 256 CTAs
+    (24, 16, 8, 64, 8),          # a small card: 5 CTAs a head
+])
+def test_decode_splits_cover_every_key_once(maxp, page, sms, s, hkv):
+    """K8's work items: every key position 0 .. maxp * page - 1 in exactly
+    one of a slot's ``splits`` items of ``chunk`` positions, none empty at
+    full length; the grid no larger than CTAS_PER_SM CTAs a SM over the
+    heads, nor than the items of S full slots."""
+    splits, chunk, ctas = pd.decode_splits(maxp, page, sms, s, hkv)
+    total = maxp * page
+    owner = np.concatenate([np.full(min(chunk, total - k * chunk), k)
+                            for k in range(splits)])
+    np.testing.assert_array_equal(np.sort(owner), owner)
+    assert owner.shape == (total,)
+    assert all((owner == k).sum() > 0 for k in range(splits))
+    assert (splits - 1) * chunk < total <= splits * chunk
+    assert chunk == min(pd.SPLIT_KEYS, total)
+    assert 1 <= ctas <= s * splits
+    assert ctas == 1 or ctas * hkv <= pd.CTAS_PER_SM * sms
+    assert pd.decode_splits(maxp, page, sms, s, hkv) == (splits, chunk, ctas)
+
+
+def _sub_ranges(maxp, cuts):
+    edges = [0, *cuts, maxp]
+    return [range(a, b) for a, b in zip(edges, edges[1:])]
+
+
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("cuts", [(1,), (2, 3), (1, 2, 3, 4, 5)])
+def test_split_merge_matches_whole_range(cuts, int8):
+    """The log-sum-exp merge of K8's split partials, in torch ops: the
+    plain online softmax over page sub-ranges, merged in order, matches the
+    whole-range plain output within 1e-6 (a sub-range past a slot's length
+    adds nothing; the inactive slot stays exactly 0)."""
+    q, kp, vp, table, lengths = _t(*_paged(31, 6, 6, 8, 6, 2, 64))
+    sc = {}
+    if int8:
+        kp, ks = _paged_quant(kp)
+        vp, vs = _paged_quant(vp)
+        sc = dict(k_scale=ks, v_scale=vs)
+    whole = pd.paged_flash_decode_plain(q, kp, vp, table, lengths, **sc)
+    parts = [pd.paged_decode_partials_plain(q, kp, vp, table, lengths, r,
+                                            **sc)
+             for r in _sub_ranges(table.shape[1], cuts)]
+    merged = pd.merge_split_partials_plain(parts, lengths)
+    torch.testing.assert_close(merged, whole, atol=1e-6, rtol=0)
+    assert float(merged[3].abs().max()) == 0.0
+
+
+def test_split_merge_matches_pallas():
+    """The merge the kernel implements against the Pallas kernel in
+    interpret mode, at a shape where slots end in every split."""
+    args = _paged(77, 5, 4, 16, 6, 2, 128)
+    q, kp, vp, table, lengths = _t(*args)
+    parts = [pd.paged_decode_partials_plain(q, kp, vp, table, lengths, r)
+             for r in _sub_ranges(4, (1, 3))]
+    merged = pd.merge_split_partials_plain(parts, lengths)
+    kern = np.asarray(jdecode(*_j(*args), interpret=True))
+    np.testing.assert_allclose(merged.numpy(), kern, atol=FP32_ATOL)
+
+
+@pytest.mark.parametrize("g,rows", [(1, 1), (2, 2), (3, 3), (4, 4), (5, 8),
+                                    (8, 8), (12, 8)])
+def test_row_block_and_smem_follow_the_layout(g, rows):
+    """A K8 CTA holds its row block (the group up to 8 rows) and keeps, a
+    warp, (m, l) and acc of each row in shared memory, fp32, plus the
+    last-item flag; the widest legal case fits under the card's limit."""
+    assert pd.row_block(g) == rows
+    for dh in (50, 64, 128, 256):
+        assert pd.smem_bytes(g, dh) == 4 * pd.WARPS * rows * (dh + 2) + 4
+    assert pd.smem_bytes(8, 256) <= pd.SMEM_LIMIT
