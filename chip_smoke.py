@@ -8,7 +8,9 @@ Phases, one line each (a failure raises, so the exit code is not 0):
               every CUDA kernel from src/repro_torch/csrc (nvcc, sm_90a),
               and ptxas's registers and spills for K9's two bodies, the
               Gram's (K3 / K6c), the combine's register bodies
-              (``combine_mean``, ``combine_ranks``) and K8's
+              (``combine_mean``, ``combine_ranks``), pass 1's
+              (``pass1_ranks<source, bucket, columns a thread, loads>``,
+              and ``pass1_partials<source>`` past 64 rows) and K8's
               (``pd_kernel<row block, vector, vectors a lane, pool>``).
   2. kernels  each kernel against its plain PyTorch version on the card,
               at the main path's shape (G=1, C=16, N=421,642) and at
@@ -32,7 +34,18 @@ Phases, one line each (a failure raises, so the exit code is not 0):
               each entry point (K2, K4b, K5, K6b) is also timed device only
               (``w @ X`` beside the mean) and printed beside the shared-tile
               design's times (K2_BEFORE_MS); the mean's wrapper is timed on
-              the host over HOST_CALLS calls with no synchronize.
+              the host over HOST_CALLS calls with no synchronize.  Pass 1
+              (K1, K4a, K6a) at C on both sides of each register bucket's
+              edge and past 64 rows (1-130) and N = 0-3 mod 4, in a cohort
+              with a masked-out row and ties, an empty and a lone one, and
+              on unaligned copies of its inputs: K1 and K6a against their
+              plain versions, K4a bitwise K1, K6a bitwise K1 on the masked
+              decode, two calls bitwise equal; then a masked-out row of inf
+              and a masked-in NaN (``repro_torch.kernels.pass1_checks``,
+              the card tests' own cases).  K1, K4a and K6a
+              are timed device only beside the shared-tile design's device
+              times (K1_BEFORE_MS), and K1 also at the async path's 48
+              rows.
   2b. top-d   K7 (``block_topd``) against its plain version on the card,
               values and indices bitwise, at M=1,000,000/d=64,
               M=16,384/d=16 (the async path's shape), M=10,007/d=64 with
@@ -145,8 +158,10 @@ The last three lines are the nvidia-smi line, the kernels JSON and the
 result JSON.  ``python3 chip_smoke.py --kernels`` runs phases 1, 2, 2b and
 2c alone and ends with the nvidia-smi line and the kernels JSON (launches
 null), with no result line: the quick check of the kernels, and the way to
-time a parent commit's kernels with this script.  Without a CUDA device, or without the repository's
-src/repro_torch beside this file, it exits non-zero and prints no result.
+time a parent commit's kernels (that commit's own script, run from a
+``git archive`` of it).  Without a CUDA device, or without the
+repository's src/repro_torch beside this file, it exits non-zero and
+prints no result.
 """
 from __future__ import annotations
 
@@ -220,10 +235,23 @@ K8_BEFORE_MS = {"paged_flash_decode": 0.0703,
                 "paged_flash_decode[int8]": 0.0976}
 K2_BEFORE_MS = {"mean": "0.0292-0.0437", "trimmed": "0.0678-0.0694",
                 "median": "0.0670-0.0734"}
-# rows whose device-only time (torch.profiler) phase 2 also records: K2's
-# body in each of its entry points
+# K1 / K4a / K6a at SLICE_SHAPE and K1 at ASYNC_K1_SHAPE on the shared-tile
+# design, device only (torch.profiler), as PERF.md section 6 records them
+# (NVIDIA H100 80GB HBM3, 700 W)
+K1_BEFORE_MS = {"cosine_gate_partials": "0.0881-0.0882",
+                "cosine_gate_partials_flat": "0.0795-0.0880",
+                "dequant_gate_partials": "0.0930-0.0931",
+                "cosine_gate_partials C=48": "0.6021-0.6024"}
+# rows whose device-only time (torch.profiler) phase 2 also records: the
+# pass-1 body and K2's in each of their entry points
 DEVICE_TIMED = ("gated_combine", "dequant_gated_combine", "robust_agg_fwd",
-                "gated_combine_flat")
+                "gated_combine_flat", "cosine_gate_partials",
+                "cosine_gate_partials_flat", "dequant_gate_partials")
+# pass 1 at the async path's C + B = 48 rows
+ASYNC_K1_SHAPE = (1, 48, 421_642)
+# pass 1's checks: C on both sides of each register bucket's edge and past
+# 64 rows (the shared tile)
+PASS1_EDGES = (1, 16, 17, 32, 33, 48, 64, 65, 130)
 HOST_CALLS = 1000
 K7_REPLACES = "src/repro/kernels/population_select.py:98"
 # (M, d, blk) of phase 2b; the async path's shape is the second
@@ -403,16 +431,20 @@ def _card():
 def _kernel_name(mangled):
     """'fa_mma_kernel<2>', 'gram_partials<32, QuantRows>',
     'combine_ranks<DenseRows, 16, 2, C == B>' (bucket, columns a thread),
-    'pd_kernel<3, 4, 1, int8>' (row block, vector width, vectors a lane,
-    pool) for the register and tensor-core bodies' mangled names, else
-    None."""
+    'pass1_ranks<QuantRows, 16, 2, vector>' (bucket, columns a thread,
+    loads), 'pass1_partials<DenseRows>' (pass 1's shared tile, past 64
+    rows), 'pd_kernel<3, 4, 1, int8>' (row block, vector width, vectors a
+    lane, pool) for the register and tensor-core bodies' mangled names,
+    else None."""
     import re
     m = re.search(r"(fa_mma_kernel|gram_partials|combine_mean|combine_ranks"
-                  r"|pd_kernel)I(\w+?)EEv", mangled)
+                  r"|pass1_ranks|pass1_partials|pd_kernel)I(\w+?)EEv",
+                  mangled)
     if not m:
         return None
     flag = {"pd_kernel": ("fp32", "int8"),              # the pool type
-            "combine_ranks": ("C < B", "C == B")}.get(m.group(1), ("0", "1"))
+            "combine_ranks": ("C < B", "C == B"),
+            "pass1_ranks": ("scalar", "vector")}.get(m.group(1), ("0", "1"))
     args = [t.group(1) or (flag[int(t.group(0)[2])] if t.group(0)[:2] == "Lb"
                            else t.group(0))
             for t in re.finditer(r"Li(\d+)E|DenseRows|QuantRows|Lb[01]",
@@ -422,8 +454,8 @@ def _kernel_name(mangled):
 
 def ptxas_report(log):
     """{kernel: "R registers, S B spill stores, L B spill loads[; note]"}
-    for K9's tensor-core body and the Gram's instantiations, from nvcc's
-    -Xptxas -v output (a note where ptxas serialized wgmma)."""
+    for the bodies ``_kernel_name`` names, from nvcc's -Xptxas -v output (a
+    note where ptxas serialized wgmma)."""
     import re
     out, name = {}, None
     for line in log.splitlines():
@@ -606,6 +638,7 @@ def _kernels(cnn_sizes):
               "all kernels agree with their plain versions; K6a-c on "
               f"{len(sizes)} leaves are bitwise K1-K3 on the masked decode")
     _inf_scale_check([normal, normal])
+    _pass1_checks(errs)
 
     g, c, n = SLICE_SHAPE
     x, m, w = _inputs(SLICE_SHAPE, 0, [[1.0] * c])
@@ -651,6 +684,8 @@ def _kernels(cnn_sizes):
     mean["host_us"] = host_us(calls["gated_combine[mean]"][0])
     print(f"[kernels] gated_combine[mean] wrapper: {mean['host_us']:.2f} us "
           f"of host time a call ({HOST_CALLS} calls, no synchronize)")
+    k1 = next(e for e in report if e["name"] == "cosine_gate_partials")
+    k1["c48"] = _pass1_c48()
     k3 = next(e for e in report if e["name"] == "pairwise_gram")
     kern, _, lib = calls["pairwise_gram"]
     k3["device_ms"], k3["library_device_ms"] = device_ms(kern), device_ms(lib)
@@ -689,7 +724,64 @@ def _timed_entry(name, source, shape, err, kern, plain, lib, **work):
         entry["library_device_ms"] = device_ms(lib) if lib else None
         print(f"[kernels] {name} {shape}: device {entry['device_ms']:.4f} ms "
               f"(library {entry['library_device_ms']}) against the earlier "
-              f"design's {K2_BEFORE_MS[mode.rstrip(']')]} ms by events")
+              f"design's {_before_ms(name)}")
+    return entry
+
+
+def _before_ms(name):
+    """The earlier design's time of a DEVICE_TIMED row, as PERF.md
+    records it."""
+    base, _, mode = name.partition("[")
+    if base in K1_BEFORE_MS:
+        return f"{K1_BEFORE_MS[base]} ms device only"
+    return f"{K2_BEFORE_MS[mode.rstrip(']')]} ms by events"
+
+
+def _pass1_checks(errs):
+    """Phase 2: pass 1 at C on both sides of each register bucket's edge
+    and past 64 rows, N = 0-3 mod 4, aligned and not, then non-finite rows
+    (``repro_torch.kernels.pass1_checks``, the card tests' own cases)."""
+    import torch
+    from repro_torch.kernels import pass1_checks
+    for c in PASS1_EDGES:
+        for nmod in range(4):
+            for key, e in pass1_checks.edge_case(c, nmod, DEVICE).items():
+                errs[key] = max(errs.get(key, 0.0), e)
+    torch.cuda.synchronize()
+    print(f"[kernels] pass 1 at C={list(PASS1_EDGES)}, N=20,000-20,003, "
+          "aligned and not: K1 and K6a agree with their plain versions, K4a "
+          "bitwise K1, K6a bitwise K1 on the masked decode, repeatable")
+    for c in (16, 48):
+        for key, e in pass1_checks.nonfinite(c, DEVICE).items():
+            errs[key] = max(errs.get(key, 0.0), e)
+        torch.cuda.synchronize()
+        print(f"[kernels] pass 1 (3, {c}, 20003) non-finite: a dead row of "
+              "inf never reaches the median, a live NaN only its own row "
+              "(the lone cohort's as the plain version's), K6a bitwise K1, "
+              "repeatable")
+
+
+def _pass1_c48():
+    """K1 at the async path's 48 rows (8 masked out) against its plain
+    version; its times and bound."""
+    from repro_torch.kernels import robust_pipeline as rp
+    g, c, n = ASYNC_K1_SHAPE
+    x, m, _ = _inputs(ASYNC_K1_SHAPE, c,
+                      [[float(i % 6 != 5) for i in range(c)]])
+    err = max(_check(f"cosine_gate_partials/{part} {ASYNC_K1_SHAPE}", o, r,
+                     rel=NSUM_REL)
+              for part, o, r in zip(("dots", "sqnorms", "refsq"),
+                                    rp.cosine_gate_partials(x, m),
+                                    rp.cosine_gate_partials_plain(x, m)))
+    kern = lambda: rp.cosine_gate_partials(x, m)
+    b, by = bound(*kernel_work("cosine_gate_partials", g, c, n))
+    entry = {"shape": list(ASYNC_K1_SHAPE), "max_abs_err": err,
+             "ms": time_ms(kern),
+             "plain_ms": time_ms(lambda: rp.cosine_gate_partials_plain(x, m)),
+             "bound_ms": b, "bound_by": by, "device_ms": device_ms(kern)}
+    print(f"[kernels] cosine_gate_partials {ASYNC_K1_SHAPE}: {entry}; device "
+          f"against the earlier design's "
+          f"{K1_BEFORE_MS['cosine_gate_partials C=48']} ms")
     return entry
 
 

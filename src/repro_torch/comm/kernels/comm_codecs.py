@@ -103,22 +103,17 @@ def dequant_gate_partials(q, s, layout, mask):
     Replaces ``repro/comm/kernels/comm_codecs.py:dequant_gate_partials``.
     Bound: operations at the main path's shape (the C^2 compares per column
     and the dequant multiplies just outweigh one byte a code plus the
-    scales, a quarter of K1's read).  Design: K1's kernel with the int8
-    row source."""
+    scales, a quarter of K1's read).  Design: K1's kernel and plan
+    (``robust_pipeline.pass1_plan``) with the int8 row source: one char2
+    (or char) load of a row's codes, a scale load a column, the mask read
+    once a row."""
     (mask,) = _check(q, s, layout, mask)
     if not rp._dispatch(q):
         return dequant_gate_partials_plain(q, s, layout, mask)
     ptrs, dims = _quant_args(q, s, layout, mask)
-    G, C, N = q.shape
-    if 4 * (C * rp.COLS + rp.COLS + C) > rp.SMEM_LIMIT:
-        raise ValueError(f"C={C}: the (C, {rp.COLS}) tile exceeds shared "
-                         "memory")
-    part = torch.empty(G, rp._cdiv(N, rp.COLS), 2 * C + 1, device=q.device)
-    out = torch.empty(G, 2 * C + 1, device=q.device)
-    rp._launch(_build.load().cc_pass1, *ptrs, part.data_ptr(), out.data_ptr(),
-               *dims, rp.COLS)
+    out = rp.launch_pass1(_build.load().cc_pass1, ptrs, dims, q.device)
     dequant_gate_partials.launches += 1
-    return out[:, :C], out[:, C:2 * C], out[:, 2 * C:]
+    return out
 
 
 def dequant_gated_combine(q, s, layout, gated_mask, weights, *, mode,

@@ -14,11 +14,12 @@
 // Bound at the main path's shape (G=1, C=16, N=421,642, NQ=3,297): 6.75 MB of
 // codes and 0.21 MB of scales, about 2.1 us at 3.35 TB/s, a quarter of K1's
 // bytes; the rank network's C^2 compares per column come to about as much on
-// the fp32 units.  The design is K1-K3's: one thread per column (the combine:
-// per 1, 2 or 4 columns, read as one char / char2 / char4 load of a row, the
-// width that divides N so that every row's loads stay aligned), loads
-// coalesced across a warp, one scale lookup per column (the Gram: per
-// column and stage, its stages dequantized through registers).
+// the fp32 units.  The design is K1-K3's: a thread owns 1, 2 or 4
+// consecutive columns (pass 1: 2 in the 16-row bucket when N is even) and
+// reads each row of them as one char / char2 / char4 load, the mask once a
+// row; loads coalesced across a warp, one scale lookup per column (the Gram:
+// per column and stage, its stages dequantized through registers).  Pass 1
+// past 64 rows keeps one thread a column and three loads an element.
 //
 // Each entry point launches on the caller's stream and returns
 // cudaGetLastError(); the Python wrapper raises when it is not 0.
@@ -28,13 +29,13 @@
 extern "C" {
 
 // q (G, C, N) int8, s (G, C, NQ) fp32, table (2L+2) int32, mask (G, C) fp32
-// -> part (G, ceil(N/cols), 2C+1) scratch, out (G, 2C+1) = [dots | sqnorms |
-// refsq].
+// -> part (G, nblk, 2C+1) scratch, out (G, 2C+1) = [dots | sqnorms | refsq],
+// with K1's plan (robust_pipeline.py:pass1_plan).
 int cc_pass1(const int8_t* q, const float* s, const int* table, const float* mask,
              float* part, float* out, int G, int C, int N, int NQ, int L, int qblk,
-             int cols, void* stream) {
+             int nblk, void* stream) {
   return launch_pass1(QuantRows{q, s, table, mask, N, NQ, L, qblk}, mask, part,
-                      out, G, C, N, cols, (cudaStream_t)stream);
+                      out, G, C, N, nblk, (cudaStream_t)stream);
 }
 
 // ... mask/w (G, C) fp32 -> out (G, N).  mode 0 mean, 1 trimmed, 2 median.

@@ -13,12 +13,12 @@
 // 27.0 MB matrix once, about 8 us at 3.35 TB/s; the rank network's C^2 compares
 // per column and the Gram's C^2 FMAs per column stay under that on the fp32
 // units.  The design keeps the loads coalesced (a warp reads 32 neighbouring
-// columns of one client row, or 32 neighbouring vectors of 2 or 4 in the
-// combine) and holds K1's (C, cols) tile in shared memory and the combine's
-// columns in registers, so the O(C^2) network reads no device memory.  The
-// Gram multiplies from
-// register micro-tiles over double-buffered cp.async stages (past C ~ 50 it is
-// bound by operations; robust_pipeline.cuh says how).
+// columns of one client row, or 32 neighbouring vectors of 2 or 4) and holds
+// each column's C values in registers for the O(C^2) rank network (C <= 64;
+// past that a (C, 128) shared tile), so the network reads no device memory;
+// K1's row sums read its values back from a (C, cols) shared tile.  The Gram
+// multiplies from register micro-tiles over double-buffered cp.async stages
+// (past C ~ 50 it is bound by operations; robust_pipeline.cuh says how).
 //
 // Each entry point launches on the caller's stream and returns
 // cudaGetLastError(); the Python wrapper raises when it is not 0.
@@ -27,11 +27,11 @@
 
 extern "C" {
 
-// x (G, C, N), mask (G, C) fp32 -> part (G, ceil(N/cols), 2C+1) scratch,
-// out (G, 2C+1) = [dots | sqnorms | refsq].  cols is a multiple of 32.
+// x (G, C, N), mask (G, C) fp32 -> part (G, nblk, 2C+1) scratch, out (G,
+// 2C+1) = [dots | sqnorms | refsq].  nblk: robust_pipeline.py:pass1_plan.
 int rp_pass1(const float* x, const float* mask, float* part, float* out,
-             int G, int C, int N, int cols, void* stream) {
-  return launch_pass1(DenseRows{x, N}, mask, part, out, G, C, N, cols,
+             int G, int C, int N, int nblk, void* stream) {
+  return launch_pass1(DenseRows{x, N}, mask, part, out, G, C, N, nblk,
                       (cudaStream_t)stream);
 }
 

@@ -7,9 +7,9 @@
 //   QuantRows  int8 codes times their fp32 block  (K6a-c, comm_codecs.cu)
 //              scale, found through the leaf table;
 //              a masked-out row reads as 0
-// Everything after the load (stable_rank, column_median, the pass-1 partial
-// sums, the combine's three modes, gram_partials, reduce_partials) is one
-// copy.  So K6 on (codes, scales, mask) is bitwise K1-K3 on the fp32 matrix
+// Everything after the load (the rank networks, the pass-1 partial sums, the
+// combine's three modes, gram_partials, reduce_partials) is one copy.  So K6
+// on (codes, scales, mask) is bitwise K1-K3 on the fp32 matrix
 // where(mask, q * s, 0), by construction.
 //
 // Every kernel streams its matrix once.  On the TPU the grid runs in order and
@@ -30,6 +30,18 @@
 // output is the same arithmetic in the same order on every path, so K4b
 // and K5 are bitwise K2 and K6b bitwise K2 on the masked decode.
 //
+// Pass 1 (K1 / K4a / K6a) is the median of the combine and then 2C + 1 sums
+// over N.  Its design for C <= 64 (pass1_ranks): a thread owns V columns (2
+// in the 16-row bucket when N is even, else 1), reads each row's V values
+// once (one vector load, the mask once a row) and ranks its columns from
+// registers as the combine does; the values also go to a (C, cols) shared
+// tile, from which a block adds its 2C + 1 row sums in a fixed order.  Past
+// 64 rows the (C, 128) tile and stable_rank (pass1_partials).  The plan
+// depends on (C, N) alone, so K6a adds in K1's order whatever the alignment.
+// 256 threads a block, not 128: ptxas then gives the 16-row int8 body with
+// one column a thread 40 registers and no spill (at 128 it capped it at 32
+// and spilled 4 B), and on an H100 the 16-row body ran 10% faster.
+//
 // The Gram (gram_partials, K3 / K4c / K6c) is bound by operations on the
 // fp32 units past C ~ 50 (C (C + 1) / 2 FMAs a column against 4 C bytes) and
 // by bytes at C = 16.  Its design: 64-thread blocks, one upper-triangle
@@ -49,6 +61,8 @@ constexpr float kBig = 1e30f;        // masked-out rows rank past every real row
 constexpr int kGramThreads = 64;     // a Gram block: 8 x 8 threads
 constexpr int kReduceThreads = 256;  // 8 warps, one output each
 constexpr int kMeanRows = 4;         // row loads a mean thread has in flight
+constexpr int kPass1Threads = 256;   // a pass-1 block on the register path
+constexpr int kPass1TileCols = 128;  // a pass-1 block on the shared tile
 
 // fp32 rows: x (G*C, N).  kAsync: the Gram stages them by cp.async.
 struct DenseRows {
@@ -77,6 +91,13 @@ struct DenseRows {
     } else {
       v[0] = *p;
     }
+  }
+  // the same, for a row whose mask the caller has tested (fp32 rows read
+  // their values either way)
+  template <int V>
+  __device__ __forceinline__ void load_vec(size_t r, int col, const int* sc,
+                                           bool, float* v) const {
+    load_vec<V>(r, col, sc, v);
   }
   bool aligned(int V) const { return (uintptr_t)x % (4 * V) == 0; }
 };
@@ -119,7 +140,12 @@ struct QuantRows {
   template <int V>
   __device__ __forceinline__ void load_vec(size_t r, int col, const int* sc,
                                            float* v) const {
-    const bool on = live(r);
+    load_vec<V>(r, col, sc, live(r), v);
+  }
+  // the same, for a row whose mask test `on` the caller has made
+  template <int V>
+  __device__ __forceinline__ void load_vec(size_t r, int col, const int* sc,
+                                           bool on, float* v) const {
     const int8_t* p = q + r * N + col;
     float c[V];
     if constexpr (V == 4) {
@@ -188,26 +214,15 @@ __device__ float load_tile(const Src& src, int g, const float* __restrict__ mg,
   return n;
 }
 
-// K1/K6a, pass 1: one thread per column.  Writes part[g, blk, :] =
-// [sum_j x_ij*med_j (C) | sum_j x_ij^2 (C) | sum_j med_j^2 (1)] over the block.
-template <class Src>
-__global__ void pass1_partials(Src src, const float* __restrict__ mask,
-                               float* __restrict__ part, int C, int N) {
-  extern __shared__ float sm[];
-  const int cols = blockDim.x, t = threadIdx.x;
-  const int g = blockIdx.y, blk = blockIdx.x, nblk = gridDim.x;
-  float* tile = sm;               // C * cols
-  float* med = tile + C * cols;   // cols
-  float* m = med + cols;          // C
-  const float n = load_tile(src, g, mask + (size_t)g * C, tile, m, C, N, blk * cols);
-  const float lo = floorf((n - 1.f) / 2.f), hi = ceilf((n - 1.f) / 2.f);
-  med[t] = blk * cols + t < N ? column_median(tile, cols, t, m, C, lo, hi) : 0.f;
-  __syncthreads();
-
-  // rows i < C: (x_i . med, |x_i|^2); row C: |med|^2.  Warp w takes rows
-  // w, w + nwarps, ...; lanes stride the block's columns.
-  const int lane = t & 31, warp = t >> 5, nwarps = cols >> 5;
-  float* pg = part + ((size_t)g * nblk + blk) * (2 * C + 1);
+// Pass 1's row sums over a block's (C, cols) tile and its median row:
+// pg = [sum_c x_ic*med_c (C) | sum_c x_ic^2 (C) | sum_c med_c^2 (1)].  Warp
+// w takes rows w, w + nwarps, ... (row C: |med|^2); lane l adds columns
+// l, l + 32, ... in order, then warp_sum: an order set by cols alone.
+__device__ __forceinline__ void pass1_row_sums(const float* tile,
+                                               const float* med, int cols,
+                                               int C, float* __restrict__ pg) {
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  const int nwarps = blockDim.x >> 5;
   for (int i = warp; i <= C; i += nwarps) {
     float a = 0.f, b = 0.f;
     for (int c = lane; c < cols; c += 32) {
@@ -231,6 +246,25 @@ __global__ void pass1_partials(Src src, const float* __restrict__ mask,
       }
     }
   }
+}
+
+// K1/K6a, pass 1 past 64 rows: one thread per column ranks it from the (C,
+// cols) shared tile.  Writes part[g, blk, :] (pass1_row_sums).
+template <class Src>
+__global__ void pass1_partials(Src src, const float* __restrict__ mask,
+                               float* __restrict__ part, int C, int N) {
+  extern __shared__ float sm[];
+  const int cols = blockDim.x, t = threadIdx.x;
+  const int g = blockIdx.y, blk = blockIdx.x, nblk = gridDim.x;
+  float* tile = sm;               // C * cols
+  float* med = tile + C * cols;   // cols
+  float* m = med + cols;          // C
+  const float n = load_tile(src, g, mask + (size_t)g * C, tile, m, C, N, blk * cols);
+  const float lo = floorf((n - 1.f) / 2.f), hi = ceilf((n - 1.f) / 2.f);
+  med[t] = blk * cols + t < N ? column_median(tile, cols, t, m, C, lo, hi) : 0.f;
+  __syncthreads();
+  pass1_row_sums(tile, med, cols, C,
+                 part + ((size_t)g * nblk + blk) * (2 * C + 1));
 }
 
 // K2/K6b trimmed (mode 1) and median (mode 2) past 64 rows, from the (C,
@@ -390,6 +424,89 @@ __global__ void combine_ranks(Src src, const float* __restrict__ mask,
     }
   }
   store_vec<V>(out + (size_t)g * N + col, r);
+}
+
+// V consecutive columns of row r from col: one vector load (VEC), or V
+// scalar loads where the rows are not aligned to the vector.  The values
+// are the same either way.
+template <int V, bool VEC, class Src>
+__device__ __forceinline__ void load_cols(const Src& src, size_t r, int col,
+                                          const int* sc, bool on, float* v) {
+  if constexpr (VEC) {
+    src.template load_vec<V>(r, col, sc, on, v);
+  } else {
+#pragma unroll
+    for (int k = 0; k < V; ++k)
+      src.template load_vec<1>(r, col + k, sc + k, on, v + k);
+  }
+}
+
+// K1/K6a, pass 1 for C <= B (B = 16, 32 or 64): thread t owns the V
+// consecutive columns c0 = t V .. of the block's kCols.  It reads each row's
+// V values once (load_cols; the mask once a row, rows past C reading row C-1
+// unconditionally, so that every load is in flight before its use) and stores
+// them to the (C, kCols) shared tile.  Each column is ranked from
+// registers: xm holds x on masked-in rows, kBig on masked-out rows and +inf
+// on rows C .. B-1, which add to no row's rank (+inf < x is never true), so
+// register_rank<B, true> gives row i < C the rank stable_rank gives it.  The
+// median is 0.5 * (x_lo*m_lo + x_hi*m_hi) of the last rows ranked lo and hi,
+// as column_median and combine_ranks compute it, so it is bitwise theirs;
+// then the block's row sums (pass1_row_sums) over the tile.
+template <class Src, int B, int V, bool VEC>
+__global__ void __launch_bounds__(kPass1Threads)
+pass1_ranks(Src src, const float* __restrict__ mask, float* __restrict__ part,
+            int C, int N) {
+  constexpr int kCols = V * kPass1Threads;
+  extern __shared__ float sm[];
+  float* tile = sm;                   // C * kCols
+  float* med = tile + C * kCols;      // kCols
+  const int t = threadIdx.x, g = blockIdx.y, blk = blockIdx.x;
+  const int c0 = t * V, col = blk * kCols + c0;
+  const bool in = col < N;            // N % V == 0: all V columns or none
+  const int lc = in ? col : 0;        // a thread past N loads column 0
+  const float* mg = mask + (size_t)g * C;
+  const size_t row0 = (size_t)g * C;
+  int sc[V];
+#pragma unroll
+  for (int k = 0; k < V; ++k) sc[k] = src.scale_col(lc + k);
+  float xm[V][B];
+  float n = 0.f;
+#pragma unroll
+  for (int j = 0; j < B; ++j) {
+    const int jr = j < C ? j : C - 1;
+    const float mj = __ldg(mg + jr);
+    float v[V];
+    load_cols<V, VEC>(src, row0 + jr, lc, sc, mj > 0.f, v);
+#pragma unroll
+    for (int k = 0; k < V; ++k) {
+      v[k] = in ? v[k] : 0.f;
+      xm[k][j] = j >= C ? INFINITY : mj > 0.f ? v[k] : kBig;
+    }
+    if (j < C) {
+      n += mj;
+      store_vec<V>(tile + j * kCols + c0, v);
+    }
+  }
+  const float lo = floorf((n - 1.f) / 2.f), hi = ceilf((n - 1.f) / 2.f);
+#pragma unroll
+  for (int k = 0; k < V; ++k) {
+    int ilo = -1, ihi = -1;
+#pragma unroll
+    for (int i = 0; i < B; ++i)
+      if (i < C) {
+        const float rf = (float)register_rank<B, true>(xm[k], i, C);
+        if (rf == lo) ilo = i;
+        if (rf == hi) ihi = i;
+      }
+    const float v_lo =
+        ilo < 0 ? 0.f : tile[ilo * kCols + c0 + k] * __ldg(mg + ilo);
+    const float v_hi =
+        ihi < 0 ? 0.f : tile[ihi * kCols + c0 + k] * __ldg(mg + ihi);
+    med[c0 + k] = 0.5f * (v_lo + v_hi);
+  }
+  __syncthreads();
+  pass1_row_sums(tile, med, kCols, C,
+                 part + ((size_t)g * gridDim.x + blk) * (2 * C + 1));
 }
 
 // K3/K6c: block (output tile, split s, cohort g) accumulates one tile of the
@@ -597,16 +714,75 @@ void launch_reduce(const float* part, float* out, int G, int P, int M, cudaStrea
 // The launches behind the C entry points, one per pass, for either source.
 // Each returns cudaGetLastError().
 
-// mask (G, C) -> part (G, ceil(N/cols), 2C+1) scratch, out (G, 2C+1) =
-// [dots | sqnorms | refsq].  cols is a multiple of 32.
-template <class Src>
-int launch_pass1(Src src, const float* mask, float* part, float* out, int G, int C,
-                 int N, int cols, cudaStream_t st) {
-  const size_t smem = sizeof(float) * ((size_t)C * cols + cols + C);
-  int err = set_smem((const void*)pass1_partials<Src>, smem);
+// The combine's row bucket: 16, 32 or 64, 0 past 64 rows.
+inline int combine_bucket(int C) {
+  return C <= 16 ? 16 : C <= 32 ? 32 : C <= 64 ? 64 : 0;
+}
+
+// Pass 1's plan at (C, N) (robust_pipeline.py:pass1_plan mirrors it): the
+// register body over the combine's bucket for C <= 64, V = 2 columns a
+// thread in the 16-row bucket when N is even, else 1, V * kPass1Threads
+// columns a block; past 64 rows the shared tile, one column a thread,
+// kPass1TileCols a block.  It depends on (C, N) alone: an unaligned matrix
+// takes the same plan with scalar loads, so K6a adds its sums in K1's order.
+inline int pass1_vec(int C, int N) {
+  return combine_bucket(C) == 16 && N % 2 == 0 ? 2 : 1;
+}
+
+inline int pass1_cols(int C, int N) {
+  return combine_bucket(C) ? pass1_vec(C, N) * kPass1Threads : kPass1TileCols;
+}
+
+template <class Src, int B, int V, bool VEC>
+int launch_pass1_ranks(Src src, const float* mask, float* part, int G, int C,
+                       int N, int nblk, cudaStream_t st) {
+  const size_t smem = sizeof(float) * ((size_t)C + 1) * V * kPass1Threads;
+  const void* fn = (const void*)pass1_ranks<Src, B, V, VEC>;
+  int err = set_smem(fn, smem);
   if (err) return err;
-  const int nblk = (N + cols - 1) / cols;
-  pass1_partials<Src><<<dim3(nblk, G), cols, smem, st>>>(src, mask, part, C, N);
+  pass1_ranks<Src, B, V, VEC><<<dim3(nblk, G), kPass1Threads, smem, st>>>(
+      src, mask, part, C, N);
+  return (int)cudaGetLastError();
+}
+
+// mask (G, C) -> part (G, nblk, 2C+1) scratch, out (G, 2C+1) = [dots |
+// sqnorms | refsq].  nblk, the caller's count of partial rows, must be the
+// plan's.
+template <class Src>
+int launch_pass1(Src src, const float* mask, float* part, float* out, int G,
+                 int C, int N, int nblk, cudaStream_t st) {
+  const int v = pass1_vec(C, N), cols = pass1_cols(C, N);
+  if (C < 1 || N < 1 || G > 65535 || nblk != (N + cols - 1) / cols)
+    return (int)cudaErrorInvalidValue;
+  int err;
+  switch (combine_bucket(C)) {
+    case 16:
+      err = v == 1 ? launch_pass1_ranks<Src, 16, 1, true>(src, mask, part, G,
+                                                          C, N, nblk, st)
+            : src.aligned(2)
+                ? launch_pass1_ranks<Src, 16, 2, true>(src, mask, part, G, C,
+                                                       N, nblk, st)
+                : launch_pass1_ranks<Src, 16, 2, false>(src, mask, part, G, C,
+                                                        N, nblk, st);
+      break;
+    case 32:
+      err = launch_pass1_ranks<Src, 32, 1, true>(src, mask, part, G, C, N,
+                                                 nblk, st);
+      break;
+    case 64:
+      err = launch_pass1_ranks<Src, 64, 1, true>(src, mask, part, G, C, N,
+                                                 nblk, st);
+      break;
+    default: {
+      const size_t smem = sizeof(float) * ((size_t)C * cols + cols + C);
+      err = set_smem((const void*)pass1_partials<Src>, smem);
+      if (err) return err;
+      pass1_partials<Src><<<dim3(nblk, G), cols, smem, st>>>(src, mask, part,
+                                                             C, N);
+      err = (int)cudaGetLastError();
+    }
+  }
+  if (err) return err;
   launch_reduce(part, out, G, nblk, 2 * C + 1, st);
   return (int)cudaGetLastError();
 }
@@ -616,9 +792,6 @@ int launch_pass1(Src src, const float* mask, float* part, float* out, int G, int
 // and out are aligned); the mean streams at V; trimmed and median rank in
 // registers over a bucket of 16 rows (V <= 2), 32 or 64 (V = 1), and past
 // 64 rows from the (C, cols) shared tile, one column a thread.
-inline int combine_bucket(int C) {
-  return C <= 16 ? 16 : C <= 32 ? 32 : C <= 64 ? 64 : 0;
-}
 
 template <class Src, int B, int V>
 int launch_ranks_v(Src src, const float* mask, float* out, int G, int C, int N,

@@ -25,13 +25,13 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
-    # x, mask, part, out, G, C, N, cols, stream
+    # x, mask, part, out, G, C, N, nblk, stream
     "rp_pass1": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     # x, mask, w, out, G, C, N, cols, mode, trim_frac, stream
     "rp_combine": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
     # x, part, out, G, C, N, chunk, stream
     "rp_gram": [_P, _P, _P, _I, _I, _I, _I, _P],
-    # q, s, table, mask, part, out, G, C, N, NQ, L, qblk, cols, stream
+    # q, s, table, mask, part, out, G, C, N, NQ, L, qblk, nblk, stream
     "cc_pass1": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     # q, s, table, mask, w, out, G, C, N, NQ, L, qblk, cols, mode, trim_frac,
     # stream

@@ -39,7 +39,8 @@ from repro_torch import tree
 from repro_torch.kernels import _build
 from repro_torch.kernels.robust_agg import _BIG, stable_ranks
 
-COLS = 128              # K1/K6a: columns per block, one thread each
+PASS1_THREADS = 256     # K1/K4a/K6a: threads a pass-1 block (C <= 64)
+PASS1_TILE_COLS = 128   # K1/K4a/K6a past 64 rows: columns a block
 COMBINE_THREADS = 128   # K2/K4b/K5/K6b: threads per block
 GRAM_BLOCKS_PER_SM = 4  # K3/K6c: blocks to aim for, 4 a SM of the card
 PLAIN_CHUNK = 8192      # plain versions: columns per step (bounds the
@@ -132,6 +133,41 @@ def check_combine_smem(c, n, mode):
                          "shared memory")
 
 
+def pass1_plan(c, n):
+    """(path, bucket, vec, nblk) of pass 1 (K1 / K4a / K6a) at (C, N), as
+    ``launch_pass1`` in ``csrc/robust_pipeline.cuh`` picks it: for C <= 64
+    a thread owns ``vec`` consecutive columns (2 in the 16-row bucket when
+    N is even, else 1) and ranks them from registers over the combine's
+    bucket of 16, 32 or 64 rows (``registers``), vec * PASS1_THREADS
+    columns a block; past 64 rows one column a thread from the (C,
+    PASS1_TILE_COLS) shared tile (``tile``).  Each of the ``nblk`` blocks
+    writes one row of partials; there is no other split.  The plan depends
+    on (C, N) alone, not on the row source, the tensors' alignment (an
+    unaligned matrix keeps the plan and loads its vectors element by
+    element), G or the card, so K6a adds its sums in K1's order."""
+    bucket = next((b for b in (16, 32, 64) if c <= b), 0)
+    vec = 2 if bucket == 16 and n % 2 == 0 else 1
+    cols = vec * PASS1_THREADS if bucket else PASS1_TILE_COLS
+    return "registers" if bucket else "tile", bucket, vec, _cdiv(n, cols)
+
+
+def pass1_smem_bytes(c, n):
+    """Dynamic shared memory of a pass-1 block: the (C, cols) tile and the
+    median row, plus the mask on the tile path."""
+    path, _, vec, _ = pass1_plan(c, n)
+    if path == "tile":
+        return 4 * (c * PASS1_TILE_COLS + PASS1_TILE_COLS + c)
+    return 4 * (c + 1) * vec * PASS1_THREADS
+
+
+def check_pass1_smem(c, n):
+    """Raises where a pass-1 block at (C, N) would exceed shared memory
+    (past about 450 rows)."""
+    if pass1_smem_bytes(c, n) > SMEM_LIMIT:
+        raise ValueError(f"C={c}: the (C, {PASS1_TILE_COLS}) tile exceeds "
+                         "shared memory")
+
+
 def _dispatch(x):
     if x.device.type == "cuda":
         return True
@@ -208,23 +244,29 @@ def pairwise_gram_plain(x):
 # kernel wrappers
 # ---------------------------------------------------------------------------
 
+def launch_pass1(fn, ptrs, dims, device):
+    """Launches pass 1, ``rp_pass1`` (K1 / K4a) or ``cc_pass1`` (K6a), on
+    its input pointers ``ptrs`` and sizes ``dims`` (G, C, N, ...), with the
+    scratch of ``pass1_plan`` -> (dots, sqnorms, refsq)."""
+    G, C, N = dims[:3]
+    check_pass1_smem(C, N)
+    nblk = pass1_plan(C, N)[3]
+    part = torch.empty(G, nblk, 2 * C + 1, device=device)
+    out = torch.empty(G, 2 * C + 1, device=device)
+    _launch(fn, *ptrs, part.data_ptr(), out.data_ptr(), *dims, nblk)
+    return out[:, :C], out[:, C:2 * C], out[:, 2 * C:]
+
+
 def _pass1(x, mask, wrapper):
     """rp_pass1 on a CUDA tensor (counted on ``wrapper``), the plain
     version on a CPU tensor."""
     if not _dispatch(x):
         return cosine_gate_partials_plain(x, mask)
     (mask,) = _check_cuda(x, mask)
-    G, C, N = x.shape
-    if 4 * (C * COLS + COLS + C) > SMEM_LIMIT:
-        raise ValueError(f"C={C}: the (C, {COLS}) tile exceeds shared memory")
-    nblk = _cdiv(N, COLS)
-    part = torch.empty(G, nblk, 2 * C + 1, device=x.device)
-    out = torch.empty(G, 2 * C + 1, device=x.device)
-    lib = _build.load()
-    _launch(lib.rp_pass1, x.data_ptr(), mask.data_ptr(), part.data_ptr(),
-            out.data_ptr(), G, C, N, COLS)
+    out = launch_pass1(_build.load().rp_pass1, (x.data_ptr(), mask.data_ptr()),
+                       x.shape, x.device)
     wrapper.launches += 1
-    return out[:, :C], out[:, C:2 * C], out[:, 2 * C:]
+    return out
 
 
 def _combine(x, gated_mask, weights, mode, trim_frac, wrapper):
@@ -271,9 +313,13 @@ def cosine_gate_partials(x, mask):
 
     Replaces ``repro/kernels/robust_pipeline.py:cosine_gate_partials_leafwise``.
     Bound: bytes (one read of x; the C^2 compares per column stay under
-    it for C <= 64).  Design: one thread per column ranks its column from
-    a (C, 128) shared-memory tile; per-block row sums are written as
-    partials and summed in a fixed order by a second launch.
+    it on the fp32 units at C = 16).  Design (``pass1_plan``): for C <= 64
+    a thread loads its 1 or 2 columns' C values once, with vector loads,
+    and ranks them from registers as K2's median does (bitwise the same
+    median); the values also go to a shared tile, from which each block
+    adds its 2C + 1 row sums in a fixed order; past 64 rows a (C, 128)
+    shared tile, one column a thread.  The per-block partials are summed
+    in a fixed order by a second launch.
     """
     return _pass1(x, mask, cosine_gate_partials)
 

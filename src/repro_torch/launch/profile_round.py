@@ -49,13 +49,14 @@ SPANS = ("attack", "client_update", "transport", "selection", "delivery",
          "sanitize", "aggregate", "writeback")
 # the port's own kernels launch through ctypes, outside any torch op, so the
 # profiler does not attribute them to a span: they are summed by name.  K1-K3
-# and K6a-c are the same templated kernels (pass1_partials, gated_combine,
-# gram_partials) over two row sources; reduce_partials serves both.  K7
-# (block_topd_kernel) launches inside the selection span and is likewise
-# summed by name.
+# and K6a-c are the same templated kernels (pass1_ranks / pass1_partials,
+# combine_*, gram_partials) over two row sources; reduce_partials serves
+# both.  Pass 1's body (K1 or K6a, without its reduce) is also summed
+# apart.  K7 (block_topd_kernel) launches inside the selection span and is
+# likewise summed by name.
 OWN_KERNELS = {"K1-K3": ("DenseRows",), "K6a-c": ("QuantRows",),
                "reduce_partials": ("reduce_partials",),
-               "K7": ("block_topd",)}
+               "pass 1 (K1/K6a)": ("pass1_",), "K7": ("block_topd",)}
 COMPRESS = ("none", "int8", "int4", "signsgd", "topk", "randk")
 
 

@@ -197,12 +197,16 @@ def test_error_feedback_matches_jax_over_rounds(name):
 
 
 # ------------------------------------------------- fused dequant kernels --
-def _wire_pair(c, qblk):
+def _wire_pair(c, qblk, tie=False):
     """One cohort's int8 record of the test tree: JAX's per-leaf (1, C,
     n_l) codes and (1, C, nq_l) scales, and the port's (1, C, N), (1, C,
-    NQ) record converted from them."""
+    NQ) record converted from them.  ``tie``: client 3 a copy of client 2,
+    so that every column holds a tie."""
     g = 1
     t = _np_tree(c, seed=4, scale=0.05)
+    if tie:
+        for leaf in t.values():
+            leaf[3] = leaf[2]
     jenc = jax.jit(jcodecs.Codec("int8", qblk=qblk).encode_tree)(_j(t))
     leaves = jax.tree_util.tree_flatten(jenc, is_leaf=jcodecs.is_encoded)[0]
     jq = [e.q.reshape(g, c, -1) for e in leaves]
@@ -265,6 +269,30 @@ def test_dequant_kernels_match_pallas(c, qblk):
         rp._krum_weights(d, _t(mask), 1, 1).numpy(),
         np.asarray(jrp._krum_weights(jnp.asarray(ref), jnp.asarray(mask), 1,
                                      1)))
+
+
+@pytest.mark.parametrize("c", [17, 32, 33, 48, 64, 65])
+def test_dequant_gate_partials_matches_pallas_at_bucket_edges(c):
+    """K6a past the 16-row bucket, at the edges of pass 1's register
+    buckets (32, 64) and past them, with two masked-out rows and a tie in
+    every column: the partials of the masked-in rows and refsq against the
+    Pallas kernel in interpret mode, and the gate on them exactly."""
+    jq, js, q, s, layout = _wire_pair(c, 128, tie=True)
+    mask, _ = _masks(c)
+    keep = mask > 0
+    ref = jdq.dequant_gate_partials(jq, js, jnp.asarray(mask),
+                                    leaf_scale=jnp.ones((len(jq),)),
+                                    qblk=128, blk=128, interpret=True)
+    out = dq.dequant_gate_partials(q, s, layout, _t(mask))
+    for o, r in zip(out[:2], ref[:2]):
+        np.testing.assert_allclose(o.numpy()[keep], np.asarray(r)[keep],
+                                   rtol=RTOL, atol=ATOL)
+    np.testing.assert_allclose(out[2].numpy(), np.asarray(ref[2]), rtol=RTOL,
+                               atol=ATOL)
+    for thresh in (-0.5, 0.0):
+        np.testing.assert_array_equal(
+            rp._resolve_gate(*out, _t(mask), thresh).numpy(),
+            np.asarray(jrp._resolve_gate(*ref, jnp.asarray(mask), thresh)))
 
 
 def _record(c, comp="int8", seed=0):

@@ -2,9 +2,10 @@
 K6a-c bitwise against K1-K3 on the masked decode, K5 bitwise against K2's
 rank modes, the flat wrappers K4a-c bitwise against K1-K3, K7's candidates
 bitwise against ``block_topd_plain``), the Gram kernels K3 and K6c past 64
-rows, the combine family (K2, K4b, K5, K6b) at every register bucket,
-the shared tile and each alignment of N, the attention kernels K8 (paged
-flash-decode, with slots ending in every split, two calls bitwise equal)
+rows, the combine family (K2, K4b, K5, K6b) and the pass-1 family (K1,
+K4a, K6a) at every register bucket, the shared tile and each alignment of
+N (pass 1 also on unaligned views, and with non-finite rows), the
+attention kernels K8 (paged flash-decode, with slots ending in every split, two calls bitwise equal)
 and K9 (flash attention), the wrappers' checks and launch counts, a round on the card
 (dense, int8 and buffered-async) against the same round on the CPU, and
 the tiny-lm serving engine on the card against the CPU port's tokens.
@@ -35,6 +36,7 @@ from repro_torch.data.pipeline import build_federation
 from repro_torch.configs.registry import get_config
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import paged_decode as pd
+from repro_torch.kernels import pass1_checks
 from repro_torch.kernels import population_select as ps
 from repro_torch.kernels import robust_agg as ra
 from repro_torch.kernels import robust_pipeline as rp
@@ -537,6 +539,36 @@ def test_combine_family_every_bucket_and_alignment(card, c, nmod):
         _bitwise(k6, rp.gated_combine(xm, m, wm, mode=mode))
         if mode != "mean":
             _bitwise(ra.robust_agg_fwd(x[0], m[0], mode=mode), out[0])
+
+
+@pytest.mark.parametrize("nmod", [0, 1, 2, 3])
+@pytest.mark.parametrize("c", [1, 16, 17, 32, 33, 48, 64, 65, 130])
+def test_pass1_family_every_bucket_and_alignment(card, c, nmod):
+    """K1, K4a and K6a at C on both sides of each register bucket's edge
+    (16, 32, 64) and past them (the shared tile), N = 0-3 mod 4 (2 columns
+    a thread in the 16 bucket when N is even), with a masked-out row and
+    ties, an empty cohort (zero partials) and a lone one: K1 and K6a
+    within 1e-5 of the largest of their plain versions', K4a bitwise K1,
+    K6a bitwise K1 on the masked decode, two calls of each bitwise equal;
+    then on unaligned copies of x and of the codes, which keep the plan
+    and so give the same bits (``pass1_checks.edge_case``)."""
+    pass1_checks.edge_case(c, nmod, card)
+
+
+@pytest.mark.parametrize("c", [16, 48, 130])
+def test_pass1_family_with_nonfinite_rows(card, c):
+    """A masked-out row of inf and a masked-in NaN
+    (``pass1_checks.nonfinite``).  The dead row of inf is a departure from
+    the plain versions and the JAX reference, not their semantics: those
+    sum x times a 0/1 pick, so inf times 0 turns every median NaN, where
+    the kernels select the median's rows (as K2 does) and stay finite
+    (ROADMAP section 3).  So it is held to the kernel with that row
+    zeroed: the live rows' partials and refsq bitwise, its own sqnorm inf,
+    and in K6a its inf scales decode to 0 (held to the plain version).  A
+    lone cohort whose member carries the NaN gives the plain version's
+    NaNs and values; in a full cohort only the NaN's row is NaN.  Each
+    stays repeatable and K6a bitwise K1 on the masked decode."""
+    pass1_checks.nonfinite(c, card)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

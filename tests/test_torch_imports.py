@@ -124,8 +124,9 @@ def test_chip_smoke_names_the_register_bodies_in_ptxas_report():
     """``chip_smoke.py`` phase 1 turns nvcc's -Xptxas -v output into one
     line a register body: K8 by row block, vector, vectors a lane and
     pool; the combine's rank network by bucket, columns a thread and
-    whether C fills the bucket; registers and spills as ptxas printed
-    them."""
+    whether C fills the bucket; pass 1's by bucket, columns a thread and
+    loads, and its shared tile by row source; registers and spills as
+    ptxas printed them."""
     sys.path.insert(0, str(ROOT))
     import chip_smoke
     entries = {
@@ -137,6 +138,10 @@ def test_chip_smoke_names_the_register_bodies_in_ptxas_report():
             (255, 12),
         "_ZN12_GLOBAL__N_112combine_meanINS_9QuantRowsELi2EEEvT_PKfPfii":
             (48, 0),
+        "_ZN12_GLOBAL__N_111pass1_ranksINS_9QuantRowsELi16ELi2ELb1EEEvT_"
+        "PKfPfiii": (72, 0),
+        "_ZN12_GLOBAL__N_114pass1_partialsINS_9DenseRowsEEEvT_PKfPfiii":
+            (40, 0),
         "_ZN12_GLOBAL__N_114reduce_partialsEPKfPfii": (20, 0),
     }
     log = "".join(
@@ -152,6 +157,10 @@ def test_chip_smoke_names_the_register_bodies_in_ptxas_report():
             "79 registers, 0 B spill stores, 0 B spill loads",
         "combine_ranks<QuantRows, 64, 1, C < B>":
             "255 registers, 12 B spill stores, 12 B spill loads",
+        "pass1_partials<DenseRows>":
+            "40 registers, 0 B spill stores, 0 B spill loads",
+        "pass1_ranks<QuantRows, 16, 2, vector>":
+            "72 registers, 0 B spill stores, 0 B spill loads",
         "pd_kernel<3, 4, 1, fp32>":
             "96 registers, 0 B spill stores, 0 B spill loads",
         "pd_kernel<8, 4, 1, int8>":

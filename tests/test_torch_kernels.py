@@ -11,6 +11,8 @@ bitwise; sum-based outputs (cosine partials, means, trimmed means, Gram
 distances) at rtol 1e-5 / atol 1e-6, because the two packages sum in
 different orders.  Ranks, gate masks and Krum winners are exact.
 """
+import types
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -18,10 +20,15 @@ import torch
 
 from repro.kernels import robust_agg as jrobust_agg
 from repro.kernels import robust_pipeline as jrp
-from repro_torch.kernels import robust_agg, robust_pipeline as rp
+from repro_torch.comm import codecs
+from repro_torch.comm.kernels import comm_codecs
+from repro_torch.kernels import _build, robust_agg, robust_pipeline as rp
 
 RTOL, ATOL = 1e-5, 1e-6
 SHAPES = [(c, n) for c in (1, 2, 5, 16) for n in (1000, 3001)]
+# pass 1 also at the edges of its register buckets (16, 32, 64) and past them
+PASS1_SHAPES = SHAPES + [(c, n) for c in (17, 32, 33, 48, 64, 65)
+                         for n in (1000, 3001)]
 
 
 def _inputs(c, n, g=1, seed=0):
@@ -52,9 +59,11 @@ def test_stable_ranks_bitwise_with_ties():
                                   ref)
 
 
-@pytest.mark.parametrize("c,n", SHAPES)
+@pytest.mark.parametrize("c,n", PASS1_SHAPES)
 def test_cosine_gate_partials_matches_pallas(c, n):
     x, mask, _ = _inputs(c, n)
+    if c >= 4:
+        x[:, 3] = x[:, 2]                    # a tie in every column
     ref = jrp.cosine_gate_partials_leafwise(
         [jnp.asarray(x)], jnp.asarray(mask), leaf_scale=jnp.ones((1,)),
         **_jax_kw(c, n))
@@ -224,6 +233,70 @@ def test_combine_smem_follows_the_tile(c):
             rp.check_combine_smem(c, 1000, mode)
 
 
+@pytest.mark.parametrize("c,n,plan", [
+    (16, 421_642, ("registers", 16, 2, 824)),    # the sync path
+    (48, 421_642, ("registers", 64, 1, 1648)),   # the async path, C + B
+    (10, 512, ("registers", 16, 2, 1)),          # poisoning_defense
+    (96, 65_573, ("tile", 0, 1, 513)),           # past 64 rows
+    (16, 421_641, ("registers", 16, 1, 1648)),
+    (1, 1_001, ("registers", 16, 1, 4)),
+    (17, 1_000, ("registers", 32, 1, 4)),
+    (64, 1_000, ("registers", 64, 1, 4)),
+    (65, 1_000, ("tile", 0, 1, 8))])
+def test_pass1_plan_follows_c_and_n(monkeypatch, c, n, plan):
+    """Pass 1's plan: registers over the combine's buckets for C <= 64 (2
+    columns a thread in the 16 bucket when N is even, vec * PASS1_THREADS
+    columns a block), the shared tile past 64 rows (PASS1_TILE_COLS
+    columns a block), one row of partials a block.  The dense
+    (K1 / K4a) and the int8 (K6a) wrappers launch with that plan: their
+    launches are recorded here in place of the CUDA library, on CPU
+    tensors that are never read."""
+    assert rp.pass1_plan(c, n) == plan
+    path, bucket, vec, nblk = plan
+    cols = vec * rp.PASS1_THREADS if bucket else rp.PASS1_TILE_COLS
+    assert n % vec == 0 and (nblk - 1) * cols < n <= nblk * cols
+    calls = []
+    stub = types.SimpleNamespace(rp_pass1="rp_pass1", cc_pass1="cc_pass1")
+    monkeypatch.setattr(rp, "_dispatch", lambda x: True)
+    monkeypatch.setattr(rp, "_launch", lambda fn, *a: calls.append((fn, a)))
+    monkeypatch.setattr(_build, "load", lambda: stub)
+    mask = torch.ones(1, c)
+    x = torch.empty(1, c, n)
+    layout = codecs.WireLayout([n], 128)
+    q = torch.empty(1, c, n, dtype=torch.int8)
+    s = torch.empty(1, c, layout.n_scales)
+    try:
+        for out in (rp.cosine_gate_partials(x, mask),
+                    rp.cosine_gate_partials_flat(x, mask),
+                    comm_codecs.dequant_gate_partials(q, s, layout, mask)):
+            assert [tuple(o.shape) for o in out] == [(1, c), (1, c), (1, 1)]
+    finally:
+        rp.reset_launch_counts()
+        comm_codecs.reset_launch_counts()
+    assert [fn for fn, _ in calls] == ["rp_pass1", "rp_pass1", "cc_pass1"]
+    for fn, args in calls:
+        assert args[-1] == nblk
+        assert args[-4 if fn == "rp_pass1" else -7:][:3] == (1, c, n)
+
+
+@pytest.mark.parametrize("c", [1, 16, 17, 48, 64, 65, 130, 449, 450])
+def test_pass1_smem_follows_the_plan(c):
+    """A pass-1 block's shared memory: the (C, cols) tile and the median
+    row, plus the mask on the tile path; the check raises past the card's
+    limit (450 rows)."""
+    for n in (1000, 1001):
+        _, bucket, vec, _ = rp.pass1_plan(c, n)
+        cols = vec * rp.PASS1_THREADS if bucket else rp.PASS1_TILE_COLS
+        want = 4 * (c * cols + cols + (0 if bucket else c))
+        assert rp.pass1_smem_bytes(c, n) == want
+        if want > rp.SMEM_LIMIT:
+            with pytest.raises(ValueError):
+                rp.check_pass1_smem(c, n)
+        else:
+            rp.check_pass1_smem(c, n)
+    assert (rp.pass1_smem_bytes(c, 1000) > rp.SMEM_LIMIT) == (c >= 450)
+
+
 def test_register_rank_rule_is_the_stable_rank():
     """The register network's rule, (xm_j <= xm_i) for j < i and
     (xm_j < xm_i) for j > i, gives ``stable_ranks`` exactly, with ties,
@@ -240,5 +313,29 @@ def test_register_rank_rule_is_the_stable_rank():
         for j in range(c):
             if j != i:
                 rule[i] += xm[j] <= xm[i] if j < i else xm[j] < xm[i]
+    np.testing.assert_array_equal(robust_agg.stable_ranks(_t(xm)).numpy(),
+                                  rule)
+
+
+@pytest.mark.parametrize("b", [16, 32, 64])
+def test_padded_rank_rule_is_the_stable_rank(b):
+    """Pass 1's register network ranks a bucket of B rows without a row
+    predicate: rows C .. B-1 hold +inf, which adds to no real row's rank
+    ((+inf < x_i) is never true), so the unpredicated rule over B rows
+    gives rows i < C ``stable_ranks`` of the C real rows exactly, with
+    ties, masked rows at 1e30, infinities and a NaN."""
+    rng = np.random.default_rng(b)
+    c = b - 5
+    xm = rng.integers(0, 4, (c, 200)).astype(np.float32)
+    xm[2] = 1e30
+    xm[4, :50] = np.inf
+    xm[5, :30] = -np.inf
+    xm[6, 7] = np.nan
+    pad = np.concatenate([xm, np.full((b - c, 200), np.inf, np.float32)])
+    rule = np.zeros(xm.shape, np.int64)
+    for i in range(c):
+        for j in range(b):
+            if j != i:
+                rule[i] += pad[j] <= pad[i] if j < i else pad[j] < pad[i]
     np.testing.assert_array_equal(robust_agg.stable_ranks(_t(xm)).numpy(),
                                   rule)
