@@ -10,8 +10,9 @@ Phases, one line each (a failure raises, so the exit code is not 0):
               Gram's (K3 / K6c), the combine's register bodies
               (``combine_mean``, ``combine_ranks``), pass 1's
               (``pass1_ranks<source, bucket, columns a thread, loads>``,
-              and ``pass1_partials<source>`` past 64 rows) and K8's
-              (``pd_kernel<row block, vector, vectors a lane, pool>``).
+              and ``pass1_partials<source>`` past 64 rows), K8's
+              (``pd_kernel<row block, vector, vectors a lane, pool>``) and
+              K7's (``block_topd_kernel``).
   2. kernels  each kernel against its plain PyTorch version on the card,
               at the main path's shape (G=1, C=16, N=421,642) and at
               (G=2, C=64, N=65,573) with ragged N, an empty cohort and a
@@ -46,16 +47,24 @@ Phases, one line each (a failure raises, so the exit code is not 0):
               are timed device only beside the shared-tile design's device
               times (K1_BEFORE_MS), and K1 also at the async path's 48
               rows.
-  2b. top-d   K7 (``block_topd``) against its plain version on the card,
-              values and indices bitwise, at M=1,000,000/d=64,
-              M=16,384/d=16 (the async path's shape), M=10,007/d=64 with
-              blk 4096 and 64 (ragged and exhausted blocks, whose
-              candidates repeat the block's first index at -inf), and
-              duplicate keys (the lowest index first); the full ``topd``
-              order against the segmented and argsort routes and
-              ``torch.topk``; M=40, d=64 takes the argsort route and must
-              not launch K7.  Times by CUDA events: K7, K7 plus the merge,
-              the plain version and ``torch.topk``.
+  2b. top-d   K7 (``block_topd`` for stage 1, ``topd_pallas`` for the
+              fused launch that also merges) against its plain versions on
+              the card over ``repro_torch.kernels.topd_checks.CASES`` (the
+              card tests' own cases): Gumbel keys at M=1,000,000/d=64 and
+              M=16,384/d=16 (the async path's shape), ragged and exhausted
+              blocks (whose candidates repeat the block's first index at
+              -inf), M=4,097, d = 1, 1,024 and blk, duplicates, +-0.0
+              mixtures, all-equal keys (at 10^6 the merge reads every
+              candidate), exactly d finite keys a block, mostly -inf keys
+              and unaligned views: the candidates bitwise
+              ``block_topd_plain``'s, the fused launch's indices bitwise the
+              CPU path's (``block_topd_plain`` then ``_merge``), one launch
+              a call; where no +-0.0 or exhausted tail reaches the top-d,
+              every route and ``torch.topk`` give argsort's order; M=40,
+              d=64 takes the argsort route and must not launch K7.  Times at
+              TOPD_TIMED by CUDA events and device only: the fused launch,
+              stage 1 alone, ``torch.topk`` and the plain version, beside
+              the bound and the earlier design's (K7_BEFORE_MS).
   3. round    the port's main path: the full-width paper-cnn FedFiTS round
               through ``fedfits.run``, 10 rounds under fedavg, then 2 each
               under trimmed_mean, median and krum; every kernel must have
@@ -254,10 +263,16 @@ ASYNC_K1_SHAPE = (1, 48, 421_642)
 PASS1_EDGES = (1, 16, 17, 32, 33, 48, 64, 65, 130)
 HOST_CALLS = 1000
 K7_REPLACES = "src/repro/kernels/population_select.py:98"
-# (M, d, blk) of phase 2b; the async path's shape is the second
-TOPD_CASES = ((1_000_000, 64, 4096), (16_384, 16, 4096), (10_007, 64, 4096),
-              (10_007, 64, 64))
-TOPD_TIMED = ((16_384, 16), (1_000_000, 64))
+# (M, d) timed in phase 2b: the async path's shape first, then the
+# reference's bench shapes (benchmarks/bench_kernels.py)
+TOPD_TIMED = ((16_384, 16), (100_000, 64), (1_000_000, 64))
+# the earlier design's K7 (stage 1: d rounds of max-and-mask a block) and
+# K7 + merge (the -inf padding copy, K7, a stable sort, a gather) at
+# TOPD_TIMED, device only (torch.profiler), as PERF.md section 6 records them
+# (NVIDIA H100 80GB HBM3, 700 W)
+K7_BEFORE_MS = {(16_384, 16): ("0.0109", "0.0214"),
+                (100_000, 64): ("0.0389-0.0400", "0.0668-0.0671"),
+                (1_000_000, 64): ("0.0538-0.0557", "0.1065-0.1078")}
 # phase 5: the buffered-async engine at full width
 ASYNC_M, ASYNC_N, ASYNC_C = 16_384, 131_072, 16
 ASYNC_SCHEDULE = (("trimmed_mean", 8), ("fedavg", 2), ("median", 2),
@@ -339,10 +354,10 @@ def kernel_work(name, g, c, n, mode=None, nq=0, n_leaves=0):
     return x + 8 * g * c + 4 * g * n, ops + deq
 
 
-def topd_work(m_pad, nb, d):
-    """Bytes and operations of K7: each padded key read once, a value and
-    an index written per candidate; d compares per key."""
-    return 4 * m_pad + 8 * nb * d, d * m_pad
+def topd_work(m, d):
+    """Bytes and operations of the top-d of M keys: each key read once, the
+    d indices written; one compare per key."""
+    return 4 * m + 4 * d, m
 
 
 def time_ms(fn):
@@ -435,8 +450,10 @@ def _kernel_name(mangled):
     loads), 'pass1_partials<DenseRows>' (pass 1's shared tile, past 64
     rows), 'pd_kernel<3, 4, 1, int8>' (row block, vector width, vectors a
     lane, pool) for the register and tensor-core bodies' mangled names,
-    else None."""
+    'block_topd_kernel' for K7's, else None."""
     import re
+    if "block_topd_kernel" in mangled:
+        return "block_topd_kernel"
     m = re.search(r"(fa_mma_kernel|gram_partials|combine_mean|combine_ranks"
                   r"|pass1_ranks|pass1_partials|pd_kernel)I(\w+?)EEv",
                   mangled)
@@ -944,57 +961,37 @@ def _k5_and_flat(cnn_sizes):
     return report, c96
 
 
-def _topd_checks():
-    """Phase 2b: K7 against its plain version, bitwise, and the full top-d
-    order of every route; returns the report entry (times at the async
-    path's shape) and the timings at M=1e6."""
-    import numpy as np
+def _gumbel_keys(m, seed):
     import torch
     from repro_torch.kernels import population_select as ps
+    gen = torch.Generator(DEVICE).manual_seed(seed)
+    pri = torch.rand(m, generator=gen, device=DEVICE) + 0.01
+    return torch.log(pri) + ps.draw_gumbel(m, gen)
 
-    def keys(m, seed):
-        gen = torch.Generator(DEVICE).manual_seed(seed)
-        pri = torch.rand(m, generator=gen, device=DEVICE) + 0.01
-        return torch.log(pri) + ps.draw_gumbel(m, gen)
 
-    errs = [0.0]
+def _topd_checks():
+    """Phase 2b: K7 against its plain versions, bitwise, over
+    ``topd_checks.CASES`` (the card tests' own cases), the routes' order,
+    and K7's times; returns the report entry (times at the async path's
+    shape)."""
+    import torch
+    from repro_torch.kernels import population_select as ps
+    from repro_torch.kernels import topd_checks as tc
 
-    def same_candidates(label, g, d, blk):
-        gp, _ = ps._pad_neg_inf(g, blk)
-        v, gi = ps.block_topd(gp, d, blk)
-        pv, pgi = ps.block_topd_plain(gp, d, blk)
-        if not (torch.equal(v.view(torch.int32), pv.view(torch.int32))
-                and torch.equal(gi, pgi)):
-            raise AssertionError(f"block_topd {label}: candidates differ "
-                                 "from the plain version")
-        fin = torch.isfinite(pv)
-        errs[0] = max(errs[0], float((v[fin] - pv[fin]).abs().max()))
-        return gp, v, gi
-
-    for m, d, blk in TOPD_CASES:
-        g = keys(m, m + blk)
-        gp, v, gi = same_candidates(f"M={m} d={d} blk={blk}", g, d, blk)
-        nb, last = gp.shape[0] // blk, m % blk
-        if 0 < last < d:                  # the last block runs out of keys
-            if not (bool((gi[-1, last:] == (nb - 1) * blk).all())
-                    and bool((v[-1, last:] == -float("inf")).all())):
-                raise AssertionError("block_topd: exhausted block does not "
-                                     "repeat its first index at -inf")
-        ref = ps.topd_argsort(g, d)
-        outs = {meth: ps.topd(g, d, method=meth, blk=blk)
-                for meth in ("pallas", "segmented")}
-        outs["torch.topk"] = torch.topk(g, d).indices.to(torch.int32)
-        for meth, out in outs.items():
-            if not torch.equal(out, ref):
-                raise AssertionError(f"topd M={m} d={d}: {meth} order "
-                                     "differs from argsort")
-        print(f"[topd] M={m} d={d} blk={blk} nb={nb}: K7 candidates bitwise "
-              "the plain version's; pallas, segmented, argsort and "
-              "torch.topk give the same order"
-              + (f"; last block exhausted after {last} keys"
-                 if 0 < last < d else ""))
+    err = 0.0
+    for label, m, d, blk, kind in tc.CASES:
+        g = tc.keys(m, d, blk, kind, m + d, DEVICE)
+        err = max(err, tc.candidates(g, d, blk))
+        tc.fused(g, d, blk)
+        if kind in tc.ARGSORT_KINDS:
+            tc.every_route(g, d, blk)
+        print(f"[topd] {label}, M={m} d={d} blk={blk}: K7's candidates "
+              "bitwise the plain version's, the fused launch's indices "
+              "bitwise the CPU path's"
+              + ("; every route gives argsort's order"
+                 if kind in tc.ARGSORT_KINDS else ""))
     before = ps.launch_counts()["block_topd"]
-    g = keys(40, 1)
+    g = _gumbel_keys(40, 1)
     out = ps.topd(g, 64, method="pallas")
     if ps.launch_counts()["block_topd"] != before \
             or not torch.equal(out, ps.topd_argsort(g, 64)):
@@ -1003,42 +1000,49 @@ def _topd_checks():
                        device=DEVICE)
     if ps.topd(dup, 5, method="pallas", blk=64).tolist() != [1, 2, 4, 6, 9]:
         raise AssertionError("topd: ties do not go to the lowest index")
-    rng = np.random.default_rng(5)
-    dup = torch.from_numpy(rng.integers(0, 30, 3 * 4096).astype(
-        np.float32)).to(DEVICE)
-    same_candidates("duplicate keys", dup, 64, 4096)
-    if not torch.equal(ps.topd(dup, 64, method="pallas"),
-                       ps.topd_argsort(dup, 64)):
-        raise AssertionError("topd duplicate keys: pallas order differs")
     torch.cuda.synchronize()
-    print("[topd] M=40 d=64 takes the argsort route without K7; duplicate "
-          "keys: lowest index first, candidates bitwise")
-
-    timed = {}
-    for m, d in TOPD_TIMED:
-        g = keys(m, 3)
-        gp, _ = ps._pad_neg_inf(g, 4096)
-        nb = gp.shape[0] // 4096
-        b, ops = topd_work(gp.shape[0], nb, d)
-        bound_ms, bound_by = bound(b, ops)
-        row = {"ms": time_ms(lambda: ps.block_topd(gp, d, 4096)),
-               "with_merge_ms": time_ms(lambda: ps.topd_pallas(g, d)),
-               "plain_ms": time_ms(lambda: ps.block_topd_plain(gp, d, 4096)),
-               "library_ms": time_ms(lambda: torch.topk(g, d)),
-               "bound_ms": bound_ms, "bound_by": bound_by}
-        timed[(m, d)] = row
-        print(f"[topd] M={m} d={d}: K7 {row['ms']:.4f} ms, K7 + merge "
-              f"{row['with_merge_ms']:.4f} ms, plain {row['plain_ms']:.4f} "
-              f"ms, torch.topk {row['library_ms']:.4f} ms, bound "
-              f"{bound_ms * 1e3:.4f} us ({bound_by})")
-    row = timed[TOPD_TIMED[0]]
+    print("[topd] M=40 d=64 takes the argsort route without K7; ties go to "
+          "the lowest index")
+    row = _topd_times()[TOPD_TIMED[0]]
     return {"name": "block_topd", "route": "cuda", "source": CUDA_SOURCE_K7,
-            "replaces": K7_REPLACES, "launches": None, "max_abs_err": errs[0],
+            "replaces": K7_REPLACES, "launches": None, "max_abs_err": err,
             "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
-            "library_ms": row["library_ms"],
-            "with_merge_ms": row["with_merge_ms"],
+            "library_ms": row["library_ms"], "device_ms": row["device_ms"],
+            "library_device_ms": row["library_device_ms"],
             "shape": {"M": TOPD_TIMED[0][0], "d": TOPD_TIMED[0][1]}}
+
+
+def _topd_times():
+    """K7's times at TOPD_TIMED, by CUDA events and device only: the top-d
+    as the main path runs it (``topd_pallas``), stage 1 alone
+    (``block_topd`` on padded keys), ``torch.topk`` and the plain version
+    (``topd_pallas_plain``), beside the bound and K7_BEFORE_MS."""
+    import torch
+    from repro_torch.kernels import population_select as ps
+    timed = {}
+    for m, d in TOPD_TIMED:
+        g = _gumbel_keys(m, 3)
+        gp, _ = ps._pad_neg_inf(g, 4096)
+        bound_ms, bound_by = bound(*topd_work(m, d))
+        calls = {"": lambda: ps.topd_pallas(g, d),
+                 "stage1_": lambda: ps.block_topd(gp, d, 4096),
+                 "library_": lambda: torch.topk(g, d)}
+        row = {"bound_ms": bound_ms, "bound_by": bound_by}
+        for key, fn in calls.items():
+            row[f"{key}ms"] = time_ms(fn)
+            row[f"{key}device_ms"] = device_ms(fn)
+        row["plain_ms"] = time_ms(lambda: ps.topd_pallas_plain(g, d, 4096))
+        timed[(m, d)] = row
+        was = K7_BEFORE_MS[(m, d)]
+        print(f"[topd] M={m} d={d}: top-d {row['device_ms']:.4f} ms device "
+              f"only ({row['ms']:.4f} by events; earlier design's K7 + merge "
+              f"{was[1]}), stage 1 {row['stage1_device_ms']:.4f} "
+              f"({row['stage1_ms']:.4f}; earlier K7 {was[0]}), torch.topk "
+              f"{row['library_device_ms']:.4f} ({row['library_ms']:.4f}), "
+              f"plain {row['plain_ms']:.4f}, bound {bound_ms * 1e3:.4f} us "
+              f"({bound_by})")
+    return timed
 
 
 def _fed_cfg(aggregator, **kw):

@@ -39,8 +39,10 @@ _SIGNATURES = {
                    _P],
     # q, s, table, mask, part, out, G, C, N, NQ, L, qblk, chunk, stream
     "cc_gram": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
-    # g, vals, idx, nb, blk, d, stream
-    "ps_block_topd": [_P, _P, _P, _I, _I, _I, _P],
+    # g, M, blk, d, vals, idx, out, counter, stream
+    "ps_topd": [_P, _I, _I, _I, _P, _P, _P, _P, _P],
+    # blk, d -> K7's shared memory a CTA, bytes
+    "ps_topd_smem": [_I, _I],
     # x, mask, out, C, N, cols, mode, trim_frac, stream
     "ra_fwd": [_P, _P, _P, _I, _I, _I, _I, _F, _P],
     # q, kp, vp, ks, vs, table, lengths, out, part, counter, q_bf16, int8,

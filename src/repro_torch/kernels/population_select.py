@@ -11,22 +11,36 @@ per-client weights is the top-d of ``log w + Gumbel noise``
               * ``segmented`` — ``torch.topk`` per (nb, blk) segment, the
                 counterpart of the JAX package's XLA ``lax.top_k`` path;
               * ``pallas``   — K7, the hand-written CUDA kernel
-                ``block_topd`` (``csrc/population_select.cu``): d rounds of
-                max-and-mask per block.  The name is the JAX package's, so
-                one config reads the same in both.
-  stage 2   a stable descending sort of the nb*d candidates, first d kept.
+                (``csrc/population_select.cu``): each block's keys above a
+                bound (or a radix select), ranked in shared memory.  The
+                name is the JAX package's, so one config reads the same in
+                both.
+  stage 2   the d best of the nb*d candidates.  On the card K7 does it in
+            the same launch (the last block to finish merges); on the CPU a
+            stable sort.
 
-Every route returns the same indices in the same order as ``argsort``:
-descending key, and on equal keys the lower index first (``lax.top_k``'s
-and ``jnp.argmax``'s rule).  ``torch.topk`` leaves the order of ties
-undefined, so the segmented route takes only the d-th value from it and
-picks the tied keys at that value by lowest index itself, and the merge is
-``torch.sort(stable=True)``, never ``topk``.
+Each route orders keys as the JAX package's route of the same name does:
 
-Dispatch: ``block_topd`` launches K7 for a CUDA tensor (or raises) and runs
-its plain version ``block_topd_plain`` only for a CPU tensor; it counts its
-launches in ``.launches``.  ``draw_gumbel`` takes the noise from a
-``torch.Generator``; everything else is a pure function of the keys.
+  * ``segmented`` and ``pallas``'s merge rank by ``lax.top_k``'s total order
+    of floats, +0.0 above -0.0, and on equal bits the lower position first.
+    ``_order_key`` maps the bits to an int32 that orders that way, and the
+    ranking runs on it: the kth value from ``torch.topk`` (whose order of
+    ties is undefined), the tied keys at it picked by lowest index here, and
+    the merge a stable ``torch.sort``.
+  * ``pallas``'s stage 1 (``block_topd_plain``) keeps ``jnp.argmax``'s rule:
+    -0.0 equals +0.0, the first index wins.
+  * ``argsort`` and the d >= M route keep ``jnp.argsort``'s: -0.0 equals
+    +0.0, the lower index first.
+
+Gumbel keys are tie-free almost surely, so the routes agree on real draws;
+on keys tied at +-0.0 they differ as the JAX package's routes do.
+
+Dispatch: ``block_topd`` (stage 1) and ``topd_pallas`` (both stages) launch
+K7 for a CUDA tensor (or raise) and run the plain versions
+(``block_topd_plain``, ``topd_pallas_plain``) only for a CPU tensor; every
+launch counts one in ``block_topd.launches``.  ``draw_gumbel`` takes the
+noise from a ``torch.Generator``; everything else is a pure function of the
+keys.
 """
 from __future__ import annotations
 
@@ -48,26 +62,35 @@ def _pad_neg_inf(g, blk):
     return g, m + pad
 
 
+def _order_key(x):
+    """int32 image of fp32 bits in ``lax.top_k``'s order: a larger float has
+    a larger key, and +0.0 (0) sits above -0.0 (-1)."""
+    i = x.contiguous().view(torch.int32)
+    return i ^ ((i >> 31) & 0x7FFFFFFF)
+
+
 def topd_argsort(g, d):
     """O(M log M) full-sort baseline."""
     return torch.argsort(-g, stable=True)[:d].to(torch.int32)
 
 
-def _merge(v, gi, d):
-    """Stage 2: the d best of the candidates, in candidate order on ties."""
-    j = torch.sort(v.reshape(-1), descending=True, stable=True).indices[:d]
+def _merge(key, gi, d):
+    """Stage 2: the d best candidates by their ``_order_key``s, in candidate
+    order on equal keys."""
+    j = torch.sort(key.reshape(-1), descending=True, stable=True).indices[:d]
     return gi.reshape(-1)[j]
 
 
 def topd_segmented(g, d, *, blk=BLK):
-    """Blocked two-stage top-d: ``torch.topk`` per segment, then the merge.
-    Within a segment the candidates are in ``lax.top_k``'s order: the keys
-    above the d-th value, then as many keys equal to it as fill d, lowest
-    positions first, sorted by value with ties kept in position order."""
+    """Blocked two-stage top-d: ``torch.topk`` per segment, then the merge,
+    on the keys' ``_order_key``s.  Within a segment the candidates are in
+    ``lax.top_k``'s order: the keys above the d-th, then as many keys equal
+    to it as fill d, lowest positions first, sorted by key with ties kept
+    in position order."""
     blk = max(int(blk), d)
     g, mp = _pad_neg_inf(g.float(), blk)
     nb = mp // blk
-    seg = g.view(nb, blk)
+    seg = _order_key(g).view(nb, blk)
     kth = torch.topk(seg, d, dim=1).values[:, -1:]
     above = seg > kth
     tied = seg == kth
@@ -80,16 +103,16 @@ def topd_segmented(g, d, *, blk=BLK):
     pos = torch.zeros(nb, d + 1, dtype=torch.int64, device=g.device)
     pos.scatter_(1, col, torch.arange(blk, device=g.device).expand(nb, blk))
     pos = pos[:, :d]
-    val = seg.gather(1, pos)
-    order = torch.sort(val, dim=1, descending=True, stable=True).indices
-    val = val.gather(1, order)
+    key = seg.gather(1, pos)
+    order = torch.sort(key, dim=1, descending=True, stable=True).indices
+    key = key.gather(1, order)
     gi = (pos.gather(1, order)
           + torch.arange(nb, device=g.device)[:, None] * blk).to(torch.int32)
-    return _merge(val, gi, d)
+    return _merge(key, gi, d)
 
 
 # ---------------------------------------------------------------------------
-# K7 and its plain version
+# K7 and its plain versions
 # ---------------------------------------------------------------------------
 
 def block_topd_plain(g, d, blk):
@@ -109,41 +132,73 @@ def block_topd_plain(g, d, blk):
     return vals, (idx + base).to(torch.int32)
 
 
+def topd_pallas_plain(g, d, blk=BLK):
+    """Both stages of ``topd_pallas`` in plain torch: the keys padded with
+    -inf, ``block_topd_plain``, then the stable merge."""
+    blk = max(int(blk), d)
+    gp, _ = _pad_neg_inf(g.float(), blk)
+    v, gi = block_topd_plain(gp, d, blk)
+    return _merge(_order_key(v), gi, d)
+
+
+_COUNTERS = {}          # (device, stream) -> the merge's completion counter
+
+
+def _launch(g, d, blk, merge):
+    """K7 on g (M,) fp32 CUDA keys: (values (nb, d), indices (nb, d), and
+    the merged (d,) indices or None), nb = ceil(M / blk)."""
+    if g.device.type != "cuda":
+        raise ValueError(f"no kernel for device {g.device}")
+    if g.dtype != torch.float32:
+        raise TypeError(f"K7 takes float32 keys, got {g.dtype}")
+    if g.dim() != 1 or not g.is_contiguous():
+        raise ValueError("K7 takes one contiguous vector of keys")
+    m = g.shape[0]
+    if not 1 <= d <= blk:
+        raise ValueError(f"need 1 <= d <= blk, got d={d}, blk={blk}")
+    lib = _build.load()
+    if lib.ps_topd_smem(blk, d) > SMEM_LIMIT or m + blk >= 2 ** 31:
+        raise ValueError(f"blk={blk}, d={d}, M={m}: beyond K7's shared "
+                         "memory or int32 indices")
+    nb = -(-m // blk)
+    vals = torch.empty(nb, d, device=g.device)
+    idx = torch.empty(nb, d, dtype=torch.int32, device=g.device)
+    stream = torch.cuda.current_stream(g.device).cuda_stream
+    out = counter = None
+    if merge:
+        out = torch.empty(d, dtype=torch.int32, device=g.device)
+        key = (g.device.index, stream)
+        if key not in _COUNTERS:        # zeroed once; each launch leaves 0
+            _COUNTERS[key] = torch.zeros(1, dtype=torch.int32,
+                                         device=g.device)
+        counter = _COUNTERS[key]
+    ptr = lambda t: 0 if t is None else t.data_ptr()
+    rc = lib.ps_topd(g.data_ptr(), m, blk, d, vals.data_ptr(), idx.data_ptr(),
+                     ptr(out), ptr(counter), stream)
+    if rc != 0:
+        raise RuntimeError(f"ps_topd failed: CUDA error {rc}")
+    block_topd.launches += 1
+    return vals, idx, out
+
+
 def block_topd(g, d, blk):
-    """K7.  g: (nb*blk,) fp32 keys padded with -inf -> (values (nb, d) fp32,
-    global indices (nb, d) int32): each block's top-d in extraction order.
+    """K7's stage 1.  g: (nb*blk,) fp32 keys padded with -inf -> (values
+    (nb, d) fp32, global indices (nb, d) int32): each block's top-d in
+    extraction order.
 
     Replaces ``repro/kernels/population_select.py:topd_pallas``
     (``_block_topd_body``).  Bound: bytes (each key read once, 8 B written
-    per candidate).  Design: one CTA per block holds its keys in shared
-    memory and runs d rounds of a strided (max, lowest index) scan, a
-    warp-shuffle and one shared-memory reduction, and a masked write.
+    per candidate).  Design (``csrc/population_select.cu``): one CTA per
+    block reads the keys once into shared memory; for d <= 256 a bound from
+    the warps' sorted thread maxima keeps ~2d keys, ranked by counting,
+    else a radix select (one barrier a pass, at most six); no step repeats
+    d times.
     """
     if g.dim() != 1 or g.shape[0] % blk:
         raise ValueError(f"keys must be (nb * {blk},), got {tuple(g.shape)}")
     if g.device.type == "cpu":
         return block_topd_plain(g, d, blk)
-    if g.device.type != "cuda":
-        raise ValueError(f"no kernel for device {g.device}")
-    if g.dtype != torch.float32:
-        raise TypeError(f"K7 takes float32 keys, got {g.dtype}")
-    if not g.is_contiguous():
-        raise ValueError("K7 takes contiguous keys")
-    if not 1 <= d <= blk:
-        raise ValueError(f"need 1 <= d <= blk, got d={d}, blk={blk}")
-    if 4 * blk > SMEM_LIMIT - 1024 or g.shape[0] >= 2 ** 31:
-        raise ValueError(f"blk={blk}, M={g.shape[0]}: beyond K7's shared "
-                         "memory or int32 indices")
-    nb = g.shape[0] // blk
-    vals = torch.empty(nb, d, device=g.device)
-    idx = torch.empty(nb, d, dtype=torch.int32, device=g.device)
-    rc = _build.load().ps_block_topd(
-        g.data_ptr(), vals.data_ptr(), idx.data_ptr(), nb, blk, d,
-        torch.cuda.current_stream().cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"ps_block_topd failed: CUDA error {rc}")
-    block_topd.launches += 1
-    return vals, idx
+    return _launch(g, d, blk, merge=False)[:2]
 
 
 def reset_launch_counts():
@@ -159,12 +214,14 @@ reset_launch_counts()
 
 
 def topd_pallas(g, d, *, blk=BLK):
-    """Stage-1 candidates from K7 (its plain version on the CPU), stage-2
-    merge by a stable sort."""
+    """Both stages through K7: on the card one launch on the unpadded keys,
+    which merges the candidates in its last block (no padding copy, no
+    sort); on the CPU ``topd_pallas_plain``."""
     blk = max(int(blk), d)
-    g, _ = _pad_neg_inf(g.float(), blk)
-    v, gi = block_topd(g, d, blk)
-    return _merge(v, gi, d)
+    g = g.float()
+    if g.device.type == "cpu":
+        return topd_pallas_plain(g, d, blk)
+    return _launch(g, d, blk, merge=True)[2]
 
 
 def topd(g, d, *, method="segmented", blk=BLK):

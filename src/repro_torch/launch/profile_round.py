@@ -52,8 +52,8 @@ SPANS = ("attack", "client_update", "transport", "selection", "delivery",
 # and K6a-c are the same templated kernels (pass1_ranks / pass1_partials,
 # combine_*, gram_partials) over two row sources; reduce_partials serves
 # both.  Pass 1's body (K1 or K6a, without its reduce) is also summed
-# apart.  K7 (block_topd_kernel) launches inside the selection span and is
-# likewise summed by name.
+# apart.  K7 (block_topd_kernel, the cohort's top-d with its merge in one
+# launch) launches inside the selection span and is likewise summed by name.
 OWN_KERNELS = {"K1-K3": ("DenseRows",), "K6a-c": ("QuantRows",),
                "reduce_partials": ("reduce_partials",),
                "pass 1 (K1/K6a)": ("pass1_",), "K7": ("block_topd",)}

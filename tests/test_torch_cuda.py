@@ -1,7 +1,8 @@
 """The port on the card: each CUDA kernel against its plain version (and
 K6a-c bitwise against K1-K3 on the masked decode, K5 bitwise against K2's
 rank modes, the flat wrappers K4a-c bitwise against K1-K3, K7's candidates
-bitwise against ``block_topd_plain``), the Gram kernels K3 and K6c past 64
+bitwise against ``block_topd_plain`` and its fused stage 2 bitwise against
+the CPU path's merge), the Gram kernels K3 and K6c past 64
 rows, the combine family (K2, K4b, K5, K6b) and the pass-1 family (K1,
 K4a, K6a) at every register bucket, the shared tile and each alignment of
 N (pass 1 also on unaligned views, and with non-finite rows), the
@@ -40,6 +41,7 @@ from repro_torch.kernels import pass1_checks
 from repro_torch.kernels import population_select as ps
 from repro_torch.kernels import robust_agg as ra
 from repro_torch.kernels import robust_pipeline as rp
+from repro_torch.kernels import topd_checks
 from repro_torch.models.attention import _paged_quant
 from repro_torch.models.model import build
 from repro_torch.serve import ServeConfig, ServeEngine
@@ -221,24 +223,30 @@ def test_int8_round_on_card_matches_cpu(card, aggregator):
     assert dq.launch_counts()["dequant_gate_partials"] == 3
 
 
-@pytest.mark.parametrize("m,d,blk,dup", [
-    (1_000_000, 64, 4096, False), (16_384, 16, 4096, False),
-    (10_007, 64, 4096, False), (10_007, 64, 64, False),   # exhausted blocks
-    (3 * 4096, 64, 4096, True), (300, 5, 64, True)])
-def test_block_topd_matches_plain(card, m, d, blk, dup):
-    rng = np.random.default_rng(m + d)
-    g = rng.integers(0, 30, m) if dup else rng.standard_normal(m)
-    g = torch.from_numpy(g.astype(np.float32)).to(card)
-    gp, _ = ps._pad_neg_inf(g, blk)
-    ps.reset_launch_counts()
-    v, gi = ps.block_topd(gp, d, blk)
-    assert ps.launch_counts() == {"block_topd": 1}
-    pv, pgi = ps.block_topd_plain(gp, d, blk)
-    assert torch.equal(v.view(torch.int32), pv.view(torch.int32))
-    assert torch.equal(gi, pgi)
-    ref = ps.topd_argsort(g, d)
-    for method in ps.METHODS:
-        assert torch.equal(ps.topd(g, d, method=method, blk=blk), ref), method
+@pytest.mark.parametrize("label,m,d,blk,kind", topd_checks.CASES)
+def test_block_topd_matches_plain(card, label, m, d, blk, kind):
+    """K7's candidates bitwise ``block_topd_plain``'s, one launch a call,
+    over ``topd_checks.CASES``: Gumbel keys at the async path's and the
+    reference's shapes, ragged and exhausted blocks, M = 4,097, d = 1,
+    1,024 and blk, duplicates, +-0.0 mixtures, all-equal blocks, exactly d
+    finite keys a block, and unaligned views; where no signed zero or
+    exhausted tail reaches the top-d, every route gives argsort's order."""
+    g = topd_checks.keys(m, d, blk, kind, m + d, card)
+    assert topd_checks.candidates(g, d, blk) == 0.0
+    if kind in topd_checks.ARGSORT_KINDS:
+        topd_checks.every_route(g, d, blk)
+
+
+@pytest.mark.parametrize("label,m,d,blk,kind", topd_checks.CASES)
+def test_fused_topd_matches_cpu_path(card, label, m, d, blk, kind):
+    """The fused launch (``topd_pallas`` on the unpadded keys: stage 1 and
+    the merge in one launch) gives bitwise the (d,) indices of the CPU path
+    (``block_topd_plain`` then ``_merge``) on the same keys, launching K7
+    once a call; two calls agree, the completion counter left at 0."""
+    g = topd_checks.keys(m, d, blk, kind, m + d, card)
+    out = topd_checks.fused(g, d, blk)
+    assert torch.equal(topd_checks.fused(g, d, blk), out)
+    assert all(int(c) == 0 for c in ps._COUNTERS.values())
 
 
 def test_block_topd_wrapper_checks_and_routes(card):

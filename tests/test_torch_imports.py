@@ -125,8 +125,8 @@ def test_chip_smoke_names_the_register_bodies_in_ptxas_report():
     line a register body: K8 by row block, vector, vectors a lane and
     pool; the combine's rank network by bucket, columns a thread and
     whether C fills the bucket; pass 1's by bucket, columns a thread and
-    loads, and its shared tile by row source; registers and spills as
-    ptxas printed them."""
+    loads, and its shared tile by row source; K7's one body by name;
+    registers and spills as ptxas printed them."""
     sys.path.insert(0, str(ROOT))
     import chip_smoke
     entries = {
@@ -143,6 +143,7 @@ def test_chip_smoke_names_the_register_bodies_in_ptxas_report():
         "_ZN12_GLOBAL__N_114pass1_partialsINS_9DenseRowsEEEvT_PKfPfiii":
             (40, 0),
         "_ZN12_GLOBAL__N_114reduce_partialsEPKfPfii": (20, 0),
+        "_ZN12_GLOBAL__N_117block_topd_kernelEPKfiiiiPfPiS3_S3_": (64, 0),
     }
     log = "".join(
         f"ptxas info    : Compiling entry function '{name}' for 'sm_90a'\n"
@@ -151,6 +152,8 @@ def test_chip_smoke_names_the_register_bodies_in_ptxas_report():
         f"spill loads\nptxas info    : Used {regs} registers, 400 bytes "
         "cmem[0]\n" for name, (regs, spill) in entries.items())
     assert chip_smoke.ptxas_report(log) == {
+        "block_topd_kernel":
+            "64 registers, 0 B spill stores, 0 B spill loads",
         "combine_mean<QuantRows, 2>":
             "48 registers, 0 B spill stores, 0 B spill loads",
         "combine_ranks<DenseRows, 16, 2, C == B>":

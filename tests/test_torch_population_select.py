@@ -8,8 +8,12 @@ CUDA kernel is held against that on the card (tests/test_torch_cuda.py and
 ``chip_smoke.py``).
 
 Everything here is exact: indices are compared in order, including keys
-with many duplicates (ties go to the lower index on every route), and K7's
-stage-1 candidates bitwise, including the blocks whose finite keys run out.
+with many duplicates (ties go to the lower index on every route) and keys
+tied at +-0.0, where each route follows the JAX package's route of the same
+name (``lax.top_k`` puts +0.0 above -0.0 on the segmented and pallas routes,
+``jnp.argsort`` ties them), and K7's stage-1 candidates bitwise, including
+the blocks whose finite keys run out and the merge over their repeated
+tails.
 """
 import functools
 
@@ -85,6 +89,99 @@ def test_block_topd_plain_matches_pallas_candidates(m, d, blk, dup):
     assert v.dtype == torch.float32 and gi.dtype == torch.int32
     np.testing.assert_array_equal(v.numpy().view(np.int32), jv.view(np.int32))
     np.testing.assert_array_equal(gi.numpy(), jgi)
+
+
+def _signed_zeros(m, seed, finite=None):
+    """Keys from {1.0, -0.0, +0.0, -1.0}, so rare 1.0s that every top-d
+    reaches into the zeros tied at +-0.0; with ``finite``, only that many of
+    them, at random positions, the rest -inf."""
+    rng = np.random.default_rng(seed)
+    g = rng.choice(np.array([1.0, -0.0, 0.0, -1.0], np.float32), m,
+                   p=[0.002, 0.4, 0.4, 0.198])
+    if finite is not None:
+        keep = np.zeros(m, bool)
+        keep[rng.choice(m, finite, replace=False)] = True
+        g[~keep] = -np.inf
+    return g
+
+
+def test_signed_zero_minimal_case():
+    """[-0.0, +0.0, -1.0], d = 2: ``lax.top_k`` puts +0.0 above -0.0 on the
+    segmented and pallas routes; ``jnp.argsort`` ties the zeros."""
+    g = np.array([-0.0, 0.0, -1.0], np.float32)
+    want = {"argsort": [0, 1], "segmented": [1, 0], "pallas": [1, 0]}
+    for method in ps.METHODS:
+        jout = np.asarray(jps.topd(jnp.asarray(g), 2, method=method, blk=64))
+        out = ps.topd(torch.from_numpy(g), 2, method=method, blk=64)
+        np.testing.assert_array_equal(jout, want[method], err_msg=method)
+        np.testing.assert_array_equal(out.numpy(), want[method],
+                                      err_msg=method)
+
+
+@pytest.mark.parametrize("method", ps.METHODS)
+@pytest.mark.parametrize("m,d,blk", [(200, 16, 64), (300, 64, 64),
+                                     (4097, 16, 4096), (10007, 64, 4096)])
+def test_signed_zero_keys_match_jax_route(method, m, d, blk):
+    """Keys tied at +-0.0: each route of the port gives the JAX package's
+    route of the same name (pallas with K7 in interpret mode)."""
+    g = _signed_zeros(m, seed=m + d)
+    jout = np.asarray(jps.topd(jnp.asarray(g), d, method=method, blk=blk))
+    out = ps.topd(torch.from_numpy(g), d, method=method, blk=blk)
+    np.testing.assert_array_equal(out.numpy(), jout)
+
+
+@pytest.mark.parametrize("m,d", [(300, 16), (300, 300), (40, 64)])
+def test_argsort_route_matches_jnp_argsort(m, d):
+    """The argsort route, and every route when d >= M, is ``jnp.argsort``'s
+    order: -0.0 tied with +0.0, the lower index first."""
+    g = _signed_zeros(m, seed=m + d)
+    ref = np.asarray(jnp.argsort(-jnp.asarray(g)))[:d]
+    np.testing.assert_array_equal(
+        ps.topd_argsort(torch.from_numpy(g), d).numpy(), ref)
+    for method in ps.METHODS if d >= m else ("argsort",):
+        out = ps.topd(torch.from_numpy(g), d, method=method)
+        np.testing.assert_array_equal(out.numpy(), ref, err_msg=method)
+
+
+@pytest.mark.parametrize("m,d,blk", [(300, 40, 64), (100, 16, 64),
+                                     (1000, 64, 256)])
+def test_signed_zero_candidates_match_pallas(m, d, blk):
+    """K7's stage 1 on +-0.0 ties (argmax's rule: the zeros equal, the first
+    index wins), bitwise against the JAX package's kernel."""
+    g = _signed_zeros(m, seed=m)
+    jv, jgi = _jax_candidates(g, d, blk)
+    gp, _ = ps._pad_neg_inf(torch.from_numpy(g), blk)
+    v, gi = ps.block_topd(gp, d, blk)
+    np.testing.assert_array_equal(v.numpy().view(np.int32), jv.view(np.int32))
+    np.testing.assert_array_equal(gi.numpy(), jgi)
+
+
+@pytest.mark.parametrize("m,d,blk", [(300, 40, 64), (100, 16, 64),
+                                     (1000, 64, 256)])
+def test_exhausted_tails_merge_matches_jax_pallas(m, d, blk):
+    """Blocks with fewer than d keys above -inf end in repeated (-inf,
+    first index) candidates, and the merge takes them in candidate order:
+    the pallas route repeats those indices as the JAX package's
+    ``topd_pallas`` does (interpret mode), on +-0.0 ties too."""
+    g = _signed_zeros(m, seed=m + 1, finite=d // 2)  # tails reach the top-d
+    jout = np.asarray(jps.topd_pallas(jnp.asarray(g), d, blk=blk))
+    out = ps.topd(torch.from_numpy(g), d, method="pallas", blk=blk).numpy()
+    np.testing.assert_array_equal(out, jout)
+    assert len(set(out.tolist())) < d               # repeated indices
+    np.testing.assert_array_equal(
+        ps.topd_pallas_plain(torch.from_numpy(g), d, blk).numpy(), jout)
+
+
+def test_order_key_is_lax_top_k_order():
+    """``_order_key`` orders floats as ``lax.top_k`` does: -inf < ... < -0.0
+    < +0.0 < ... < +inf, each bit pattern its own key."""
+    x = np.array([-np.inf, -3.5, -1.0, -1e-30, -0.0, 0.0, 1e-30, 2.0,
+                  np.inf], np.float32)
+    k = ps._order_key(torch.from_numpy(x)).numpy()
+    assert k.dtype == np.int32 and (np.diff(k.astype(np.int64)) > 0).all()
+    _, j = jax.lax.top_k(jnp.asarray(x[::-1].copy()), len(x))
+    np.testing.assert_array_equal(np.argsort(-k.astype(np.int64)),
+                                  len(x) - 1 - np.asarray(j))
 
 
 def test_exhausted_block_repeats_its_first_index():
