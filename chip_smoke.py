@@ -66,10 +66,13 @@ Phases, one line each (a failure raises, so the exit code is not 0):
               stage 1 alone, ``torch.topk`` and the plain version, beside
               the bound and the earlier design's (K7_BEFORE_MS).
   3. round    the port's main path: the full-width paper-cnn FedFiTS round
-              through ``fedfits.run``, 10 rounds under fedavg, then 2 each
+              through ``fedfits.run`` and its default chunked driver (the
+              round captured once as a CUDA graph and replayed, one host
+              read a chunk of 8), 10 rounds under fedavg, then 2 each
               under trimmed_mean, median and krum; every kernel must have
-              launched; round 1 is run again through the CPU port and must
-              give the same team and the same params.
+              launched (replays count); round 1 is run again through the
+              CPU port and must give the same team and the same params.
+              Phases 4-6 run through the same driver.
   4. compressed round
               the same round with ``compress="int8"`` and error feedback:
               4 rounds under fedavg, then 2 each under trimmed_mean, median
@@ -90,6 +93,26 @@ Phases, one line each (a failure raises, so the exit code is not 0):
               park and land; trimmed_mean test_acc must rise; round 1 again
               on the CPU port with the card's draws must give the same
               cohort, on-time mask and buffer, params within 1e-5.
+  5b. parity  driver="scan" against driver="python" on the card, the per-
+              round loop run twice, under cuDNN's deterministic algorithms:
+              paper-cnn FedFiTS with availability 0.8 and explore 0.1
+              under fedavg, trimmed_mean and krum and int8 with error
+              feedback (7 rounds, chunks of 3, so the last is partial),
+              the async trimmed_mean round at M=16,384 with stragglers (7
+              rounds, chunks of 4), and the registry cell
+              ``hetero_fedfits`` with a Gaussian update attack (stragglers,
+              partial work, a noisy attack; 6 rounds through
+              ``run_scenario``): every state tensor and history value
+              bitwise, the kernels' launches equal.  Then fedavg under
+              cuDNN's default algorithms, whose conv backward does not
+              repeat: the two loops differ, and scan must give the loop's
+              masks and every other value within PARITY_DEFAULT_ATOL.
+  5c. timing  the round wall under both drivers in this run
+              (``repro_torch.launch.profile_round.measure``): the sync
+              fedavg and the async trimmed_mean round, median of 10 steady
+              rounds (one host read each), the scan driver's wall a round
+              over a chunk of 10, and one traced round's device busy time,
+              idle share and launches from the host.
   6. robustness
               (a) the port's examples/poisoning_defense.py: paper-mlp on
               the tabular federation (n=1600, K=10, 22 classes), 2 clients
@@ -154,7 +177,14 @@ Phases, one line each (a failure raises, so the exit code is not 0):
               row read) must fail the same check.  Then 13 steady decode
               steps at 16 slots, the last 3 traced (device busy, idle
               share, K8's share).  Prints decode-step ms and tokens/s
-              beside the card.
+              beside the card.  The engines replay their decode step
+              captured as a CUDA graph; the 48 requests run again with
+              ``_decode`` called eagerly a step (the same tokens), and the
+              steady steps are timed and traced both ways (the eager trace
+              names its copy kernels by shape).  Then 10 replayed decode
+              steps against ``_decode`` eagerly on two copies of the same
+              16-slot state, at temperature 0 and 0.7: tokens, lengths and
+              pools bitwise.
   8. forward  ``Model.forward`` on (2, 1024) tokens at full width and
               depth with attn_impl="pallas": K9 must launch 32 times, the
               logits be finite, and the last hidden state agree with the
@@ -289,6 +319,19 @@ ROBUST_CELLS = ("alie_trimmed", "minmax_trimmed", "gate_aware_krum",
 REPLAY_CELLS = ("hetero_fedfits", "gate_aware_int8_dropout",
                 "async_late_poison_krum+retries4")
 ROBUST_ROUNDS, ROBUST_K = 6, 16
+# phase 5b: driver="scan" against driver="python" on the card, bitwise
+# under cuDNN's deterministic algorithms.  Under its defaults the conv's
+# backward does not repeat: two runs of the per-round loop differ by
+# 3.6e-7 to 1.3e-6 over 7 fp32 rounds, scan from the loop by up to 8.9e-6
+# (PERF.md section 6), so there the masks must be equal and the rest within
+# PARITY_DEFAULT_ATOL
+PARITY_ROUNDS, PARITY_CHUNK = 7, 3          # a partial chunk at the end
+PARITY_AGGS = ("fedavg", "trimmed_mean", "krum")
+PARITY_CELL = "hetero_fedfits+gaussian"     # a noisy attack and faults
+PARITY_DEFAULT_ATOL = 1e-4
+MASK_KEYS = ("team", "h_next", "avail", "lost", "gated", "eff_epochs",
+             "cohort", "on_time", "due", "exhausted")
+SERVE_PARITY_STEPS = 10
 DEVICE = "cuda"
 # phases 2c, 7, 8: K8, K9, serving and the full forward on minitron-4b
 K8_SOURCE = "src/repro_torch/csrc/paged_decode.cu"
@@ -1071,7 +1114,8 @@ def _drive(label, model, fed, evaluate, schedule, make_cfg, cap):
         return batch
 
     def eval_first(params):
-        cap.setdefault("params1", clone(params))
+        if "params1" not in cap:        # round 1 (the eager warm-up step)
+            cap["params1"] = clone(params)
         return evaluate(params)
 
     runs = {}
@@ -1238,6 +1282,7 @@ def _async_round1_on_cpu(model, pop, faults):
     from torch.profiler import ProfilerActivity, profile
     from repro_torch import tree
     from repro_torch.core import async_engine as ae
+    from repro_torch.launch.profile_round import busy_ms
     cfg = _async_cfg("trimmed_mean")
     cpu = lambda t: tree.map(lambda v: v.cpu(), t)
     gen = lambda s: torch.Generator(DEVICE).manual_seed(s)
@@ -1251,8 +1296,9 @@ def _async_round1_on_cpu(model, pop, faults):
         gpu, m_gpu = round_fn(state, draws)
         torch.cuda.synchronize()
     dev_events = [e for e in prof.events()
-                  if e.device_type == DeviceType.CUDA]
-    busy = sum(e.self_device_time_total for e in dev_events) / 1e3
+                  if e.device_type == DeviceType.CUDA
+                  and not e.is_user_annotation]
+    busy = busy_ms(dev_events)
     print(f"[async] round 1 traced: {len(dev_events)} device events, "
           f"device busy {busy:.3f} ms")
     _, round_cpu = ae.make_async_round(model, cfg, cpu(pop), faults=faults)
@@ -1279,7 +1325,8 @@ def _async_round1_on_cpu(model, pop, faults):
 
 def _async_phase(model):
     """Phase 5: the buffered-async engine at full width; returns K7's and
-    K1-K3's launch counts over the run."""
+    K1-K3's launch counts over the run, and (the federation, its server
+    test set, the stragglers' FaultConfig) for phase 5b."""
     import torch
     from repro_torch import tree
     from repro_torch.core import async_engine as ae
@@ -1352,7 +1399,164 @@ def _async_phase(model):
     m1 = _async_round1_on_cpu(model, pop, late)
     if not torch.equal(m1["cohort"].cpu(), torch.from_numpy(tm[0]["cohort"])):
         raise AssertionError("async round 1 rerun: not run_async's cohort")
-    return counts
+    return counts, (fed, test, late)
+
+
+def _run_diff(a, b):
+    """(largest |a - b|, the keys whose bits differ) of two (state or
+    summary, history) runs: every state tensor and every history value
+    (host clocks aside); (0.0, []) when they are bitwise equal."""
+    import numpy as np
+    import torch
+    from repro_torch import tree
+    (sa, ha), (sb, hb) = a, b
+    worst, keys = 0.0, set()
+    for ra, rb in zip(ha, hb):
+        for k, v in ra.items():
+            if k in ("wall_ms", "chunk_ms"):
+                continue
+            x, y = np.asarray(v), np.asarray(rb[k])
+            if x.dtype != y.dtype or x.tobytes() != y.tobytes():
+                keys.add(k)
+                worst = max(worst, float(np.max(np.abs(
+                    x.astype(np.float64) - y.astype(np.float64)))))
+    if isinstance(sa, dict):                    # run_scenario's summaries
+        for k, v in sa.items():
+            if k != "wall_s" and v != sb[k]:
+                keys.add(k)
+        return worst, sorted(keys)
+    tb = dict(_state_tensors(sb))
+    for name, x in _state_tensors(sa):
+        y = tb[name]
+        if name == "buf.rows":      # the drop row takes the dropped parks in
+            x, y = x[:-1], y[:-1]   # no set order and is never read
+        if not torch.equal(x, y):
+            keys.add(name)
+            worst = max(worst, float((x.double() - y.double()).abs().max()))
+    return worst, sorted(keys)
+
+
+def _state_tensors(state, path=""):
+    """(dotted path, tensor) of every tensor in a round state."""
+    import torch
+    if isinstance(state, torch.Tensor):
+        yield path.rstrip("."), state
+    elif hasattr(state, "_fields"):
+        for f in state._fields:
+            yield from _state_tensors(getattr(state, f), f"{path}{f}.")
+    elif isinstance(state, dict):
+        for k in sorted(state):
+            yield from _state_tensors(state[k], f"{path}{k}.")
+    elif isinstance(state, (list, tuple)):
+        for i, v in enumerate(state):
+            yield from _state_tensors(v, f"{path}{i}.")
+
+
+def _parity_case(label, run, atol=None):
+    """One parity case: ``run(driver)`` twice under ``python`` and once
+    under ``scan``.  With ``atol`` None the two loops and scan must be
+    bitwise equal; else (cuDNN's default algorithms, under which the loop
+    itself does not repeat) every mask must be equal and every other value
+    within ``atol``.  The kernels' launches must be equal."""
+    from repro_torch.kernels import launches
+    out, counts = {}, {}
+    for name, drv in (("python", "python"), ("python'", "python"),
+                      ("scan", "scan")):
+        before = launches.snapshot()
+        out[name] = run(drv)
+        counts[name] = {f"{f.__name__}[{m}]" if m else f.__name__: n
+                        for (f, m), n in launches.since(before).items()}
+    spread, s_keys = _run_diff(out["python'"], out["python"])
+    err, e_keys = _run_diff(out["scan"], out["python"])
+    word = lambda e, k: "bitwise" if not k else f"max abs {e:.3e} in {k}"
+    print(f"[parity] {label}: scan vs python {word(err, e_keys)}; two "
+          f"python runs {word(spread, s_keys)}; launches {counts['scan']}")
+    if counts["scan"] != counts["python"]:
+        raise AssertionError(f"{label}: scan launched {counts['scan']}, "
+                             f"python {counts['python']}")
+    if atol is None and (e_keys or s_keys):
+        raise AssertionError(f"{label}: not bitwise")
+    if atol is not None and (err > atol or set(e_keys) & set(MASK_KEYS)):
+        raise AssertionError(f"{label}: scan is not the per-round loop "
+                             f"within {atol}")
+
+
+def _parity(model, fed, evaluate, async_side):
+    """Phase 5b: driver="scan" (the round captured as a CUDA graph and
+    replayed) against driver="python" on the card: bitwise under cuDNN's
+    deterministic algorithms, and within PARITY_DEFAULT_ATOL under its
+    defaults, whose convolution backward does not repeat."""
+    import torch
+    from repro_torch.core import async_engine as ae
+    from repro_torch.core import fedfits
+    from repro_torch.scenarios import run_scenario
+    t0 = time.perf_counter()
+    sync = lambda cfg: lambda drv: fedfits.run(
+        model, cfg, fed.data_fn, PARITY_ROUNDS, 0, eval_fn=evaluate,
+        driver=drv, chunk_rounds=PARITY_CHUNK)
+    afed, atest, late = async_side
+
+    def aeval(params):
+        _, met = model.loss(params, atest)
+        return {"test_acc": met["acc"]}
+
+    sc = _cell(PARITY_CELL)
+    torch.backends.cudnn.deterministic = True
+    try:
+        for agg in PARITY_AGGS:
+            _parity_case(f"sync {agg} {PARITY_ROUNDS} rounds", sync(
+                _fed_cfg(agg, avail_prob=0.8, explore_eps=0.1)))
+        _parity_case(f"sync trimmed_mean int8+EF {PARITY_ROUNDS} rounds",
+                     sync(_fed_cfg("trimmed_mean", avail_prob=0.8,
+                                   explore_eps=0.1, compress="int8",
+                                   error_feedback=True)))
+        _parity_case(
+            f"async trimmed_mean M={ASYNC_M} {PARITY_ROUNDS} rounds",
+            lambda drv: ae.run_async(model, _async_cfg("trimmed_mean"),
+                                     afed.data, PARITY_ROUNDS, 0,
+                                     eval_fn=aeval, faults=late, driver=drv))
+        _parity_case(
+            f"scenario {PARITY_CELL} {ROBUST_ROUNDS} rounds",
+            lambda drv: run_scenario(sc, n_clients=ROBUST_K,
+                                     n_rounds=ROBUST_ROUNDS, kind="images",
+                                     arch="paper-cnn", n=4000, driver=drv))
+    finally:
+        torch.backends.cudnn.deterministic = False
+    _parity_case(f"sync fedavg {PARITY_ROUNDS} rounds, cuDNN's default "
+                 "algorithms", sync(_fed_cfg("fedavg", avail_prob=0.8,
+                                             explore_eps=0.1)),
+                 atol=PARITY_DEFAULT_ATOL)
+    print(f"[parity] phase 5b took {time.perf_counter() - t0:.1f} s")
+
+
+def _timing(fed, async_side, smi):
+    """Phase 5c: the round wall under both drivers, in this run: the median
+    of 10 steady rounds, device busy, idle share and launches from the
+    host in one traced round (``repro_torch.launch.profile_round``)."""
+    import types
+    import torch
+    from repro_torch.launch import profile_round as pr
+    dev = torch.device(DEVICE)
+    gen = lambda s: torch.Generator(device=dev).manual_seed(s)
+    out = {}
+    for engine, agg, setup, f in (
+            ("sync", "fedavg", pr.sync_round, fed),
+            ("async", "trimmed_mean", pr.async_round, async_side[0])):
+        args = types.SimpleNamespace(aggregator=agg, compress="none")
+        for drv in ("python", "scan"):
+            m = pr.measure(*setup(args, dev, gen, fed=f), driver=drv,
+                           device=dev)
+            out[engine, drv] = m
+            chunk = (f", {m['chunk_round_ms']:.3f} ms a round over a chunk "
+                     f"of {pr.ROUNDS}" if "chunk_round_ms" in m else "")
+            print(f"[timing] {engine} {agg} driver={drv}: round wall median "
+                  f"{m['median_ms']:.3f} ms (min {min(m['walls']):.3f}, max "
+                  f"{max(m['walls']):.3f}){chunk}; traced round wall "
+                  f"{m['traced_ms']:.3f} ms, device busy {m['busy_ms']:.3f} "
+                  f"ms (kernels summed {m['kernel_ms']:.3f}), idle share "
+                  f"{m['idle']:.3f}, {m['host_launches']} launches from the "
+                  f"host | {smi}")
+    return out
 
 
 def _counts():
@@ -1457,8 +1661,8 @@ def _poisoning_defense():
 
 
 def _cell(name):
-    """A registry cell, with a ``+partial0.1``, ``+gate0`` or ``+retries4``
-    variant."""
+    """A registry cell, with a ``+partial0.1``, ``+gate0``, ``+retries4``
+    or ``+gaussian`` (a noisy update attack, sigma 0.05) variant."""
     import dataclasses
     from repro_torch.scenarios import registry
     base, _, variant = name.partition("+")
@@ -1470,6 +1674,8 @@ def _cell(name):
         sc = sc.replace(fed=(("cosine_outlier_thresh", 0.0),))
     elif variant == "retries4":
         sc = sc.replace(fed=(("async_max_retries", 4),))
+    elif variant == "gaussian":
+        sc = sc.replace(attack="gaussian", attack_scale=0.05)
     return sc
 
 
@@ -1985,47 +2191,161 @@ def _complete(label, results, stats, reqs, scfg):
                              f"{scfg.total_pages} pages back in the pool")
 
 
-def _traced_decode(engine, reqs):
+def _eager_engine(cfg, scfg, params):
+    """A ServeEngine whose ``run`` calls ``_decode`` eagerly a step, as the
+    engine did before its step was captured: the timing baseline."""
+    from repro_torch.core.driver import copy_into
+    from repro_torch.serve import ServeEngine
+    from repro_torch.serve import engine as serve_engine
+
+    class Eager(ServeEngine):
+        def _step(self, cache, st):
+            _, st2, out = self._decode(self.params, cache, st)
+            host = serve_engine._to_host(out)
+            copy_into(st, st2)
+            return host
+
+    return Eager(cfg, scfg, params)
+
+
+def _admit_own(engine, reqs):
+    """``reqs`` admitted into the engine's own state, reset first."""
+    from repro_torch.core.driver import copy_into
+    cache, st = engine._reset()
+    _, st2, _ = _admit(engine, cache, st, reqs)
+    copy_into(st, st2)
+    return cache, st
+
+
+def _steady_decode(engine, reqs, replay):
     """Steady decode steps at full occupancy: ``reqs`` admitted, 3 warm-up
     steps, 10 timed on the host clock (each ending in a synchronize), then
-    3 traced: device busy ms, idle share and K8's share of device time."""
+    3 traced: device busy ms, idle share, K8's share of device time and the
+    launches from the host.  ``replay``: the engine's captured step on its
+    own state, else ``_decode`` called eagerly on a fresh one, whose trace
+    also names the copy kernels by the shapes of the ``aten::copy_`` that
+    launch them.  Returns the step median."""
     import statistics
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    cache, st, _ = _admit(engine, *engine.fresh_state(), reqs)
+    from repro_torch.launch.profile_round import HOST_LAUNCHES, busy_ms
+    if replay:
+        cache, st = _admit_own(engine, reqs)
+        step = lambda: engine._step(cache, st)
+    else:
+        box = list(_admit(engine, *engine.fresh_state(), reqs)[:2])
+
+        def step():
+            box[0], box[1], _ = engine._decode(engine.params, *box)
     walls = []
     for i in range(13):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        cache, st, _ = engine._decode(engine.params, cache, st)
+        step()
         torch.cuda.synchronize()
         if i >= 3:
             walls.append(1e3 * (time.perf_counter() - t0))
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=not replay) as prof:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for _ in range(3):
-            cache, st, _ = engine._decode(engine.params, cache, st)
+            step()
         torch.cuda.synchronize()
         traced = 1e3 * (time.perf_counter() - t0)
-    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    busy = sum(e.self_device_time_total for e in dev) / 1e3
+    events = prof.events()
+    dev = [e for e in events if e.device_type == DeviceType.CUDA
+           and not e.is_user_annotation]
+    host = sum(1 for e in events if e.device_type == DeviceType.CPU
+               and any(k in e.name for k in HOST_LAUNCHES))
+    busy = busy_ms(dev)
     by_name = {}
     for e in dev:
         by_name[e.name] = by_name.get(e.name, 0.0) + \
             e.self_device_time_total / 1e3
     k8 = sum(ms for n, ms in by_name.items() if "pd_kernel" in n)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
-    print(f"[serve] steady decode at {len(reqs)} slots: step ms median "
-          f"{statistics.median(walls):.3f} (min {min(walls):.3f}, max "
-          f"{max(walls):.3f}); 3 traced steps: wall {traced:.3f} ms, device "
-          f"busy {busy:.3f} ms, idle share {1 - busy / traced:.3f}, K8 "
-          f"{k8:.3f} ms ({k8 / max(busy, 1e-9):.3f} of device time), "
-          f"{len(dev)} device events")
+    med = statistics.median(walls)
+    print(f"[serve] steady decode at {len(reqs)} slots, "
+          f"{'replayed graph' if replay else 'eager _decode'}: step ms "
+          f"median {med:.3f} (min {min(walls):.3f}, max {max(walls):.3f}); "
+          f"3 traced steps: wall {traced:.3f} ms, device busy {busy:.3f} "
+          f"ms (kernels summed {sum(by_name.values()):.3f}), idle share "
+          f"{1 - busy / traced:.3f}, K8 {k8:.3f} ms "
+          f"({k8 / max(busy, 1e-9):.3f} of device time), {len(dev)} device "
+          f"events, {host / 3:.0f} launches from the host a step")
     for name, ms in top:
         print(f"[serve]   {ms:8.3f} ms  {name[:90]}")
+    if not replay:
+        copies = sorted((e for e in prof.key_averages(
+            group_by_input_shape=True) if e.key == "aten::copy_"),
+            key=lambda e: -e.device_time_total)
+        total = sum(e.device_time_total for e in copies) / 1e3
+        print(f"[serve]   aten::copy_ in 3 steps: {total:.3f} ms device, "
+              f"{sum(e.count for e in copies)} calls; by shapes (dst, src):")
+        for e in copies[:8]:
+            print(f"[serve]     {e.device_time_total / 1e3:8.3f} ms  "
+                  f"x{e.count:<5} {e.input_shapes[:2]}")
+    return med
+
+
+def _clone_serve(cache, st):
+    """A copy of a serving state, its generator at the same place."""
+    import torch
+    gen = torch.Generator(DEVICE)
+    gen.set_state(st.gen.get_state())
+    return ({b: {k: v.clone() for k, v in blk.items()}
+             for b, blk in cache.items()},
+            st._replace(gen=gen, **{f: getattr(st, f).clone()
+                                    for f in st._fields if f != "gen"}))
+
+
+def _serve_parity(engine, cfg, params, reqs):
+    """Phase 7's parity: SERVE_PARITY_STEPS replayed decode steps against
+    ``_decode`` called eagerly on two copies of the same state (the second
+    measures the eager loop's own spread): tokens, lengths and pools
+    bitwise, at temperature 0 and 0.7."""
+    import torch
+    from repro_torch.serve import ServeConfig, ServeEngine
+    from repro_torch.serve import engine as serve_engine
+    from repro_torch.launch.serve import draw_requests
+    for temp in (0.0, 0.7):
+        eng = engine if temp == 0.0 else ServeEngine(
+            cfg, ServeConfig(**SERVE_CFG, attn="pallas", temperature=temp),
+            params)
+        if eng._graph is None:                    # the first run captures
+            eng.run(draw_requests(1, SERVE_PROMPT, 3, 3, cfg.vocab_size,
+                                  seed=9))
+        cache, st = _admit_own(eng, reqs)
+        copies = [list(_clone_serve(cache, st)) for _ in range(2)]
+        tok = {"replay": [], "eager": [], "eager'": []}
+        for _ in range(SERVE_PARITY_STEPS):
+            tok["replay"].append(eng._step(cache, st)["next"])
+            for name, c in zip(("eager", "eager'"), copies):
+                _, st2, out = eng._decode(eng.params, *c)
+                tok[name].append(serve_engine._to_host(out)["next"])
+                c[1] = st2
+
+        def diff(a, b):
+            bad = [k for k in ("tok", "length", "active", "free")
+                   if not torch.equal(getattr(a[1], k), getattr(b[1], k))]
+            bad += [f"{n}.{k}" for n in a[0] for k in a[0][n]
+                    if not torch.equal(a[0][n][k], b[0][n][k])]
+            return bad
+        spread = diff(copies[1], copies[0]) + (
+            ["tokens"] if tok["eager'"] != tok["eager"] else [])
+        err = diff((cache, st), copies[0]) + (
+            ["tokens"] if tok["replay"] != tok["eager"] else [])
+        print(f"[parity] serve T={temp}: {SERVE_PARITY_STEPS} replayed "
+              f"decode steps vs _decode eagerly on a copy: "
+              f"{'bitwise (tokens, lengths, pools)' if not err else err}; "
+              f"two eager copies {'bitwise' if not spread else spread}")
+        if err and not set(err) <= set(spread):
+            raise AssertionError(f"serve T={temp}: the replayed step is not "
+                                 f"the eager one ({err})")
+        del copies, cache, st, eng
+        torch.cuda.empty_cache()
 
 
 def _serving(smi, box):
@@ -2066,7 +2386,20 @@ def _serving(smi, box):
         raise AssertionError(f"K8 launched {counts['paged_flash_decode']} "
                              f"times in {stats['steps']} decode steps")
     _serve_line(f"continuous, 48 requests, K8 x{counts['paged_flash_decode']}"
-                f" ({cfg.n_layers} a step)", stats, smi)
+                f" ({cfg.n_layers} a step), the captured step replayed",
+                stats, smi)
+    eager = _eager_engine(cfg, scfg, params)
+    eager.run(draw_requests(1, SERVE_PROMPT, 2, 2, cfg.vocab_size, seed=9))
+    e_results, e_stats = eager.run(reqs)
+    del eager
+    same = sum(a == b for r in reqs for a, b in zip(results[r.req_id],
+                                                    e_results[r.req_id]))
+    _serve_line(f"continuous, 48 requests, _decode eagerly a step ({same} of "
+                f"{stats['tokens']} tokens as the replayed step's)", e_stats,
+                smi)
+    if e_results != results:
+        raise AssertionError("the eager and the replayed decode steps "
+                             "emitted other tokens")
 
     # the subset runs over fewer slots than requests, so that continuous
     # admits mid-run into recycled slots and pages and fixed does not
@@ -2138,7 +2471,9 @@ def _serving(smi, box):
     print(f"[serve] dense full cache, 12 requests padded to 64: "
           f"{dense['tokens']} tokens in {dense['wall_s']} s, "
           f"{dense['tokens_per_s']} tokens/s | {smi}")
-    _traced_decode(engine, reqs[:SERVE_SLOTS])
+    _steady_decode(engine, reqs[:SERVE_SLOTS], replay=False)
+    _steady_decode(engine, reqs[:SERVE_SLOTS], replay=True)
+    _serve_parity(engine, cfg, params, reqs[:SERVE_SLOTS])
     print(f"[serve] phase 7 took {time.perf_counter() - t0:.1f} s, peak "
           f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
     box.append(params)
@@ -2277,8 +2612,11 @@ def main(argv=()):
 
     counts, dense_fedavg = _round(model, fed, evaluate)
     counts.update(_compressed_round(model, fed, evaluate, dense_fedavg))
-    async_counts = _async_phase(model)
+    async_counts, async_side = _async_phase(model)
     counts["block_topd"] = async_counts["block_topd"]
+    _parity(model, fed, evaluate, async_side)
+    _timing(fed, async_side, smi)
+    del async_side
     robust_counts = _robustness()
     for entry in flat_report:
         counts[entry["name"]] = robust_counts[entry["name"]]

@@ -108,8 +108,17 @@ class WireLayout:
         return sum(_cdiv(n, align) * align for n in self.sizes)
 
     def _cached(self, key, device, build):
+        """The index tensor ``key`` on ``device``, built on the host and
+        copied there once.  A round captured as a CUDA graph finds it here,
+        built by its eager warm-up step: a copy from the host cannot be
+        captured, so a first build during capture raises."""
         key = (key, torch.device(device))
         if key not in self._cache:
+            if (key[1].type == "cuda"
+                    and torch.cuda.is_current_stream_capturing()):
+                raise RuntimeError(
+                    f"WireLayout index {key[0]!r} first built during CUDA "
+                    "graph capture; run one eager step before capturing")
             self._cache[key] = build().to(device)
         return self._cache[key]
 
@@ -144,6 +153,23 @@ class WireLayout:
             "table", device,
             lambda: torch.tensor(self.offsets + self.scale_offsets,
                                  dtype=torch.int32))
+
+    def slot_offsets(self, frac, device):
+        """(sum k_l,) column offset of each kept slot's leaf (topk, randk)."""
+        return self._cached(
+            ("slots", frac), device,
+            lambda: torch.cat([torch.full((k,), off, dtype=torch.int64)
+                               for k, off in zip(_kept(self, frac),
+                                                 self.offsets)]))
+
+    def randk_scale(self, frac, device):
+        """(sum k_l,) fp32 n_l / k_l of each kept slot's leaf (randk's
+        unbiased decode)."""
+        return self._cached(
+            ("randk", frac), device,
+            lambda: torch.cat([torch.full((k,), n / k, dtype=torch.float32)
+                               for n, k in zip(self.sizes,
+                                               _kept(self, frac))]))
 
 
 def _pad(x, layout, align):
@@ -194,16 +220,16 @@ def unpack_int4(p, n):
 
 
 # -------------------------------------------------------------- signsgd --
-_BIT_WEIGHTS = [1 << i for i in range(8)]
-
-
 def pack_bits(b):
-    """(K, n) 0/1 -> (K, ceil(n/8)) uint8, LSB first."""
+    """(K, n) 0/1 -> (K, ceil(n/8)) uint8, LSB first: bit i of a byte is
+    b << i, summed (the bit weights come from ``arange`` on the device,
+    not from the host)."""
     k, n = b.shape
     if n % 8:
         b = torch.cat([b, b.new_zeros(k, (-n) % 8)], dim=1)
-    w = torch.tensor(_BIT_WEIGHTS, dtype=torch.uint8, device=b.device)
-    return (b.to(torch.uint8).view(k, -1, 8) * w).sum(-1).to(torch.uint8)
+    shifts = torch.arange(8, dtype=torch.uint8, device=b.device)
+    return (b.to(torch.uint8).view(k, -1, 8) << shifts).sum(-1).to(
+        torch.uint8)
 
 
 def unpack_bits(p, n):
@@ -252,12 +278,6 @@ def _kept(layout, frac):
     return [max(1, min(n, math.ceil(frac * n))) for n in layout.sizes]
 
 
-def _slot_offsets(layout, ks, device):
-    """(sum k_l,) column offset of each kept slot's leaf."""
-    return torch.cat([torch.full((k,), off, dtype=torch.int64)
-                      for k, off in zip(ks, layout.offsets)]).to(device)
-
-
 def topk_encode(x, layout, frac):
     """The k_l largest |x| of every leaf; idx leaf-local."""
     idx = torch.cat([
@@ -280,19 +300,16 @@ def draw_randk(k_clients, layout, frac, gen, device):
 
 def sparse_encode(x, layout, idx, frac):
     """The pure part of topk/randk: (idx, the fp32 values at idx)."""
-    off = _slot_offsets(layout, _kept(layout, frac), x.device)
+    off = layout.slot_offsets(frac, x.device)
     return idx, torch.gather(x.float(), 1, idx.long() + off)
 
 
 def sparse_decode(idx, val, layout, frac, *, rescale=False):
     """(K, N) fp32 with the kept values in place; ``rescale`` multiplies
     each leaf's values by n_l / k_l (randk's unbiased estimator)."""
-    ks = _kept(layout, frac)
-    off = _slot_offsets(layout, ks, val.device)
+    off = layout.slot_offsets(frac, val.device)
     if rescale:
-        val = val * torch.cat([
-            torch.full((k,), n / k, dtype=torch.float32)
-            for n, k in zip(layout.sizes, ks)]).to(val.device)
+        val = val * layout.randk_scale(frac, val.device)
     out = val.new_zeros(val.shape[0], layout.n)
     return out.scatter_(1, idx.long() + off, val)
 

@@ -43,11 +43,12 @@ noise, the per-client batch indices, the delay uniforms and a noisy
 attack's noise from ``state.rng``, plus a pure ``round_fn(state, draws)``,
 so a test can feed the JAX package's own draws.  The round reads nothing
 back to the host before its metrics: the park slots, the free count and
-every decision stay on the device.
+every decision stay on the device, so the round, draws included, is safe
+to capture as a CUDA graph (``core/driver.py``): its round index is a 0-d
+int32 tensor and its constants are made once, in ``make_async_round``.
 
-Not in this slice: ``driver="scan"`` (ROADMAP queue 1 item a),
-``telemetry`` (item 12).  Compression raises ``ValueError``, as in the JAX
-package.
+Not in this slice: ``telemetry`` (ROADMAP queue 1 item e).  Compression
+raises ``ValueError``, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -61,6 +62,7 @@ from repro_torch import device as device_mod, tree
 from repro_torch.comm import codecs
 from repro_torch.core import aggregation, attacks, clientstore, fairness, \
     faults as faults_mod, fitness
+from repro_torch.core import driver as scan_driver
 from repro_torch.core.fedfits import _check_supported, _host, \
     make_client_update
 from repro_torch.kernels import population_select as ps
@@ -88,7 +90,7 @@ class AsyncState(NamedTuple):
     clients: clientstore.ClientStore   # (M,) population columns
     buf: DeliveryBuffer
     rng: torch.Generator
-    round: int
+    round: torch.Tensor                # t (1-indexed), 0-d int32
     cost_client_rounds: torch.Tensor
     cost_bytes_up: torch.Tensor
     cost_bytes_down: torch.Tensor
@@ -137,7 +139,8 @@ def init_async_state(params, fed_cfg, rng: torch.Generator, *,
     zero = lambda: torch.zeros((), device=dev)
     return AsyncState(
         params=params, clients=clientstore.init_store(m, device=dev),
-        buf=init_buffer(params, fed_cfg), rng=rng, round=1,
+        buf=init_buffer(params, fed_cfg), rng=rng,
+        round=torch.ones((), dtype=torch.int32, device=dev),
         cost_client_rounds=zero(), cost_bytes_up=zero(),
         cost_bytes_down=zero(),
         attacker=None if attacker is None else attacker.init(m, device=dev))
@@ -149,7 +152,8 @@ def delivery_weights(n_k, trust, mask, age, *, staleness_decay):
     deliveries.  A convex combination (entries in [0, 1] summing to 1, or
     all zero for an empty round); the round feeds the same raw weights
     through ``aggregation.aggregate``, which normalises identically."""
-    sd = torch.tensor(staleness_decay, dtype=torch.float32, device=n_k.device)
+    sd = torch.full((), staleness_decay, dtype=torch.float32,
+                    device=n_k.device)
     w = n_k * trust * sd ** age.float()
     return aggregation.normalize_weights(w, mask)
 
@@ -184,6 +188,7 @@ def make_async_round(model, fed_cfg, pop_data, *, batch_size=32,
     f32 = lambda v: torch.tensor(v, dtype=torch.float32, device=dev)
     deadline, backoff = f32(fed_cfg.async_deadline), f32(fed_cfg.async_backoff)
     sdecay = f32(fed_cfg.staleness_decay)
+    alpha_fixed = f32(fed_cfg.alpha)
     fl = faults if faults is not None else faults_mod.FaultConfig()
     mal = malicious.to(dev) if malicious is not None \
         else torch.zeros(m, device=dev)
@@ -261,10 +266,10 @@ def make_async_round(model, fed_cfg, pop_data, *, batch_size=32,
         # ---- fitness at compute time -----------------------------------
         n_c = cdata["n"].float()
         q = fitness.data_quality(n_c, ones_c)
-        th = torch.zeros(c, device=dev) if t == 1 else \
-            fitness.theta(gl, ga, ll, la)
+        th = torch.where(t == 1, torch.zeros(c, device=dev),
+                         fitness.theta(gl, ga, ll, la))
         alpha = fitness.dynamic_alpha(q, th, ones_c) if fed_cfg.dynamic_alpha \
-            else f32(fed_cfg.alpha)
+            else alpha_fixed
         scores = fitness.score(q, th, alpha)
         store = clientstore.record_fitness(store, idx, scores, decay)
 
@@ -371,7 +376,8 @@ def make_async_round(model, fed_cfg, pop_data, *, batch_size=32,
             cost_bytes_down=state.cost_bytes_down + c * bytes_down_pc,
             attacker=att_carry)
         metrics = {
-            "team_size": float(c),
+            "team_size": torch.full((), float(c), dtype=torch.float32,
+                                    device=dev),
             "cohort": idx, "on_time": on_time, "due": due,
             "exhausted": exhausted,
             "on_time_frac": on_time.mean(),
@@ -396,22 +402,25 @@ def make_async_round(model, fed_cfg, pop_data, *, batch_size=32,
 def run_async(model, fed_cfg, pop_data, n_rounds, seed=0, *, eval_fn=None,
               batch_size=32, eval_batch=32, device=None, data_attack=None,
               update_attack=None, malicious=None, faults=None,
-              straggler_rows="tail", driver="python", telemetry=None):
-    """Drives ``n_rounds`` buffered-async rounds with a per-round Python
-    loop (the counterpart of the JAX package's ``driver="python"``);
-    returns (state, history).
+              straggler_rows="tail", driver="scan", chunk_rounds=4,
+              telemetry=None):
+    """Drives ``n_rounds`` buffered-async rounds; returns (state, history).
 
     ``seed`` seeds the init and the round generator; every round's draws
-    come from the latter.  Runs on the card unless ``device="cpu"``.  Each
-    history row is on the host, with ``wall_ms``: host time from the round
-    call until its metrics reached the host."""
-    if driver != "python":
-        raise NotImplementedError(
-            f"driver={driver!r}: the chunked scan driver comes with ROADMAP "
-            "queue 1 item a")
+    come from the latter.  Runs on the card unless ``device="cpu"``.
+    ``driver="scan"`` (the default) runs the rounds through the chunked
+    driver (``core/driver.py``): on the card the round, its draws and
+    ``eval_fn`` are captured once as a CUDA graph and replayed, one host
+    read a chunk of ``chunk_rounds``; the batch feed is empty, as in the
+    JAX package.  ``driver="python"`` is the per-round loop, bit for bit
+    the same history.  Each history row is on the host with ``wall_ms``:
+    the round's host time under ``python``, the chunk's host window over
+    its rounds under ``scan``."""
+    if driver not in ("scan", "python"):
+        raise ValueError(f"driver must be 'scan' or 'python', got {driver!r}")
     if telemetry is not None:
         raise NotImplementedError(
-            "telemetry comes with ROADMAP queue 1 item 12")
+            "telemetry comes with ROADMAP queue 1 item e (item 12)")
     dev = device_mod.resolve(device)
     pop_data = {k: v.to(dev) for k, v in pop_data.items()}
     draw, round_fn = make_async_round(
@@ -424,6 +433,16 @@ def run_async(model, fed_cfg, pop_data, n_rounds, seed=0, *, eval_fn=None,
         model.init(gen(seed)), fed_cfg, gen(seed + 1),
         attacker=update_attack if getattr(update_attack, "stateful", False)
         else None)
+    if driver == "scan":
+        def body(st, xs):
+            st, metrics = round_fn(st, draw(st))
+            if eval_fn is not None:
+                metrics = {**metrics, **eval_fn(st.params)}
+            return st, metrics
+
+        return scan_driver.run_chunked(
+            body, state, lambda t: {}, n_rounds, chunk_steps=chunk_rounds,
+            t0=1, index_key="round")
     history = []
     for t in range(1, n_rounds + 1):
         t0 = time.perf_counter()

@@ -70,13 +70,13 @@ def stamp_trigger(x, *, patch=3, value=1.0, hw_axes=None):
     out = x.clone()
     if hw_axes is None:
         if x.dim() < 4:
-            out[..., :patch] = value
+            out[..., :patch].fill_(value)
             return out
         hw_axes = (-3, -2)
     idx = [slice(None)] * x.dim()
     for ax in hw_axes:
         idx[ax % x.dim()] = slice(0, patch)
-    out[tuple(idx)] = value
+    out[tuple(idx)].fill_(value)       # a fill on the device, capture-safe
     return out
 
 
@@ -139,7 +139,8 @@ def alie(updates, malicious, *, z=None):
     flat = updates.float()
     mu, sd, _, _ = _honest_stats(flat, malicious)
     if z is None:
-        n = torch.tensor(float(flat.shape[0]), device=flat.device)
+        n = torch.full((), float(flat.shape[0]), dtype=torch.float32,
+                       device=flat.device)
         m = malicious.float().sum()
         s = torch.floor(n / 2.0 + 1.0) - m
         phi = torch.clamp((n - m - s) / torch.clamp(n - m, min=1.0),
@@ -177,9 +178,8 @@ def _distance_gamma(flat, malicious, *, dev, mode, n_iters, gamma_init):
     b = diff @ p
     c = torch.sum(p * p)
 
-    g = torch.tensor(gamma_init, dtype=torch.float32, device=flat.device)
-    step = torch.tensor(gamma_init, dtype=torch.float32,
-                        device=flat.device) / 2.0
+    g = torch.full((), gamma_init, dtype=torch.float32, device=flat.device)
+    step = g / 2.0
     best = torch.zeros_like(g)
     for _ in range(n_iters):
         dist = a + 2.0 * g * b + g * g * c
@@ -270,7 +270,7 @@ def _gate_blend(v, ref, target, n_iters):
     (1 - w) v + w ref has cosine >= ``target`` to ref; 0 if w = 0 clears
     it already (w = 1 always does)."""
     dev = v.device
-    target = torch.tensor(target, dtype=torch.float32, device=dev)
+    target = torch.full((), target, dtype=torch.float32, device=dev)
     rn = torch.sqrt(torch.sum(ref * ref))
 
     def cos_w(w):
@@ -337,8 +337,8 @@ class CrossRoundGateAware:
         self.blend0 = float(blend0)
 
     def init(self, n_clients, device=None):
-        return (torch.tensor(self.blend0, dtype=torch.float32,
-                             device=device),
+        return (torch.full((), self.blend0, dtype=torch.float32,
+                           device=device),
                 torch.zeros(n_clients, device=device))
 
     def __call__(self, updates, malicious, noise, carry):

@@ -39,8 +39,13 @@ fused-dequant kernels (``comm/kernels/comm_codecs.py``), and
 ``cost_bytes_up`` bills the measured wire bytes.
 
 The population-scale engine is ``core/async_engine.py``; this round is its
-M == K case whatever ``population`` says, as in the JAX package.  Not in
-this slice (``run`` raises ``NotImplementedError``): telemetry.
+M == K case whatever ``population`` says, as in the JAX package.
+
+Capture: the round is safe to record as a CUDA graph (``core/driver.py``):
+its round index ``FedState.round`` is a 0-d int32 tensor that no host
+branch reads, its constants are made by device fills, and every metric is
+a tensor.  Not in this slice (``run`` raises ``NotImplementedError``):
+telemetry.
 """
 from __future__ import annotations
 
@@ -56,6 +61,7 @@ from repro_torch.comm import codecs, error_feedback
 from repro_torch.comm.kernels import comm_codecs as dq
 from repro_torch.core import aggregation, attacks, clientstore, fairness, \
     faults as faults_mod, fitness, selection, slots
+from repro_torch.core import driver as scan_driver
 
 
 class FedState(NamedTuple):
@@ -67,7 +73,7 @@ class FedState(NamedTuple):
     slot: slots.SlotState
     h: torch.Tensor               # bool: reselect this round?
     rng: torch.Generator          # draws of the random policies
-    round: int                    # t (1-indexed)
+    round: torch.Tensor           # t (1-indexed), 0-d int32
     cost_client_rounds: torch.Tensor
     cost_bytes_up: torch.Tensor
     cost_bytes_down: torch.Tensor
@@ -107,7 +113,7 @@ def init_state(params, n_clients, fed_cfg, rng: torch.Generator, *,
         slot=slots.init_slot_state(dev),
         h=torch.tensor(True, device=dev),
         rng=rng,
-        round=1,
+        round=torch.ones((), dtype=torch.int32, device=dev),
         cost_client_rounds=zero(),
         cost_bytes_up=zero(),
         cost_bytes_down=zero(),
@@ -211,8 +217,7 @@ def make_round(model, fed_cfg, *, data_attack=None, update_attack=None,
                 scores, fed_cfg.beta, avail, floor_u, explore_u,
                 floor_prob=fed_cfg.participation_floor,
                 explore_eps=fed_cfg.explore_eps)
-            if t == 1:
-                new_team = avail
+            new_team = torch.where(t == 1, avail, new_team)
             return torch.where(state.h, new_team, state.team * avail)
         if fed_cfg.algorithm == "fedavg":
             return selection.fedavg_select(avail)
@@ -309,13 +314,13 @@ def make_round(model, fed_cfg, *, data_attack=None, update_attack=None,
 
         # ---- fitness ----------------------------------------------------
         q = fitness.data_quality(data["n"], avail)
-        th = torch.zeros(K, device=dev) if t == 1 else \
-            fitness.theta(gl, ga, ll, la)
+        th = torch.where(t == 1, torch.zeros(K, device=dev),
+                         fitness.theta(gl, ga, ll, la))
         if fed_cfg.dynamic_alpha:
             alpha = fitness.dynamic_alpha(q, th, avail)
         else:
-            alpha = torch.tensor(fed_cfg.alpha, dtype=torch.float32,
-                                 device=dev)
+            alpha = torch.full((), fed_cfg.alpha, dtype=torch.float32,
+                               device=dev)
         scores = fitness.score(q, th, alpha)
         if fed_cfg.trust_in_fitness:
             scores = scores * state.gate_trust
@@ -417,8 +422,8 @@ def make_round(model, fed_cfg, *, data_attack=None, update_attack=None,
             "gated_frac": gated.sum() / torch.clamp(part.sum(), min=1.0),
             "guard_rejected": rejected.sum(),
             "fault_lost": lost.sum(),
-            "fault_eff_epochs": float(E) if eff_epochs is None
-            else eff_epochs.float().mean(),
+            "fault_eff_epochs": torch.full((), float(E), device=dev)
+            if eff_epochs is None else eff_epochs.float().mean(),
             # per-client masks behind the sums above (not in the JAX round)
             "avail": avail, "lost": lost, "gated": gated,
             "eff_epochs": torch.full((K,), E, device=dev)
@@ -437,22 +442,41 @@ def _host(v):
     return v.detach().cpu().numpy() if isinstance(v, torch.Tensor) else v
 
 
+def _draw_avail(k, prob, generator):
+    """Round t's availability draw: (K,) 0/1, client 0 always on (never an
+    empty round).  Both drivers draw it every round, round 1 included,
+    which then runs with everyone available."""
+    a = (torch.rand(k, generator=generator, device=generator.device)
+         < prob).float()
+    a[:1].fill_(1.0)              # a fill on the device: no host copy
+    return a
+
+
 def run(model, fed_cfg, data_fn, n_rounds, seed=0, *, eval_fn=None,
         device=None, data_attack=None, update_attack=None, malicious=None,
-        faults=None, telemetry=None):
-    """Drives n_rounds of FL with a per-round Python loop (the counterpart
-    of the JAX package's ``driver="python"``).
+        faults=None, driver="scan", chunk_rounds=8, telemetry=None):
+    """Drives n_rounds of FL; returns (final_state, history).
 
     data_fn(round, generator) -> client-stacked batch on the device;
     eval_fn(params) -> dict of server-side metrics (optional, per round).
     ``seed`` seeds the init, round, data and availability generators.
-    Runs on the card unless ``device="cpu"``.  Returns (final_state,
-    history), each history row on the host with ``wall_ms``: host time
-    from the round call until its metrics reached the host."""
+    Runs on the card unless ``device="cpu"``.
+
+    ``driver="scan"`` (the default) runs the rounds through the chunked
+    driver (``core/driver.py``): on the card the round is captured once
+    as a CUDA graph and replayed, with the history on the device and one
+    host read a chunk of ``chunk_rounds``; the availability draw and
+    ``eval_fn`` run inside the step, as in the JAX package's scan body.
+    ``driver="python"`` is the per-round loop, kept for parity: the same
+    draws in the same order, so the two histories are bit for bit equal.
+    Each history row is on the host, with ``wall_ms``: under ``python``
+    the host time from the round call until its metrics reached the host,
+    under ``scan`` the chunk's host window over its rounds (and
+    ``chunk_ms``)."""
     dev = device_mod.resolve(device)
     if telemetry is not None:
         raise NotImplementedError(
-            "telemetry comes with ROADMAP queue 1 item 12")
+            "telemetry comes with ROADMAP queue 1 item e (item 12)")
     if malicious is not None:
         malicious = malicious.to(dev)
     round_fn = make_round(model, fed_cfg, data_attack=data_attack,
@@ -466,13 +490,30 @@ def run(model, fed_cfg, data_fn, n_rounds, seed=0, *, eval_fn=None,
                        if getattr(update_attack, "stateful", False)
                        else None)
     g_data, g_avail = gen(seed + 2), gen(seed + 3)
+    if driver == "scan":
+        def body(st, xs):
+            t, batch = xs
+            batch = dict(batch)
+            if fed_cfg.avail_prob < 1.0:
+                batch["avail"] = torch.where(
+                    t > 1, _draw_avail(K, fed_cfg.avail_prob, g_avail),
+                    torch.ones(K, device=dev))
+            st, metrics = round_fn(st, batch)
+            if eval_fn is not None:
+                metrics = {**metrics, **eval_fn(st.params)}
+            return st, metrics
+
+        return scan_driver.run_chunked(
+            body, state, lambda t: data_fn(t, g_data), n_rounds,
+            chunk_steps=chunk_rounds, t0=1, index_key="round",
+            generators=(g_avail,))
+    if driver != "python":
+        raise ValueError(f"driver must be 'scan' or 'python', got {driver!r}")
     history = []
     for t in range(1, n_rounds + 1):
         batch = dict(data_fn(t, g_data))
         if fed_cfg.avail_prob < 1.0:
-            a = (torch.rand(K, generator=g_avail, device=dev)
-                 < fed_cfg.avail_prob).float()
-            a[0] = 1.0                                # never an empty round
+            a = _draw_avail(K, fed_cfg.avail_prob, g_avail)
             batch["avail"] = a if t > 1 else torch.ones(K, device=dev)
         t0 = time.perf_counter()
         state, metrics = round_fn(state, batch)

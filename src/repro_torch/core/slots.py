@@ -5,7 +5,9 @@
   h(t+1) = p(t+1) >= PFT  or  (t+1) % MSL == 0  or  t == 1 (Eq. 5 + Alg. 1)
 
 plus the adaptive-slot extension: MSL scaled by the team-performance
-variance.  The round index ``t`` is a host int.
+variance.  The round index ``t`` is the round state's 0-d int32 tensor,
+as the JAX scan body's traced ``t``: nothing here branches on it on the
+host, so a round captured as a CUDA graph replays for every t.
 """
 from __future__ import annotations
 
@@ -28,16 +30,17 @@ def init_slot_state(device=None):
                      theta_var=f(0.0))
 
 
-def update(state: SlotState, theta_t, t: int, msl, pft, *, adaptive=False,
+def update(state: SlotState, theta_t, t, msl, pft, *, adaptive=False,
            ema_decay=0.9):
-    """Returns (new_state, h_next: bool tensor) for round t (1-indexed).
-    The decline counter starts once two team evaluations exist (t > 2);
-    h is forced True at t=1 so round 2 is still free-for-all."""
+    """Returns (new_state, h_next: bool tensor) for round t (1-indexed, a
+    0-d int tensor).  The decline counter starts once two team evaluations
+    exist (t > 2); h is forced True at t=1 so round 2 is still
+    free-for-all.  A host int t is taken as a 0-d CPU tensor, which the
+    ops treat as a scalar."""
+    t = torch.as_tensor(t)
     declined = theta_t < state.prev_theta
-    if t > 2:
-        p_next = torch.where(declined, state.p + 1, torch.zeros_like(state.p))
-    else:
-        p_next = torch.zeros_like(state.p)
+    p_next = torch.where((t > 2) & declined, state.p + 1,
+                         torch.zeros_like(state.p))
 
     first = torch.isinf(state.prev_theta)
     ema_prev = torch.where(first, theta_t, state.theta_ema)
@@ -52,10 +55,9 @@ def update(state: SlotState, theta_t, t: int, msl, pft, *, adaptive=False,
         msl_eff = torch.clamp(
             torch.round(msl * (2.0 - 3.0 * torch.clamp(rel, max=0.5))),
             max(msl // 2, 1), 2 * msl).int()
-        on_slot_edge = torch.remainder(t + 1, msl_eff) == 0
     else:
-        on_slot_edge = torch.tensor((t + 1) % msl == 0,
-                                    device=theta_t.device)
-    h_next = (p_next >= pft) | on_slot_edge | (t == 1)
+        msl_eff = msl
+    h_next = (p_next >= pft) | (torch.remainder(t + 1, msl_eff) == 0) \
+        | (t == 1)
     return SlotState(p=p_next, prev_theta=theta_t, theta_ema=ema,
                      theta_var=var), h_next

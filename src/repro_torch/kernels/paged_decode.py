@@ -143,13 +143,22 @@ def smem_bytes(g, dh):
 
 
 _COUNTERS = {}
+_OUTGROWN = []          # counters replaced by larger ones: a captured graph
+                        # may still launch K8 on one, so none is freed
 
 
 def _counter(device, n):
     """K8's item counters on ``device``: at least n int32, zeroed once and
-    left at 0 by every launch (the last item of each slot resets its own)."""
+    left at 0 by every launch (the last item of each slot resets its own).
+    A step captured as a CUDA graph keeps the buffer its warm-up made; one
+    first needed during capture raises, since a graph cannot make it."""
     buf = _COUNTERS.get(device)
     if buf is None or buf.numel() < n:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("K8's item counters first needed during CUDA "
+                               "graph capture; run one eager step first")
+        if buf is not None:
+            _OUTGROWN.append(buf)
         buf = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
         _COUNTERS[device] = buf
     return buf

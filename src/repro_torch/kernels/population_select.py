@@ -169,6 +169,10 @@ def _launch(g, d, blk, merge):
         out = torch.empty(d, dtype=torch.int32, device=g.device)
         key = (g.device.index, stream)
         if key not in _COUNTERS:        # zeroed once; each launch leaves 0
+            if torch.cuda.is_current_stream_capturing():
+                raise RuntimeError(
+                    "K7's merge counter first needed during CUDA graph "
+                    "capture; run one eager step on the capture stream")
             _COUNTERS[key] = torch.zeros(1, dtype=torch.int32,
                                          device=g.device)
         counter = _COUNTERS[key]

@@ -10,9 +10,10 @@ every cell: the trigger-stamped server test set scored against the
 backdoor target class (for a cell without a backdoor it stays at the
 target class's base rate).
 
-Runs on the card unless ``device="cpu"``.  Only the per-round Python
-driver exists (the chunked scan driver is ROADMAP queue 1 item a), and
-telemetry is item 12: ``telemetry`` takes only None or False, so the
+Runs on the card unless ``device="cpu"``, through the engines' chunked
+driver (``driver="scan"``, ``chunk_rounds`` rounds a chunk, as in the JAX
+package) or their per-round loop (``driver="python"``).  Telemetry is
+ROADMAP queue 1 item e: ``telemetry`` takes only None or False, so the
 summary has the JAX package's keys minus the ``obs_*`` ones.
 """
 from __future__ import annotations
@@ -143,9 +144,9 @@ def setup(scenario, *, n_clients=10, n_classes=10, kind="tabular", arch=None,
 
 def run_scenario(scenario, *, n_clients=10, n_rounds=10, seed=0,
                  kind="tabular", n=1600, n_classes=10, sep=1.0,
-                 dirichlet_alpha=1.0, arch=None, driver="python",
-                 population=None, async_deadline=None, telemetry=None,
-                 device=None):
+                 dirichlet_alpha=1.0, arch=None, driver="scan",
+                 chunk_rounds=4, population=None, async_deadline=None,
+                 telemetry=None, device=None):
     """Runs one scenario cell; returns (summary dict, per-round history).
 
     ``n_clients`` is the cohort: an async cell samples it each round from
@@ -153,14 +154,11 @@ def run_scenario(scenario, *, n_clients=10, n_rounds=10, seed=0,
     clients.  ``sep`` and ``dirichlet_alpha`` default to the JAX package's
     (a harder class separation than the pipeline's and a milder label
     skew, so the attacks have room to show).  The seed gives the data and
-    the malicious rows; the run's generators are seeded ``seed + 1``."""
-    if driver != "python":
-        raise NotImplementedError(
-            f"driver={driver!r}: the chunked scan driver comes with ROADMAP "
-            "queue 1 item a")
+    the malicious rows; the run's generators are seeded ``seed + 1``.
+    ``driver`` and ``chunk_rounds`` go to the engine."""
     if telemetry not in (None, False):
         raise NotImplementedError(
-            "telemetry comes with ROADMAP queue 1 item 12")
+            "telemetry comes with ROADMAP queue 1 item e (item 12)")
     s = setup(scenario, n_clients=n_clients, n_classes=n_classes, kind=kind,
               arch=arch, population=population, async_deadline=async_deadline,
               device=device)
@@ -178,13 +176,14 @@ def run_scenario(scenario, *, n_clients=10, n_rounds=10, seed=0,
             eval_batch=federation.eval_batch, device=device,
             data_attack=s.data_attack, update_attack=s.update_attack,
             malicious=s.malicious, faults=sc.faults,
-            straggler_rows=sc.straggler_rows)
+            straggler_rows=sc.straggler_rows, driver=driver,
+            chunk_rounds=chunk_rounds)
     else:
         state, hist = fedfits.run(
             s.model, s.fed_cfg, federation.data_fn, n_rounds, seed + 1,
             eval_fn=eval_fn, device=device, data_attack=s.data_attack,
             update_attack=s.update_attack, malicious=s.malicious,
-            faults=sc.faults)
+            faults=sc.faults, driver=driver, chunk_rounds=chunk_rounds)
     return summarize(sc, state, hist, s.n_mal,
                      time.perf_counter() - t0), hist
 

@@ -24,6 +24,18 @@ from its own Gumbel draw.
 
 ``run(requests, continuous=False)`` is the fixed-batch baseline: the same
 steps, but admission only into an all-empty fleet.
+
+**The captured step.**  ``run`` drives the engine's own pools and
+``SlotState``, allocated once and reset at each run.  On the card its
+first decode step runs eagerly as the warm-up; then the step is captured
+once as a CUDA graph at its fixed (max_slots, 1) shape, the new
+``SlotState`` copied into the static one and the output packed into one
+float64 row inside the graph, with the sampling generator registered, and
+every later step is one replay and one host read.  Admission stays eager:
+it takes host ints and runs the 128-token prefill, which K9 serves and
+which is not captured; its new ``SlotState`` is copied into the static
+one.  ``_decode`` stays callable on any state for the checks.  On the CPU
+each step runs ``_decode`` eagerly.
 """
 from __future__ import annotations
 
@@ -33,6 +45,8 @@ from typing import Dict, List, Sequence, Tuple
 import torch
 
 from repro_torch import device as device_mod, tree
+from repro_torch.core.driver import copy_into
+from repro_torch.kernels import launches
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import transformer
 from repro_torch.serve import scheduler as sched
@@ -132,6 +146,8 @@ class ServeEngine:
         self.seed = seed
         self._decode = self._make_decode()
         self._admit = self._make_admit()
+        self._static = None         # (pools, SlotState) that ``run`` drives
+        self._graph = None          # the captured decode step
 
     # -- state ---------------------------------------------------------
     def fresh_state(self) -> Tuple[dict, SlotState]:
@@ -231,6 +247,58 @@ class ServeEngine:
 
         return admit
 
+    # -- the engine's own state and its captured step ------------------
+    def _reset(self) -> Tuple[dict, SlotState]:
+        """The engine's pools and ``SlotState``, allocated at the first run
+        and put back in place to a fresh state's values at every later
+        one: zero pools (unit int8 scales), empty slots, the generator
+        reseeded."""
+        if self._static is None:
+            self._static = self.fresh_state()
+            return self._static
+        cache, st = self._static
+        for block in cache.values():
+            for k, v in block.items():
+                v.fill_(1.0 if k in ("ks", "vs") else 0.0)
+        st.gen.manual_seed(self.seed)
+        copy_into(st, sched.init_slot_state(self.scfg, st.gen, self.device))
+        return self._static
+
+    def _step(self, cache, st: SlotState) -> dict:
+        """One decode step on the engine's own state, its output on the
+        host: a replay of the captured step, or (the first time on the
+        card, and always on the CPU) ``_decode`` run eagerly."""
+        if self._graph is not None:
+            graph, out, packed, recorded = self._graph
+            graph.replay()
+            launches.add(recorded)
+            return _unpack(out, packed.cpu().tolist())
+        if self.device.type != "cuda":
+            _, st2, out = self._decode(self.params, cache, st)
+            host = _to_host(out)        # before the copy: out reads st
+            copy_into(st, st2)
+            return host
+        cur = torch.cuda.current_stream(self.device)
+        stream = torch.cuda.Stream(self.device)
+        stream.wait_stream(cur)
+        with torch.cuda.stream(stream):       # the warm-up, then capture
+            _, st2, out = self._decode(self.params, cache, st)
+            host = _pack(out)
+            copy_into(st, st2)
+            del st2, out
+        graph = torch.cuda.CUDAGraph()
+        graph.register_generator_state(st.gen)
+        before = launches.snapshot()
+        with torch.cuda.graph(graph, stream=stream):
+            _, st2, out = self._decode(self.params, cache, st)
+            packed = _pack(out)
+            copy_into(st, st2)
+        recorded = launches.since(before)
+        launches.restore(before)
+        cur.wait_stream(stream)
+        self._graph = (graph, out, packed, recorded)
+        return _unpack(out, host.cpu().tolist())
+
     # -- host loop -----------------------------------------------------
     def run(self, requests: Sequence[Request], *, telemetry=None,
             continuous: bool = True) -> Tuple[Dict[int, List[int]], dict]:
@@ -248,7 +316,7 @@ class ServeEngine:
             sched.validate_request(r, scfg)
         ledger = HostLedger(scfg)
         pending = list(requests)
-        cache, st = self.fresh_state()
+        cache, st = self._reset()
         results: Dict[int, List[int]] = {r.req_id: [] for r in requests}
         occupancy_trail: List[int] = []
         step_s: List[float] = []
@@ -267,10 +335,11 @@ class ServeEngine:
                 want_slot = ledger.next_slot()
                 prompt = torch.zeros((scfg.prompt_pad,), dtype=torch.int64)
                 prompt[:len(r.tokens)] = torch.tensor(r.tokens)
-                cache, st, out = self._admit(
+                _, st2, out = self._admit(
                     self.params, cache, st, prompt.to(self.device),
                     len(r.tokens), r.max_new, r.req_id)
                 out = _to_host(out)
+                copy_into(st, st2)
                 if not out["ok"] or out["slot"] != want_slot:
                     raise RuntimeError(
                         f"scheduler mirror diverged on req {r.req_id}: "
@@ -286,8 +355,7 @@ class ServeEngine:
                                        "requests (pool too small?)")
                 break
             ts = time.perf_counter()
-            cache, st, out = self._decode(self.params, cache, st)
-            out = _to_host(out)
+            out = self._step(cache, st)
             step_s.append(time.perf_counter() - ts)
             steps += 1
             for i in range(scfg.max_slots):
@@ -311,11 +379,21 @@ class ServeEngine:
         return results, stats
 
 
+def _pack(out):
+    """The step's small output dict as one float64 row on its device."""
+    return torch.cat([t.reshape(-1).double() for t in tree.leaves(out)])
+
+
 def _to_host(out):
     """The step's small output dict on the host, in one transfer: tensors
     to Python numbers and lists."""
+    return _unpack(out, _pack(out).cpu().tolist())
+
+
+def _unpack(out, host):
+    """``out``'s structure filled from the float64 row ``host``: integer
+    tensors to ints, floating ones to floats, lists for vectors."""
     flat = tree.leaves(out)
-    host = torch.cat([t.reshape(-1).double() for t in flat]).cpu().tolist()
     vals, i = [], 0
     for t in flat:
         k = t.numel()

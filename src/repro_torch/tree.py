@@ -29,9 +29,17 @@ def map(fn: Callable, tree, *rest):
     if isinstance(tree, dict):
         return {k: map(fn, tree[k], *(r[k] for r in rest)) for k in tree}
     if isinstance(tree, (list, tuple)):
-        return type(tree)(map(fn, t, *(r[i] for r in rest))
-                          for i, t in enumerate(tree))
+        return _rebuild(tree, [map(fn, t, *(r[i] for r in rest))
+                               for i, t in enumerate(tree)])
     return fn(tree, *rest)
+
+
+def _rebuild(like, items):
+    """A list or tuple of ``like``'s type holding ``items``; a NamedTuple
+    (a round state) takes them as its fields."""
+    if hasattr(like, "_fields"):
+        return type(like)(*items)
+    return type(like)(items)
 
 
 def unflatten(like, flat_leaves):
@@ -42,7 +50,7 @@ def unflatten(like, flat_leaves):
         if isinstance(t, dict):
             return {k: build(t[k]) for k in sorted(t)}
         if isinstance(t, (list, tuple)):
-            return type(t)(build(x) for x in t)
+            return _rebuild(t, [build(x) for x in t])
         return next(it)
 
     out = build(like)

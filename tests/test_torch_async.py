@@ -211,7 +211,8 @@ def test_round_from_jax_mid_run_state():
     state = ae.init_async_state(params, cfg, torch.Generator())._replace(
         clients=interop.store_from_numpy(to_np(jstate.clients)),
         buf=interop.buffer_from_numpy(to_np(jstate.buf), params, cfg),
-        round=4, cost_client_rounds=torch.tensor(
+        round=torch.tensor(4, dtype=torch.int32),
+        cost_client_rounds=torch.tensor(
             float(jstate.cost_client_rounds)))
     _exact(state.buf.upd, interop.rows_from_numpy(to_np(jstate.buf.upd)),
            "converted parked rows")

@@ -730,3 +730,186 @@ def test_serving_engine_on_card_matches_cpu(card, kv_int8):
     assert res == cpu
     assert stats["free_pages_end"] == scfg.total_pages
     assert sum(pd.launch_counts().values()) == 2 * stats["steps"]
+
+
+# ---------------------------------------------------------- CUDA graphs --
+def _bitwise_runs(a, b):
+    """Two (state, history) runs bit for bit (host clocks aside)."""
+    (sa, ha), (sb, hb) = a, b
+    assert len(ha) == len(hb)
+    for ra, rb in zip(ha, hb):
+        for k, v in ra.items():
+            if k in ("wall_ms", "chunk_ms"):
+                continue
+            x, y = np.asarray(v), np.asarray(rb[k])
+            assert (x.dtype, x.shape) == (y.dtype, y.shape), k
+            assert x.tobytes() == y.tobytes(), (k, ra["round"])
+    la, lb = tree.leaves(sa), tree.leaves(sb)
+    rows = getattr(getattr(sa, "buf", None), "rows", None)
+    for i, (x, y) in enumerate(zip(la, lb)):
+        if rows is not None and x is rows:  # the drop row takes the
+            # dropped parks in no set order and is never read
+            x, y = x[:-1], y[:-1]
+        if isinstance(x, torch.Tensor):
+            assert torch.equal(x, y), (i, float((x.double() - y.double())
+                                                .abs().max()))
+
+
+@pytest.fixture
+def deterministic_cudnn(card):
+    """cuDNN's deterministic convolutions for one test: the vmapped conv's
+    backward otherwise sums in no set order, so that two runs of the eager
+    loop itself differ in the last bits (PERF.md section 6)."""
+    was = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    yield card
+    torch.backends.cudnn.deterministic = was
+
+
+@pytest.mark.parametrize("compress", ["none", "int8"])
+def test_sync_round_replay_matches_eager_loop(deterministic_cudnn, compress):
+    """``fedfits.run(driver="scan")`` on the card (the round captured once
+    and replayed, partial chunks of 3 over 7 rounds) bitwise its per-round
+    loop under deterministic cuDNN, with availability and explore draws
+    every round; the kernels' launch counts are the loop's."""
+    model = build(CNN_CONFIG.replace(d_model=4, d_ff=16))
+    cfg = FedConfig(n_clients=6, local_epochs=2, local_lr=0.05, msl=3,
+                    pft=2, aggregator="trimmed_mean", avail_prob=0.7,
+                    explore_eps=0.3, compress=compress, error_feedback=True)
+    fed, _ = build_federation(0, n=600, n_clients=6, batch_size=16)
+    runs, counts = [], []
+    for drv in ("python", "scan"):
+        rp.reset_launch_counts()
+        dq.reset_launch_counts()
+        runs.append(fedfits.run(model, cfg, fed.data_fn, 7, 1, driver=drv,
+                                chunk_rounds=3))
+        counts.append({**rp.launch_counts(), **dq.launch_counts()})
+    _bitwise_runs(runs[1], runs[0])
+    assert counts[1] == counts[0] and max(counts[1].values()) >= 7
+    assert len({r["avail"].tobytes() for r in runs[1][1][1:]}) > 1
+
+
+def test_async_round_replay_matches_eager_loop(deterministic_cudnn):
+    model = build(MLP_CONFIG)
+    fed, _ = build_federation(0, kind="tabular", n=600, n_clients=24,
+                              batch_size=8)
+    cfg = FedConfig(n_clients=4, population=24, local_epochs=2,
+                    local_lr=0.05, aggregator="trimmed_mean",
+                    async_max_retries=2, select_method="pallas")
+    late = faults.FaultConfig(straggler_frac=0.3, straggler_delay=3.0,
+                              base_delay=0.3)
+    runs, k7 = [], []
+    for drv in ("python", "scan"):
+        ps.reset_launch_counts()
+        runs.append(async_engine.run_async(model, cfg, fed.data, 6, 2,
+                                           batch_size=8, faults=late,
+                                           driver=drv, chunk_rounds=4))
+        k7.append(ps.launch_counts()["block_topd"])
+    _bitwise_runs(runs[1], runs[0])
+    assert k7 == [6, 6]
+
+
+@pytest.mark.parametrize("temperature", [0.0, 0.7])
+def test_decode_step_replay_matches_eager(card, temperature):
+    """The serving engine's captured decode step against ``_decode`` run
+    eagerly on the same states: the same tokens, K8 once a layer and
+    step, replays included."""
+    from repro_torch.core.driver import copy_into
+    from repro_torch.launch.serve import draw_requests
+    from repro_torch.serve import engine as serve_engine
+
+    class Eager(ServeEngine):
+        def _step(self, cache, st):
+            _, st2, out = self._decode(self.params, cache, st)
+            host = serve_engine._to_host(out)
+            copy_into(st, st2)
+            return host
+
+    cfg = get_config("tiny-lm").reduced()
+    params = tree.map(lambda t: t.to(card),
+                      build(cfg).init(torch.Generator().manual_seed(0)))
+    scfg = ServeConfig(max_slots=4, page_size=8, max_len=48, prompt_pad=8,
+                       attn="pallas", temperature=temperature)
+    reqs = draw_requests(8, 6, 2, 24, cfg.vocab_size, seed=5)
+    eager, _ = Eager(cfg, scfg, params, seed=2).run(reqs)
+    pd.reset_launch_counts()
+    engine = ServeEngine(cfg, scfg, params, seed=2)
+    res, stats = engine.run(reqs)
+    assert res == eager
+    assert engine._graph is not None
+    assert sum(pd.launch_counts().values()) == 2 * stats["steps"]
+    again, _ = engine.run(reqs)                   # the same graph, reset
+    assert again == res
+
+
+def _capture(fn):
+    """fn() captured as a CUDA graph after one eager warm-up call on the
+    capture stream; returns (graph, the eager output, the graph's)."""
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        warm = fn()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        out = fn()
+    torch.cuda.current_stream().wait_stream(stream)
+    return graph, warm, out
+
+
+def test_k7_and_k8_counters_hold_across_replays(card):
+    """K7's merge counter (kept by device and stream) and K8's item
+    counters are made by the warm-up and left at 0 by every launch: 100
+    replays on fresh inputs each give the eager kernel's output."""
+    gen = torch.Generator(card).manual_seed(0)
+    keys = torch.rand(16_384, generator=gen, device=card)
+    graph, _, idx = _capture(lambda: ps.topd_pallas(keys, 16))
+    q, kp, vp, table, lengths = _paged(card)
+    q = q.clone()
+    graph8, _, att = _capture(lambda: pd.paged_flash_decode(
+        q, kp, vp, table, lengths))
+    for i in range(100):
+        keys.copy_(ps.draw_gumbel(keys.shape[0], gen))
+        q.normal_(generator=gen)
+        graph.replay()
+        graph8.replay()
+        assert torch.equal(idx, ps.topd_pallas(keys, 16)), i
+        assert torch.equal(att, pd.paged_flash_decode(q, kp, vp, table,
+                                                      lengths)), i
+    torch.cuda.synchronize()
+    assert all(int(c.abs().sum()) == 0 for c in ps._COUNTERS.values())
+    assert all(int(c.abs().sum()) == 0 for c in pd._COUNTERS.values())
+
+
+def test_driver_counts_replays_and_registers_generators(card):
+    """A body that draws from a generator registered with the graph and
+    launches K2: each replay draws the next numbers (those of the eager
+    loop, never the same twice) and counts one launch."""
+    from repro_torch.core import driver
+    gen = torch.Generator(card).manual_seed(7)
+    x, m, w = (t[:1].contiguous() for t in _inputs(card, c=16, n=4096))
+
+    def body(st, xs):
+        u = torch.rand(8, generator=gen, device=card)
+        out = rp.gated_combine(x, m, w, mode="mean")
+        return {"n": st["n"] + 1}, {"u": u, "s": out.sum()}
+
+    drv = driver.ScanDriver(body, chunk_steps=4, generators=(gen,))
+    rp.reset_launch_counts()
+    state = {"n": torch.zeros((), dtype=torch.int32, device=card)}
+    final, hist = drv.run(state, lambda t: {}, 9, t0=1)
+    assert (drv.captures, drv.replays) == (1, 8)
+    assert rp.launch_counts()["gated_combine[mean]"] == 9
+    assert int(final["n"]) == 9 and int(state["n"]) == 0
+    ref = torch.Generator(card).manual_seed(7)
+    draws = [torch.rand(8, generator=ref, device=card).cpu().numpy()
+             for _ in range(9)]
+    for row, u in zip(hist, draws):
+        assert row["u"].tobytes() == u.tobytes()
+    assert len({row["u"].tobytes() for row in hist}) == 9
+    final, hist = drv.run(state, lambda t: {}, 3, t0=1)   # replays only
+    assert drv.captures == 1 and int(final["n"]) == 3
+    assert final["n"] is drv._graph.state["n"]     # donated: the buffers
+    keep = driver.ScanDriver(body, chunk_steps=4, generators=(gen,),
+                             donate=False)
+    final, _ = keep.run(state, lambda t: {}, 2, t0=1)
+    assert final["n"] is not keep._graph.state["n"] and int(final["n"]) == 2

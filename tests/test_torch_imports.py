@@ -36,7 +36,8 @@ print(len(names), bad, all(m in names for m in (
     "repro_torch.kernels.flash_attention",
     "repro_torch.kernels.flash_attention_ops",
     "repro_torch.kernels.flash_attention_ref",
-    "repro_torch.models.transformer", "repro_torch.configs.registry")))
+    "repro_torch.models.transformer", "repro_torch.configs.registry",
+    "repro_torch.core.driver", "repro_torch.kernels.launches")))
 """
 
 
@@ -80,7 +81,7 @@ def test_entry_points_raise_without_cuda():
 def test_unported_options_raise():
     from repro_torch.configs.base import FedConfig
     from repro_torch.configs.paper_models import MLP_CONFIG
-    from repro_torch.core import async_engine, fedfits
+    from repro_torch.core import async_engine, driver, fedfits
     from repro_torch.models.model import build
     model = build(MLP_CONFIG)
     for kw in [dict(agg_blk=512)]:
@@ -93,10 +94,21 @@ def test_unported_options_raise():
     pop = {"x": torch.zeros(8, 3, 22), "y": torch.zeros(8, 3),
            "eval_x": torch.zeros(8, 2, 22), "eval_y": torch.zeros(8, 2),
            "n": torch.ones(8)}
-    for kw, match in [(dict(driver="scan"), "item a"),
-                      (dict(telemetry=object()), "item 12")]:
-        with pytest.raises(NotImplementedError, match=match):
-            async_engine.run_async(model, cfg, pop, 1, device="cpu", **kw)
+    for drv in ("scan", "python"):
+        with pytest.raises(NotImplementedError, match="item e"):
+            async_engine.run_async(model, cfg, pop, 1, device="cpu",
+                                   driver=drv, telemetry=object())
+    body = lambda st, xs: (st, {})
+    state = {"w": torch.zeros(2)}
+    with pytest.raises(NotImplementedError, match="item e"):
+        driver.ScanDriver(body).run(state, lambda t: {}, 1,
+                                    telemetry=object())
+    with pytest.raises(NotImplementedError, match="item e"):
+        driver.run_chunked(body, state, lambda t: {}, 1, telemetry=object())
+    with pytest.raises(NotImplementedError, match="item g"):
+        driver.ScanDriver(body, batch_sharding=object())
+    with pytest.raises(NotImplementedError, match="item g"):
+        driver.stage_chunk(lambda t: {}, [0], batch_sharding=object())
     with pytest.raises(ValueError, match="dense-uplink"):
         async_engine.make_async_round(
             model, dataclasses.replace(cfg, population=0, compress="int8"),

@@ -357,7 +357,11 @@ def test_run_scenario_repeats_and_keys():
                                   state, [row], 3, 0.0))
     assert set(a) | {"wall_s"} == {k for k in jkeys
                                    if not k.startswith("obs_")}
-    with pytest.raises(NotImplementedError, match="item a"):
-        engine.run_scenario("clean_trimmed", driver="scan", **kw)
+    # the default driver is the chunked one; the per-round loop agrees
+    c, _ = engine.run_scenario("cross_round_trimmed", driver="python", **kw)
+    c.pop("wall_s")
+    assert c == a
+    with pytest.raises(ValueError, match="driver"):
+        engine.run_scenario("clean_trimmed", driver="jit", **kw)
     with pytest.raises(NotImplementedError, match="item 12"):
         engine.run_scenario("clean_trimmed", telemetry=object(), **kw)
