@@ -64,7 +64,13 @@ Phases, one line each (a failure raises, so the exit code is not 0):
               d=64 takes the argsort route and must not launch K7.  Times at
               TOPD_TIMED by CUDA events and device only: the fused launch,
               stage 1 alone, ``torch.topk`` and the plain version, beside
-              the bound and the earlier design's (K7_BEFORE_MS).
+              the bound and the earlier design's (K7_BEFORE_MS).  Past the
+              shared-memory budget (``topd_checks.LARGE_CASES``: d = 16,385
+              and 20,000 at M = 10^5, duplicates, +-0.0, -inf tails,
+              unaligned) ``topd_pallas`` must take K7's global path and
+              give the CPU path's indices bitwise, while d = 16,384 and
+              TOPD_TIMED keep the one-launch path; the global path is timed
+              at TOPD_LARGE_TIMED beside its bound and ``torch.topk``.
   3. round    the port's main path: the full-width paper-cnn FedFiTS round
               through ``fedfits.run`` and its default chunked driver (the
               round captured once as a CUDA graph and replayed, one host
@@ -113,6 +119,16 @@ Phases, one line each (a failure raises, so the exit code is not 0):
               rounds (one host read each), the scan driver's wall a round
               over a chunk of 10, and one traced round's device busy time,
               idle share and launches from the host.
+  5d. telemetry
+              sync fedavg and async trimmed_mean at phase 5b's shapes under
+              the default (replayed) driver with an ``obs.Telemetry`` (a
+              JSONL sink and a trace) and without: bitwise the same run
+              but the obs/ keys under cuDNN's deterministic algorithms,
+              the counter column's totals the rows' sums, the artifacts
+              passing ``python -m repro_torch.obs.check --require-obs
+              --min-phases 5``; then the replayed round's wall median and
+              launches from the host with telemetry on and off
+              (``profile_round.measure``).
   6. robustness
               (a) the port's examples/poisoning_defense.py: paper-mlp on
               the tabular federation (n=1600, K=10, 22 classes), 2 clients
@@ -156,7 +172,9 @@ Phases, one line each (a failure raises, so the exit code is not 0):
               and, with its library call's, by torch.profiler (device
               only); the library call is ``scaled_dot_product_attention``
               (causal, GQA; a boolean band for the window), which the port
-              never calls.
+              never calls.  Then K9 captured in a CUDA graph and replayed
+              on new contents of its inputs must equal its eager call
+              bitwise (its TMA maps are passed by value).
   7. serving  minitron-4b at full width and depth (5.1e9 parameters drawn
               in fp32 on the card, cast once to bf16) behind
               ``ServeEngine``: 16 slots, pages of 16, max_len 384, prompts
@@ -177,9 +195,15 @@ Phases, one line each (a failure raises, so the exit code is not 0):
               row read) must fail the same check.  Then 13 steady decode
               steps at 16 slots, the last 3 traced (device busy, idle
               share, K8's share).  Prints decode-step ms and tokens/s
-              beside the card.  The engines replay their decode step
-              captured as a CUDA graph; the 48 requests run again with
-              ``_decode`` called eagerly a step (the same tokens), and the
+              beside the card.  The engines replay their decode step and
+              their admission, each captured once as a CUDA graph; the 48
+              requests run again with the admission eager (the same tokens,
+              pools and SlotState with its counter column, bitwise; tokens/s
+              and the admission's wall under both, and launches from the
+              host an admission), 12 requests at temperature 0.7 both ways
+              (bitwise), the 48 with an ``obs.Telemetry`` whose artifacts
+              must pass ``repro_torch.obs.check``, and the 48 with both
+              steps eager (``_decode`` and ``_admit``; the same tokens); the
               steady steps are timed and traced both ways (the eager trace
               names its copy kernels by shape).  Then 10 replayed decode
               steps against ``_decode`` eagerly on two copies of the same
@@ -303,6 +327,9 @@ TOPD_TIMED = ((16_384, 16), (100_000, 64), (1_000_000, 64))
 K7_BEFORE_MS = {(16_384, 16): ("0.0109", "0.0214"),
                 (100_000, 64): ("0.0389-0.0400", "0.0668-0.0671"),
                 (1_000_000, 64): ("0.0538-0.0557", "0.1065-0.1078")}
+# (M, d) of K7's global path timed in phase 2b: cohorts past the shared-
+# memory budget (blk = d > 16,384)
+TOPD_LARGE_TIMED = ((100_000, 16_385), (100_000, 20_000))
 # phase 5: the buffered-async engine at full width
 ASYNC_M, ASYNC_N, ASYNC_C = 16_384, 131_072, 16
 ASYNC_SCHEDULE = (("trimmed_mean", 8), ("fedavg", 2), ("median", 2),
@@ -1046,6 +1073,14 @@ def _topd_checks():
     torch.cuda.synchronize()
     print("[topd] M=40 d=64 takes the argsort route without K7; ties go to "
           "the lowest index")
+    for label, m, d, kind in tc.LARGE_CASES:
+        tc.global_path(tc.keys(m, d, d, kind, m + d, DEVICE), d)
+        print(f"[topd] {label}, M={m}: past the shared-memory budget, K7's "
+              "global path gives bitwise the CPU path's indices")
+    for m, d in ((100_000, 16_384),) + TOPD_TIMED:
+        tc.smem_path(tc.keys(m, d, 4096, "gumbel", m, DEVICE), d)
+    print("[topd] d = 16,384 and the shapes of TOPD_TIMED keep the "
+          "one-launch shared-memory path")
     row = _topd_times()[TOPD_TIMED[0]]
     return {"name": "block_topd", "route": "cuda", "source": CUDA_SOURCE_K7,
             "replaces": K7_REPLACES, "launches": None, "max_abs_err": err,
@@ -1053,7 +1088,32 @@ def _topd_checks():
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": row["library_ms"], "device_ms": row["device_ms"],
             "library_device_ms": row["library_device_ms"],
-            "shape": {"M": TOPD_TIMED[0][0], "d": TOPD_TIMED[0][1]}}
+            "shape": {"M": TOPD_TIMED[0][0], "d": TOPD_TIMED[0][1]},
+            "global_path": _topd_large_times()}
+
+
+def _topd_large_times():
+    """K7's global path at TOPD_LARGE_TIMED: device-only and event times
+    beside the bound, ``torch.topk`` and the plain version."""
+    import torch
+    from repro_torch.kernels import population_select as ps
+    out = []
+    for m, d in TOPD_LARGE_TIMED:
+        g = _gumbel_keys(m, 5)
+        bound_ms, bound_by = bound(*topd_work(m, d))
+        fn = lambda: ps.topd_pallas(g, d)
+        lib = lambda: torch.topk(g, d)
+        row = {"M": m, "d": d, "ms": time_ms(fn), "device_ms": device_ms(fn),
+               "plain_ms": time_ms(lambda: ps.topd_pallas_plain(g, d, d)),
+               "library_ms": time_ms(lib), "library_device_ms": device_ms(lib),
+               "bound_ms": bound_ms, "bound_by": bound_by}
+        out.append(row)
+        print(f"[topd] M={m} d={d} (global path): top-d "
+              f"{row['device_ms']:.4f} ms device only ({row['ms']:.4f} by "
+              f"events), torch.topk {row['library_device_ms']:.4f} "
+              f"({row['library_ms']:.4f}), plain {row['plain_ms']:.4f}, "
+              f"bound {bound_ms * 1e3:.4f} us ({bound_by})")
+    return out
 
 
 def _topd_times():
@@ -1557,6 +1617,110 @@ def _timing(fed, async_side, smi):
                   f"{m['idle']:.3f}, {m['host_launches']} launches from the "
                   f"host | {smi}")
     return out
+
+
+def _obs_check(engine, jsonl, trace):
+    """``python -m repro_torch.obs.check`` on a run's artifacts; raises on
+    a finding."""
+    import os
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.obs.check", "--require-obs",
+         "--min-phases", "5", "--engine", engine, "--jsonl", jsonl,
+         "--trace", trace], env=env, capture_output=True, text=True,
+        timeout=300)
+    if proc.returncode != 0:
+        raise AssertionError(f"{engine} telemetry artifacts: "
+                             f"{proc.stdout} {proc.stderr}")
+    return proc.stdout.strip()
+
+
+def _without_obs(run):
+    """A (state, history) run with its telemetry column and obs/ keys
+    taken out."""
+    state, hist = run
+    return (state._replace(tele=None),
+            [{k: v for k, v in r.items() if not k.startswith("obs/")}
+             for r in hist])
+
+
+def _telemetry(model, fed, evaluate, async_side, smi):
+    """Phase 5d: telemetry through the replayed rounds.  Sync fedavg and
+    async trimmed_mean at phase 5b's shapes under the default driver:
+    telemetry on and off bitwise (params, generators, billing and every
+    non-obs value) under cuDNN's deterministic algorithms, the counter
+    column's totals the rows' sums, the JSONL and trace passing
+    ``repro_torch.obs.check``; then the replayed round's wall median and
+    launches from the host with telemetry on and off."""
+    import types
+    import torch
+    from repro_torch.core import async_engine as ae
+    from repro_torch.core import fedfits
+    from repro_torch.launch import profile_round as pr
+    from repro_torch.obs import JsonlSink, Telemetry
+    t0 = time.perf_counter()
+    out_dir = Path(__file__).resolve().parent / "build" / "chip_smoke"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    afed, atest, late = async_side
+
+    def aeval(params):
+        _, met = model.loss(params, atest)
+        return {"test_acc": met["acc"]}
+
+    runs = {
+        "sync": lambda tel: fedfits.run(
+            model, _fed_cfg("fedavg", avail_prob=0.8, explore_eps=0.1),
+            fed.data_fn, PARITY_ROUNDS, 0, eval_fn=evaluate,
+            chunk_rounds=PARITY_CHUNK, telemetry=tel),
+        "async": lambda tel: ae.run_async(
+            model, _async_cfg("trimmed_mean"), afed.data, PARITY_ROUNDS, 0,
+            eval_fn=aeval, faults=late, telemetry=tel)}
+    torch.backends.cudnn.deterministic = True
+    try:
+        for engine, run in runs.items():
+            jsonl = str(out_dir / f"{engine}.jsonl")
+            trace = str(out_dir / f"{engine}_trace.json")
+            tel = Telemetry(sinks=[JsonlSink(jsonl)], trace_path=trace,
+                            run_name=f"chip_smoke {engine}")
+            on = run(tel)
+            summary = tel.finish()
+            off = run(None)
+            err, keys = _run_diff(off, _without_obs(on))
+            if keys:
+                raise AssertionError(f"telemetry {engine}: on and off differ "
+                                     f"in {keys} (max abs {err:.3e})")
+            state, hist = on
+            for name in ("wire/bytes_up", "gate/cosine_rejected"):
+                total = sum(float(r["obs/" + name]) for r in hist)
+                if float(state.tele[name]) != total:
+                    raise AssertionError(f"telemetry {engine}: the column's "
+                                         f"{name} is not the rows' sum")
+            print(f"[telemetry] {engine} {PARITY_ROUNDS} rounds, driver "
+                  f"scan: on vs off bitwise (deterministic cuDNN); "
+                  f"{summary['rows']} rows, {summary['n_warnings']} "
+                  f"warnings; last row obs/cohort/trust_q "
+                  f"{hist[-1]['obs/cohort/trust_q'].tolist()}; "
+                  f"{_obs_check(engine, jsonl, trace)}")
+    finally:
+        torch.backends.cudnn.deterministic = False
+    dev = torch.device(DEVICE)
+    gen = lambda s: torch.Generator(device=dev).manual_seed(s)
+    for engine, agg, setup, f in (
+            ("sync", "fedavg", pr.sync_round, fed),
+            ("async", "trimmed_mean", pr.async_round, afed)):
+        args = types.SimpleNamespace(aggregator=agg, compress="none")
+        for on in (False, True):
+            m = pr.measure(*setup(args, dev, gen, fed=f, telemetry=on),
+                           driver="scan", device=dev,
+                           telemetry=Telemetry() if on else None)
+            print(f"[telemetry] {engine} {agg} replayed round, telemetry "
+                  f"{'on' if on else 'off'}: wall median "
+                  f"{m['median_ms']:.3f} ms (min {min(m['walls']):.3f}, max "
+                  f"{max(m['walls']):.3f}), {m['chunk_round_ms']:.3f} ms a "
+                  f"round over a chunk of {pr.ROUNDS}; traced round device "
+                  f"busy {m['busy_ms']:.3f} ms, {m['host_launches']} "
+                  f"launches from the host | {smi}")
+    print(f"[telemetry] phase 5d took {time.perf_counter() - t0:.1f} s")
 
 
 def _counts():
@@ -2078,7 +2242,41 @@ def _attention_kernels():
         "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape",
         "device_ms", "library_device_ms")}
     report.append(full)
+    _k9_replay_check()
     return report
+
+
+def _k9_replay_check():
+    """K9 captured in a CUDA graph (its TMA maps passed by value), then
+    replayed on new contents of its input buffers: bitwise its eager call
+    on those contents, bf16 and fp32, at the serving prefill's head
+    shape."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    g = torch.Generator(device=DEVICE).manual_seed(4)
+    for dtype in (torch.bfloat16, torch.float32):
+        qkv = [torch.randn(1, h, SERVE_PROMPT, 128, generator=g,
+                           device=DEVICE, dtype=dtype) for h in (24, 8, 8)]
+        stream = torch.cuda.Stream()
+        stream.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(stream):
+            fa.flash_attention_fwd(*qkv)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=stream):
+            out = fa.flash_attention_fwd(*qkv)
+        torch.cuda.current_stream().wait_stream(stream)
+        for _ in range(3):
+            for t in qkv:
+                t.copy_(torch.randn(t.shape, generator=g, device=DEVICE,
+                                    dtype=dtype))
+            graph.replay()
+            if not torch.equal(out, fa.flash_attention_fwd(*qkv)):
+                raise AssertionError(f"K9 {dtype}: the replay is not the "
+                                     "eager call")
+    torch.cuda.synchronize()
+    print(f"[attention] K9 captured once and replayed on new inputs "
+          f"(1, 24/8, {SERVE_PROMPT}, 128), bf16 and fp32: bitwise the "
+          "eager call")
 
 
 def _admit(engine, cache, st, reqs):
@@ -2191,21 +2389,157 @@ def _complete(label, results, stats, reqs, scfg):
                              f"{scfg.total_pages} pages back in the pool")
 
 
-def _eager_engine(cfg, scfg, params):
-    """A ServeEngine whose ``run`` calls ``_decode`` eagerly a step, as the
-    engine did before its step was captured: the timing baseline."""
+def _eager_admission_engine(cfg, scfg, params, eager_decode=False):
+    """A ServeEngine whose ``run`` admits by ``_admit`` called eagerly, as
+    the engine did before its admission was captured (and, with
+    ``eager_decode``, decodes by ``_decode`` eagerly a step, as before its
+    decode step was): the timing baselines."""
     from repro_torch.core.driver import copy_into
     from repro_torch.serve import ServeEngine
     from repro_torch.serve import engine as serve_engine
 
     class Eager(ServeEngine):
+        def _admission(self, cache, st, r):
+            self._load_request(r)
+            st2, out = self._admit_static(cache, st)
+            host = serve_engine._to_host(out)
+            copy_into(st, st2)
+            return host
+
         def _step(self, cache, st):
+            if not eager_decode:
+                return super()._step(cache, st)
             _, st2, out = self._decode(self.params, cache, st)
             host = serve_engine._to_host(out)
             copy_into(st, st2)
             return host
 
     return Eager(cfg, scfg, params)
+
+
+def _same_serving_state(a, b):
+    """The fields of two engines' own pools and SlotStates that differ
+    bitwise (the counter column and the generator's state included), and
+    whether the pools' drop page differs.  The drop page (the last) takes
+    every inactive slot's append at once, duplicate rows in no set order,
+    and nothing reads it."""
+    import torch
+    (ca, sa), (cb, sb) = a._static, b._static
+    bad = [f for f in sa._fields if f not in ("tele", "gen")
+           and not torch.equal(getattr(sa, f), getattr(sb, f))]
+    bad += [f"tele.{k}" for k in sa.tele
+            if not torch.equal(sa.tele[k], sb.tele[k])]
+    if not torch.equal(sa.gen.get_state(), sb.gen.get_state()):
+        bad.append("gen")
+    for n in ca:
+        for k in ca[n]:
+            x, y = ca[n][k], cb[n][k]
+            pages = (x != y).flatten(2).any(-1).any(0).nonzero().flatten()
+            if pages.numel():
+                bad.append(f"{n}.{k} pages {pages.tolist()[:8]}")
+    drop = x.shape[1] - 1
+    real = [e for e in bad if " pages " not in e
+            or e.split(" pages ")[1] != f"[{drop}]"]
+    return real, len(real) < len(bad)
+
+
+def _admission_launches(engine, reqs):
+    """Launches from the host an admission (CUDA runtime kernel, copy,
+    memset and graph-launch calls, as torch.profiler names them), over
+    ``reqs`` admitted into the engine's own reset state."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.launch.profile_round import HOST_LAUNCHES
+    cache, st = engine._reset()
+    engine._admission(cache, st, reqs[0])        # the warm-up / capture
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for r in reqs[1:]:
+            engine._admission(cache, st, r)
+        torch.cuda.synchronize()
+    return sum(1 for e in prof.events() if e.device_type == DeviceType.CPU
+               and any(k in e.name for k in HOST_LAUNCHES)) \
+        / (len(reqs) - 1)
+
+
+def _admission_phase(engine, cfg, params, reqs, results, stats, smi):
+    """Phase 7's admission checks: the 48 requests again through an engine
+    whose admission runs eagerly (its decode step still replayed), the
+    same tokens, pools and SlotState (counter column and generator too)
+    bitwise; continuous tokens/s and the admission's host-clock wall under
+    both, and their launches from the host an admission; then 12
+    requests at temperature 0.7, captured against eager admission,
+    bitwise."""
+    import statistics
+    import torch
+    from repro_torch.launch.serve import draw_requests
+    from repro_torch.serve import ServeConfig, ServeEngine
+    scfg = engine.scfg
+    eager = _eager_admission_engine(cfg, scfg, params)
+    eager.run(draw_requests(1, SERVE_PROMPT, 2, 2, cfg.vocab_size, seed=9))
+    e_results, e_stats = eager.run(reqs)
+    bad, drop = _same_serving_state(engine, eager)
+    bad += ["tokens"] if e_results != results else []
+    med = lambda st: statistics.median(st["admit_s"]) * 1e3
+    print(f"[admit] continuous, 48 requests: admission replayed "
+          f"{stats['tokens_per_s']:.1f} tokens/s, {stats['wall_s']:.3f} s, "
+          f"admission median {med(stats):.3f} ms (min "
+          f"{min(stats['admit_s']) * 1e3:.3f}, max "
+          f"{max(stats['admit_s']) * 1e3:.3f}); eager admission "
+          f"{e_stats['tokens_per_s']:.1f} tokens/s, {e_stats['wall_s']:.3f}"
+          f" s, admission median {med(e_stats):.3f} ms; "
+          f"{'bitwise (tokens, pools, SlotState)' if not bad else bad}"
+          f"{' but the drop page' if drop else ''} | {smi}")
+    if bad:
+        raise AssertionError(f"the replayed admission is not the eager one: "
+                             f"{bad}")
+    few = reqs[:6]
+    n_eager = _admission_launches(eager, few)
+    n_replay = _admission_launches(engine, few)
+    print(f"[admit] launches from the host an admission: eager "
+          f"{n_eager:.0f}, replayed {n_replay:.0f}")
+    del eager
+    torch.cuda.empty_cache()
+    sub = draw_requests(12, SERVE_PROMPT, 8, 64, cfg.vocab_size, seed=1)
+    warm = draw_requests(1, SERVE_PROMPT, 2, 2, cfg.vocab_size, seed=9)
+    hot = ServeConfig(**SUB_CFG, attn="pallas", temperature=0.7)
+    a, b = ServeEngine(cfg, hot, params), _eager_admission_engine(cfg, hot,
+                                                                  params)
+    a.run(warm)
+    res_a, _ = a.run(sub)
+    res_b, _ = b.run(sub)
+    bad, drop = _same_serving_state(a, b)
+    bad += ["tokens"] if res_a != res_b else []
+    print(f"[parity] serve T=0.7: 12 requests, admission replayed vs eager: "
+          f"{'bitwise (tokens, pools, SlotState)' if not bad else bad}"
+          f"{' but the drop page' if drop else ''}")
+    if bad:
+        raise AssertionError(f"T=0.7: the replayed admission is not the "
+                             f"eager one: {bad}")
+    del a, b
+    torch.cuda.empty_cache()
+
+
+def _serving_telemetry(engine, reqs, results):
+    """Phase 7's telemetry: the 48 requests with a Telemetry (JSONL and
+    trace), the same tokens, the artifacts through
+    ``repro_torch.obs.check``."""
+    from repro_torch.obs import JsonlSink, Telemetry
+    out_dir = Path(__file__).resolve().parent / "build" / "chip_smoke"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    jsonl, trace = str(out_dir / "serve.jsonl"), \
+        str(out_dir / "serve_trace.json")
+    tel = Telemetry(sinks=[JsonlSink(jsonl)], trace_path=trace,
+                    run_name="chip_smoke serve")
+    t_results, t_stats = engine.run(reqs, telemetry=tel)
+    summary = tel.finish()
+    if t_results != results or summary["rows"] != t_stats["steps"]:
+        raise AssertionError("serving with telemetry: other tokens or rows")
+    print(f"[serve] telemetry on, 48 requests: {summary['rows']} rows, the "
+          f"same tokens, {t_stats['tokens_per_s']:.1f} tokens/s; "
+          f"{_obs_check('serve', jsonl, trace)}")
 
 
 def _admit_own(engine, reqs):
@@ -2297,8 +2631,10 @@ def _clone_serve(cache, st):
     gen.set_state(st.gen.get_state())
     return ({b: {k: v.clone() for k, v in blk.items()}
              for b, blk in cache.items()},
-            st._replace(gen=gen, **{f: getattr(st, f).clone()
-                                    for f in st._fields if f != "gen"}))
+            st._replace(gen=gen, tele={k: v.clone()
+                                       for k, v in st.tele.items()},
+                        **{f: getattr(st, f).clone() for f in st._fields
+                           if f not in ("gen", "tele")}))
 
 
 def _serve_parity(engine, cfg, params, reqs):
@@ -2386,20 +2722,25 @@ def _serving(smi, box):
         raise AssertionError(f"K8 launched {counts['paged_flash_decode']} "
                              f"times in {stats['steps']} decode steps")
     _serve_line(f"continuous, 48 requests, K8 x{counts['paged_flash_decode']}"
-                f" ({cfg.n_layers} a step), the captured step replayed",
-                stats, smi)
-    eager = _eager_engine(cfg, scfg, params)
+                f" ({cfg.n_layers} a step), the captured decode step and "
+                "admission replayed", stats, smi)
+    t_adm = time.perf_counter()
+    _admission_phase(engine, cfg, params, reqs, results, stats, smi)
+    _serving_telemetry(engine, reqs, results)
+    print(f"[admit] admission and telemetry checks took "
+          f"{time.perf_counter() - t_adm:.1f} s")
+    eager = _eager_admission_engine(cfg, scfg, params, eager_decode=True)
     eager.run(draw_requests(1, SERVE_PROMPT, 2, 2, cfg.vocab_size, seed=9))
     e_results, e_stats = eager.run(reqs)
     del eager
     same = sum(a == b for r in reqs for a, b in zip(results[r.req_id],
                                                     e_results[r.req_id]))
-    _serve_line(f"continuous, 48 requests, _decode eagerly a step ({same} of "
-                f"{stats['tokens']} tokens as the replayed step's)", e_stats,
-                smi)
+    _serve_line(f"continuous, 48 requests, _decode and _admit eagerly "
+                f"({same} of {stats['tokens']} tokens as the replayed "
+                "steps')", e_stats, smi)
     if e_results != results:
-        raise AssertionError("the eager and the replayed decode steps "
-                             "emitted other tokens")
+        raise AssertionError("the eager and the replayed steps emitted "
+                             "other tokens")
 
     # the subset runs over fewer slots than requests, so that continuous
     # admits mid-run into recycled slots and pages and fixed does not
@@ -2616,6 +2957,7 @@ def main(argv=()):
     counts["block_topd"] = async_counts["block_topd"]
     _parity(model, fed, evaluate, async_side)
     _timing(fed, async_side, smi)
+    _telemetry(model, fed, evaluate, async_side, smi)
     del async_side
     robust_counts = _robustness()
     for entry in flat_report:

@@ -50,13 +50,10 @@ def _take(s, i):
     return s.index_select(0, i.reshape(1))[0]
 
 
-def sanitize_updates(updates, mask, *, norm_mult=1e4):
-    """Reject non-finite or absurd-norm client deliveries before any
-    aggregator sees them: a masked-in row is rejected if any coordinate is
-    non-finite, or (``norm_mult`` > 0) if its tree-wide L2 norm exceeds
-    ``norm_mult`` x the masked median norm of the finite rows.  Returns
-    ``(clean_updates, clean_mask, rejected)``; rejected rows are zeroed and
-    masked out.  Sane inputs pass through bit-identical."""
+def _guard(updates, mask, norm_mult):
+    """The guard's two rules on each client row: ``(finite, sane)`` (K,)
+    bools, ``sane`` None when the norm rule is off.  The median's middle
+    ranks are taken on the device by a gather, with no host read."""
     k = mask.shape[0]
     finite = torch.ones(k, dtype=torch.bool, device=mask.device)
     sq = torch.zeros(k, device=mask.device)
@@ -65,24 +62,63 @@ def sanitize_updates(updates, mask, *, norm_mult=1e4):
         ok = torch.isfinite(f)
         finite = finite & ok.all(dim=1)
         sq = sq + torch.sum(torch.where(ok, f, 0.0) ** 2, dim=1)
+    if not (norm_mult and norm_mult > 0):
+        return finite, None
     norm = torch.sqrt(sq)
     good = finite & (mask > 0)
-    if norm_mult and norm_mult > 0:
-        s = torch.sort(torch.where(good, norm,
-                                   torch.full_like(norm, float("inf")))).values
-        n_good = good.sum()
-        lo, hi = _lo_hi(n_good)
-        med = 0.5 * (_take(s, lo) + _take(s, hi))
-        med = torch.where(n_good > 0, med, torch.zeros_like(med))
-        ok_row = finite & (norm <= norm_mult * torch.clamp(med, min=1e-12))
-    else:
-        ok_row = finite
+    s = torch.sort(torch.where(good, norm,
+                               torch.full_like(norm, float("inf")))).values
+    n_good = good.sum()
+    lo, hi = _lo_hi(n_good)
+    med = 0.5 * (_take(s, lo) + _take(s, hi))
+    med = torch.where(n_good > 0, med, torch.zeros_like(med))
+    return finite, norm <= norm_mult * torch.clamp(med, min=1e-12)
+
+
+def _clean(updates, mask, finite, sane):
+    ok_row = finite if sane is None else finite & sane
     rejected = ((mask > 0) & ~ok_row).float()
     okf = ok_row.float()
     clean = tree.map(
         lambda l: torch.where(_bcast(okf, l) > 0, l, torch.zeros_like(l)),
         updates)
     return clean, mask * okf, rejected
+
+
+def _kinds(mask, finite, sane):
+    in_mask = mask > 0
+    nonfinite = (in_mask & ~finite).float()
+    if sane is None:
+        return nonfinite, torch.zeros_like(nonfinite)
+    return nonfinite, (in_mask & finite & ~sane).float()
+
+
+def sanitize_updates(updates, mask, *, norm_mult=1e4):
+    """Reject non-finite or absurd-norm client deliveries before any
+    aggregator sees them: a masked-in row is rejected if any coordinate is
+    non-finite, or (``norm_mult`` > 0) if its tree-wide L2 norm exceeds
+    ``norm_mult`` x the masked median norm of the finite rows.  Returns
+    ``(clean_updates, clean_mask, rejected)``; rejected rows are zeroed and
+    masked out.  Sane inputs pass through bit-identical."""
+    return _clean(updates, mask, *_guard(updates, mask, norm_mult))
+
+
+def rejection_kinds(updates, mask, *, norm_mult=1e4):
+    """Telemetry readout of the guard's decision split by kind: ``(nonfinite,
+    norm)`` 0/1 (K,) vectors with ``nonfinite + norm`` equal to
+    ``sanitize_updates``' ``rejected`` on the same inputs (a row failing
+    both counts as nonfinite: that rule fires first)."""
+    return _kinds(mask, *_guard(updates, mask, norm_mult))
+
+
+def sanitize_with_kinds(updates, mask, *, norm_mult=1e4):
+    """``sanitize_updates`` and ``rejection_kinds`` of the same inputs from
+    one pass of the guard's reductions (the JAX round leaves that sharing
+    to XLA's common-subexpression elimination): ``(clean_updates,
+    clean_mask, rejected, nonfinite, norm)``."""
+    finite, sane = _guard(updates, mask, norm_mult)
+    return (*_clean(updates, mask, finite, sane),
+            *_kinds(mask, finite, sane))
 
 
 def weighted_mean(updates, weights, mask):

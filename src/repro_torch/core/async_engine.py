@@ -47,8 +47,11 @@ every decision stay on the device, so the round, draws included, is safe
 to capture as a CUDA graph (``core/driver.py``): its round index is a 0-d
 int32 tensor and its constants are made once, in ``make_async_round``.
 
-Not in this slice: ``telemetry`` (ROADMAP queue 1 item e).  Compression
-raises ``ValueError``, as in the JAX package.
+Telemetry (``obs/``): with ``AsyncState.tele`` set, the round publishes
+the registry's async slice (the buffer's counters and its retry-age
+histogram among them) into the column and under ``obs/`` history keys, a
+pure readout; with ``tele=None`` it is the same program as without it.
+Compression raises ``ValueError``, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -56,7 +59,6 @@ import time
 from typing import Any, NamedTuple
 
 import torch
-from torch.profiler import record_function
 
 from repro_torch import device as device_mod, tree
 from repro_torch.comm import codecs
@@ -64,8 +66,10 @@ from repro_torch.core import aggregation, attacks, clientstore, fairness, \
     faults as faults_mod, fitness
 from repro_torch.core import driver as scan_driver
 from repro_torch.core.fedfits import _check_supported, _host, \
-    make_client_update
+    make_client_update, observe_round
 from repro_torch.kernels import population_select as ps
+from repro_torch.obs import counters as obs_counters
+from repro_torch.obs.trace import annotate
 
 
 class DeliveryBuffer(NamedTuple):
@@ -95,6 +99,7 @@ class AsyncState(NamedTuple):
     cost_bytes_up: torch.Tensor
     cost_bytes_down: torch.Tensor
     attacker: Any = None      # a stateful attacker's (M,) carry, or None
+    tele: Any = None          # the telemetry column, or None: off
 
     @property
     def trust(self):
@@ -227,7 +232,7 @@ def make_async_round(model, fed_cfg, pop_data, *, batch_size=32,
         ones_c = torch.ones(c, device=dev)
 
         # ---- O(M) cohort sampling + O(C) gather ------------------------
-        with record_function("selection"):
+        with annotate("selection"):
             idx = clientstore.select_cohort(
                 store, c, draws["gumbel"], method=fed_cfg.select_method)
             store = clientstore.record_selection(store, idx)
@@ -239,13 +244,13 @@ def make_async_round(model, fed_cfg, pop_data, *, batch_size=32,
                      "n": pop_data["n"][idx.long()]}
             cmal = mal[idx.long()]
         if data_attack is not None:
-            with record_function("attack"):
+            with annotate("attack"):
                 cdata = {**cdata, **data_attack(cdata, cmal,
                                                 draws.get("data_noise"))}
 
         # ---- local training, w_k - w into the fresh rows ---------------
         fresh = buf.rows[:c]
-        with record_function("client_update"):
+        with annotate("client_update"):
             locals_, (gl, ga, ll, la) = client_update(params, cdata)
             for v, w_k, w in zip(tree.leaves(tree.row_views(fresh, params)),
                                  tree.leaves(locals_), tree.leaves(params)):
@@ -253,7 +258,7 @@ def make_async_round(model, fed_cfg, pop_data, *, batch_size=32,
         att_carry = state.attacker
         if update_attack is not None:
             # the attacked rows are what aggregates and what parks
-            with record_function("attack"):
+            with annotate("attack"):
                 noise = draws.get("update_noise")
                 if stateful:
                     out, att_carry = update_attack(
@@ -274,7 +279,7 @@ def make_async_round(model, fed_cfg, pop_data, *, batch_size=32,
         store = clientstore.record_fitness(store, idx, scores, decay)
 
         # ---- the delivery race and buffer maturity ---------------------
-        with record_function("delivery"):
+        with annotate("delivery"):
             if fl.stragglers_active:
                 delay = faults_mod.sample_delays(scales_pop[idx.long()],
                                                  draws["u_delay"])
@@ -301,13 +306,18 @@ def make_async_round(model, fed_cfg, pop_data, *, batch_size=32,
         w_raw = nk_all * store.trust[owner_safe] * sdecay ** age_all.float()
         all_upd = {"u": buf.rows[:c + b]}
         mask, rejected = mask_pre, torch.zeros_like(mask_pre)
+        g_nonfinite = g_norm = None
         if fed_cfg.update_guard:
-            with record_function("sanitize"):
-                all_upd, mask, rejected = aggregation.sanitize_updates(
+            with annotate("sanitize"):
+                guard = aggregation.sanitize_updates if state.tele is None \
+                    else aggregation.sanitize_with_kinds   # + the kinds
+                all_upd, mask, rejected, *kinds = guard(
                     all_upd, mask_pre, norm_mult=fed_cfg.guard_norm_mult)
-        with record_function("aggregate"):
+            if kinds:
+                g_nonfinite, g_norm = (v.sum() for v in kinds)
+        with annotate("aggregate"):
             agg = aggregation.aggregate(all_upd, w_raw, mask, fed_cfg)["u"]
-        with record_function("writeback"):
+        with annotate("writeback"):
             new_params = tree.map(lambda p, u: p + u.to(p.dtype), params,
                                   tree.row_views(agg, params))
 
@@ -368,16 +378,47 @@ def make_async_round(model, fed_cfg, pop_data, *, batch_size=32,
         bytes_up_pc = codecs.dense_bytes_per_client(
             tree.row_views(fresh, params))
         bytes_down_pc = codecs.param_bytes(params)
+        team_size = torch.full((), float(c), dtype=torch.float32, device=dev)
+
+        # ---- telemetry readout (obs/): values the round already has -------
+        new_tele, obs_metrics = state.tele, {}
+        if state.tele is not None:
+            zero = torch.zeros((), device=dev)
+            wm = w_raw * mask
+            vals = {
+                "gate/cosine_rejected": gated.sum(),
+                "guard/nonfinite": zero if g_nonfinite is None
+                else g_nonfinite,
+                "guard/norm": zero if g_norm is None else g_norm,
+                "select/team_size": team_size,
+                "delivery/on_time": on_time.sum(),
+                "delivery/late": late.sum(),
+                "buffer/occupancy": new_buf.active.sum(),
+                "buffer/parked": (late - overflow).sum(),
+                "buffer/overflow": overflow.sum(),
+                "buffer/exhausted": exhausted.sum(),
+                "buffer/age_hist": obs_counters.age_histogram(
+                    new_buf.age, new_buf.active, fed_cfg),
+                "agg/fresh_mass": wm[:c].sum(),
+                "agg/stale_mass": wm[c:].sum(),
+                "cohort/trust_q": obs_counters.quantiles(new_tr),
+                "cohort/gate_trust_q": obs_counters.quantiles(
+                    store.gate_trust[idx.long()]),
+                "cohort/fitness_q": obs_counters.quantiles(scores),
+                "wire/bytes_up": team_size * bytes_up_pc,
+                "wire/bytes_down": team_size * bytes_down_pc,
+            }
+            new_tele = obs_counters.accumulate(state.tele, vals, "async")
+            obs_metrics = obs_counters.metric_keys(vals)
         new_state = AsyncState(
             params=new_params, clients=store, buf=new_buf, rng=state.rng,
             round=t + 1,
             cost_client_rounds=state.cost_client_rounds + c,
             cost_bytes_up=state.cost_bytes_up + c * bytes_up_pc,
             cost_bytes_down=state.cost_bytes_down + c * bytes_down_pc,
-            attacker=att_carry)
+            attacker=att_carry, tele=new_tele)
         metrics = {
-            "team_size": torch.full((), float(c), dtype=torch.float32,
-                                    device=dev),
+            "team_size": team_size,
             "cohort": idx, "on_time": on_time, "due": due,
             "exhausted": exhausted,
             "on_time_frac": on_time.mean(),
@@ -391,6 +432,7 @@ def make_async_round(model, fed_cfg, pop_data, *, batch_size=32,
             "score": scores, "alpha": alpha,
             "global_loss_mean": gl.mean(), "local_loss_mean": ll.mean(),
             **fairness.round_fairness(ga, ones_c, store.cum_selected),
+            **obs_metrics,
         }
         if stateful:
             metrics.update(update_attack.metrics(att_carry))
@@ -415,12 +457,10 @@ def run_async(model, fed_cfg, pop_data, n_rounds, seed=0, *, eval_fn=None,
     JAX package.  ``driver="python"`` is the per-round loop, bit for bit
     the same history.  Each history row is on the host with ``wall_ms``:
     the round's host time under ``python``, the chunk's host window over
-    its rounds under ``scan``."""
+    its rounds under ``scan``.  ``telemetry``: as in ``fedfits.run``, with
+    the async counter column."""
     if driver not in ("scan", "python"):
         raise ValueError(f"driver must be 'scan' or 'python', got {driver!r}")
-    if telemetry is not None:
-        raise NotImplementedError(
-            "telemetry comes with ROADMAP queue 1 item e (item 12)")
     dev = device_mod.resolve(device)
     pop_data = {k: v.to(dev) for k, v in pop_data.items()}
     draw, round_fn = make_async_round(
@@ -433,6 +473,11 @@ def run_async(model, fed_cfg, pop_data, n_rounds, seed=0, *, eval_fn=None,
         model.init(gen(seed)), fed_cfg, gen(seed + 1),
         attacker=update_attack if getattr(update_attack, "stateful", False)
         else None)
+    if telemetry is not None:
+        telemetry.bind_engine("async")
+        if telemetry.counters:
+            state = state._replace(
+                tele=obs_counters.init_column("async", fed_cfg, dev))
     if driver == "scan":
         def body(st, xs):
             st, metrics = round_fn(st, draw(st))
@@ -442,9 +487,10 @@ def run_async(model, fed_cfg, pop_data, n_rounds, seed=0, *, eval_fn=None,
 
         return scan_driver.run_chunked(
             body, state, lambda t: {}, n_rounds, chunk_steps=chunk_rounds,
-            t0=1, index_key="round")
+            t0=1, index_key="round", telemetry=telemetry)
     history = []
     for t in range(1, n_rounds + 1):
+        w0 = telemetry.now_us() if telemetry is not None else 0.0
         t0 = time.perf_counter()
         state, metrics = round_fn(state, draw(state))
         row = {k: _host(v) for k, v in metrics.items()}
@@ -452,5 +498,6 @@ def run_async(model, fed_cfg, pop_data, n_rounds, seed=0, *, eval_fn=None,
         if eval_fn is not None:
             row.update({k: _host(v) for k, v in eval_fn(state.params).items()})
         row["round"] = t
+        observe_round(telemetry, row, w0)
         history.append(row)
     return state, history

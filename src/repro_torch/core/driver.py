@@ -33,8 +33,15 @@ state's leaves and those passed as ``generators``.  The kernel wrappers'
 launch counters count in Python, so the driver adds, for each replay, the
 launches recorded during capture (``kernels/launches.py``).
 
-Not in this slice: ``telemetry`` (ROADMAP queue 1 item e) and
-``batch_sharding`` (item g; one card, no mesh).
+``telemetry`` (an ``obs.Telemetry``) works at the chunk's drain, on rows
+already on the host: its sinks and monitors see every row, and its trace
+gets measured ``stage`` / ``compute`` / ``drain`` / ``chunk`` spans a
+chunk and the rounds' attributed phase spans inside the chunk's window.
+It adds no host read and no launch: the counter column is one more part of
+the static state, its values more columns of the history row.
+
+Not in this slice: ``batch_sharding`` (ROADMAP queue 1 item g; one card,
+no mesh).
 """
 from __future__ import annotations
 
@@ -45,12 +52,6 @@ import torch
 
 from repro_torch import tree
 from repro_torch.kernels import launches
-
-
-def _no_telemetry(telemetry):
-    if telemetry is not None:
-        raise NotImplementedError(
-            "telemetry comes with ROADMAP queue 1 item e (item 12)")
 
 
 def _no_sharding(batch_sharding):
@@ -302,16 +303,17 @@ class ScanDriver:
         per step on the host (numpy arrays), with its step index under
         ``index_key``, ``chunk_ms`` (the chunk's host window, dispatch
         through drain) and ``wall_ms`` (``chunk_ms`` over the chunk's
-        steps).  ``on_chunk(state, rows)`` fires after every chunk."""
-        _no_telemetry(telemetry)
+        steps).  ``on_chunk(state, rows)`` fires after every chunk, and
+        ``telemetry`` observes the rows there (module docstring)."""
         if n_steps < 1:
             return state, []
         dev = _device_of(state)
+        spans = _Spans(telemetry)
         if dev.type == "cuda":
             return self._run_graph(state, batch_fn, n_steps, t0, index_key,
-                                   on_chunk, dev)
+                                   on_chunk, dev, spans)
         return self._run_eager(state, batch_fn, n_steps, t0, index_key,
-                               on_chunk, dev)
+                               on_chunk, dev, spans)
 
     def _chunks(self, t0, n_steps):
         end = t0 + n_steps
@@ -319,26 +321,33 @@ class ScanDriver:
                 for s in range(t0, end, self.chunk_steps)]
 
     def _run_eager(self, state, batch_fn, n_steps, t0, index_key, on_chunk,
-                   dev):
+                   dev, spans):
         history, rows = [], None
         for ts in self._chunks(t0, n_steps):
-            w0 = time.perf_counter()
+            w0, u0 = time.perf_counter(), spans.now()
+            spans.begin("stage")
             ts_dev, stacked = stage_chunk(batch_fn, ts, device=dev)
+            spans.end("stage", steps=len(ts))
+            spans.begin("compute")
             packed = []
             for j in range(len(ts)):
                 batch = tree.map(lambda v: v[j], stacked)
                 state, metrics = self.body(state, (ts_dev[j], batch))
                 rows = rows or _Rows(metrics)
                 packed.append(rows.pack(metrics))
+            spans.end("compute", steps=len(ts))
+            spans.begin("drain")
             out = rows.unpack(torch.stack(packed).numpy(), ts, index_key)
+            spans.end("drain", steps=len(ts))
             _stamp(out, w0)
+            spans.chunk(out, ts, u0)
             if on_chunk is not None:
                 on_chunk(state, out)
             history.extend(out)
         return state, history
 
     def _run_graph(self, state, batch_fn, n_steps, t0, index_key, on_chunk,
-                   dev):
+                   dev, spans):
         cur = torch.cuda.current_stream(dev)
         if self._stager is None:
             self._stager = torch.cuda.Stream(dev)
@@ -353,10 +362,13 @@ class ScanDriver:
 
         chunks = self._chunks(t0, n_steps)
         history = []
+        spans.begin("stage")
         pending = stage(chunks[0])
+        spans.end("stage", steps=len(chunks[0]))
         for k in range(len(chunks)):
             ts, ts_dev, stacked, done = pending
-            w0 = time.perf_counter()
+            w0, u0 = time.perf_counter(), spans.now()
+            spans.begin("compute")
             cur.wait_event(done)
             if k == 0 and (self._graph is None
                            or not self._graph.matches(state)):
@@ -372,17 +384,56 @@ class ScanDriver:
                 warm = 0
             self._graph.replay(len(ts) - warm)
             self.replays += len(ts) - warm
+            spans.end("compute", steps=len(ts), replays=len(ts) - warm)
             # the next chunk's batches build while this one runs; the
             # staged tensors stay referenced until this chunk has drained
-            pending = stage(chunks[k + 1]) if k + 1 < len(chunks) else None
+            pending = None
+            if k + 1 < len(chunks):
+                spans.begin("stage")
+                pending = stage(chunks[k + 1])
+                spans.end("stage", steps=len(chunks[k + 1]))
+            spans.begin("drain")
             out = self._graph.drain(ts, index_key)
+            spans.end("drain", steps=len(ts))
             del stacked
             _stamp(out, w0)
+            spans.chunk(out, ts, u0)
             if on_chunk is not None:
                 on_chunk(self._graph.state, out)
             history.extend(out)
         final = self._graph.state
         return (final if self.donate else _clone(final)), history
+
+
+class _Spans:
+    """The driver's side of a ``Telemetry``: measured spans on its trace,
+    and the drained rows to ``observe_rows``; every call a no-op without
+    one."""
+
+    def __init__(self, telemetry):
+        self.tel = telemetry
+
+    def now(self):
+        return self.tel.now_us() if self.tel is not None else 0.0
+
+    def begin(self, name):
+        if self.tel is not None:
+            self.tel.begin(name)
+
+    def end(self, name, **args):
+        if self.tel is not None:
+            self.tel.end(name, **args)
+
+    def chunk(self, rows, ts, u0):
+        """The chunk's window, dispatch through drain, measured; its rounds
+        and their phases attributed inside it."""
+        if self.tel is None:
+            return
+        u1 = self.tel.now_us()
+        if self.tel.tracer is not None:
+            self.tel.tracer.span("chunk", u0, u1 - u0, tid=0, steps=len(ts),
+                                 first=ts[0], last=ts[-1])
+        self.tel.observe_rows(rows, u0, u1 - u0)
 
 
 def _stamp(rows, w0):

@@ -44,8 +44,13 @@ M == K case whatever ``population`` says, as in the JAX package.
 Capture: the round is safe to record as a CUDA graph (``core/driver.py``):
 its round index ``FedState.round`` is a 0-d int32 tensor that no host
 branch reads, its constants are made by device fills, and every metric is
-a tensor.  Not in this slice (``run`` raises ``NotImplementedError``):
-telemetry.
+a tensor.
+
+Telemetry (``obs/``): with ``FedState.tele`` set (``run(telemetry=...)``),
+the round also publishes the registry's sync slice, a pure readout of
+values it already computes: into the column (``obs.counters.accumulate``)
+and under ``obs/`` history keys.  With ``tele=None`` the round is the same
+program as without the obs layer.
 """
 from __future__ import annotations
 
@@ -54,7 +59,6 @@ from typing import Any, NamedTuple
 
 import torch
 from torch.func import grad, vmap
-from torch.profiler import record_function
 
 from repro_torch import device as device_mod, tree
 from repro_torch.comm import codecs, error_feedback
@@ -62,6 +66,8 @@ from repro_torch.comm.kernels import comm_codecs as dq
 from repro_torch.core import aggregation, attacks, clientstore, fairness, \
     faults as faults_mod, fitness, selection, slots
 from repro_torch.core import driver as scan_driver
+from repro_torch.obs import counters as obs_counters
+from repro_torch.obs.trace import annotate
 
 
 class FedState(NamedTuple):
@@ -79,6 +85,8 @@ class FedState(NamedTuple):
     cost_bytes_down: torch.Tensor
     clients: clientstore.ClientStore
     attacker: Any = None          # a stateful attacker's carry, or None
+    tele: Any = None              # the telemetry column ({name: tensor}),
+                                  # or None: telemetry off
 
     @property
     def trust(self):
@@ -265,7 +273,7 @@ def make_round(model, fed_cfg, *, data_attack=None, update_attack=None,
         if fl is not None and fl.stragglers_active:
             avail = avail * faults_mod.sample_arrivals(fl, draws["u_arrive"])
         if data_attack is not None:
-            with record_function("attack"):
+            with annotate("attack"):
                 data = {**data, **data_attack(data, mal,
                                               draws.get("data_noise"))}
 
@@ -273,7 +281,7 @@ def make_round(model, fed_cfg, *, data_attack=None, update_attack=None,
         eff_epochs = None
         if fl is not None and fl.partial_active:
             eff_epochs = faults_mod.sample_epochs(draws["epoch_frac"], E)
-        with record_function("client_update"):
+        with annotate("client_update"):
             locals_, (gl, ga, ll, la) = client_update(params, data,
                                                       eff_epochs)
             n_params = sum(p.numel() for p in tree.leaves(params))
@@ -286,7 +294,7 @@ def make_round(model, fed_cfg, *, data_attack=None, update_attack=None,
         # ---- the attacker corrupts its own update, before the codec ------
         att_carry = state.attacker
         if update_attack is not None:
-            with record_function("attack"):
+            with annotate("attack"):
                 noise = draws.get("update_noise")
                 if stateful:
                     flat, att_carry = update_attack(flat, mal, noise,
@@ -303,7 +311,7 @@ def make_round(model, fed_cfg, *, data_attack=None, update_attack=None,
             if sizes not in layouts:
                 layouts[sizes] = codec.layout(sizes)
             layout = layouts[sizes]
-            with record_function("transport"):
+            with annotate("transport"):
                 enc, flat, new_ef = error_feedback.compress(
                     codec, flat, layout, state.clients.ef,
                     gen=state.rng if codec.stochastic else None)
@@ -326,7 +334,7 @@ def make_round(model, fed_cfg, *, data_attack=None, update_attack=None,
             scores = scores * state.gate_trust
 
         # ---- selection ----------------------------------------------------
-        with record_function("selection"):
+        with annotate("selection"):
             team = select(state, scores, gl, avail, data["n"], t)
 
         # ---- fault injection: mid-round dropout ---------------------------
@@ -343,18 +351,23 @@ def make_round(model, fed_cfg, *, data_attack=None, update_attack=None,
         part = torch.clamp(delivered + stale, 0.0, 1.0)
         part_pre, stale_pre = part, stale
         rejected = torch.zeros(K, device=dev)
+        g_nonfinite = g_norm = None
         if fed_cfg.update_guard:
-            with record_function("sanitize"):
-                clean, _, rejected = aggregation.sanitize_updates(
+            with annotate("sanitize"):
+                guard = aggregation.sanitize_updates if state.tele is None \
+                    else aggregation.sanitize_with_kinds   # + the kinds
+                clean, _, rejected, *kinds = guard(
                     {"u": flat}, (part > 0).float(),
                     norm_mult=fed_cfg.guard_norm_mult)
+            if kinds:
+                g_nonfinite, g_norm = (v.sum() for v in kinds)
             flat = clean["u"]
             delivered = delivered * (1.0 - rejected)
             stale = stale * (1.0 - rejected)
             part = torch.clamp(delivered + stale, 0.0, 1.0)
 
         n_k = data["n"].float()
-        with record_function("aggregate"):
+        with annotate("aggregate"):
             if fed_cfg.paper_exact_agg:
                 w = n_k * delivered
                 agg_flat = (w / torch.clamp(w.sum(), min=1e-12)) @ flat
@@ -368,7 +381,7 @@ def make_round(model, fed_cfg, *, data_attack=None, update_attack=None,
                 else:
                     agg_flat = aggregation.aggregate(
                         {"u": flat}, weights, part_mask, fed_cfg)["u"]
-        with record_function("writeback"):
+        with annotate("writeback"):
             new_params = tree.map(lambda p, u: p + u.to(p.dtype), params,
                                   tree.row_views(agg_flat, params))
 
@@ -394,6 +407,30 @@ def make_round(model, fed_cfg, *, data_attack=None, update_attack=None,
         if not fed_cfg.paper_exact_agg:
             billed = billed + (stale_pre > 0).sum()
 
+        # ---- telemetry readout (obs/): values the round already has -------
+        new_tele, obs_metrics = state.tele, {}
+        if state.tele is not None:
+            zero = torch.zeros((), device=dev)
+            wts = n_k * state.trust
+            vals = {
+                "gate/cosine_rejected": gated.sum(),
+                "guard/nonfinite": zero if g_nonfinite is None
+                else g_nonfinite,
+                "guard/norm": zero if g_norm is None else g_norm,
+                "select/team_size": team.sum(),
+                "select/available": avail.sum(),
+                "agg/fresh_mass": (wts * delivered).sum(),
+                "agg/stale_mass": (wts * stale).sum(),
+                "cohort/trust_q": obs_counters.quantiles(new_trust),
+                "cohort/gate_trust_q": obs_counters.quantiles(new_gate_trust),
+                "cohort/fitness_q": obs_counters.quantiles(scores),
+                "wire/bytes_up": billed * bytes_up_pc,
+                "wire/bytes_down": billed * bytes_down_pc,
+                "fault/lost": lost.sum(),
+            }
+            new_tele = obs_counters.accumulate(state.tele, vals, "sync")
+            obs_metrics = obs_counters.metric_keys(vals)
+
         cs = state.clients
         new_clients = cs._replace(
             fitness=decay * cs.fitness + (1.0 - decay) * scores,
@@ -410,7 +447,7 @@ def make_round(model, fed_cfg, *, data_attack=None, update_attack=None,
             cost_client_rounds=state.cost_client_rounds + billed,
             cost_bytes_up=state.cost_bytes_up + billed * bytes_up_pc,
             cost_bytes_down=state.cost_bytes_down + billed * bytes_down_pc,
-            clients=new_clients, attacker=att_carry)
+            clients=new_clients, attacker=att_carry, tele=new_tele)
         n_avail = torch.clamp(avail.sum(), min=1.0)
         metrics = {
             "theta": th, "score": scores, "team": team, "alpha": alpha,
@@ -429,6 +466,7 @@ def make_round(model, fed_cfg, *, data_attack=None, update_attack=None,
             "eff_epochs": torch.full((K,), E, device=dev)
             if eff_epochs is None else eff_epochs,
             **fairness.round_fairness(ga, avail, cs.cum_selected + team),
+            **obs_metrics,
         }
         if stateful:
             metrics.update(update_attack.metrics(att_carry))
@@ -472,11 +510,14 @@ def run(model, fed_cfg, data_fn, n_rounds, seed=0, *, eval_fn=None,
     Each history row is on the host, with ``wall_ms``: under ``python``
     the host time from the round call until its metrics reached the host,
     under ``scan`` the chunk's host window over its rounds (and
-    ``chunk_ms``)."""
+    ``chunk_ms``).
+
+    ``telemetry`` (an ``obs.Telemetry``): with ``counters`` on, the state
+    carries the sync counter column and every row its ``obs/`` keys; the
+    drained rows go to its sinks and monitors, and to its trace (measured
+    chunk spans and attributed phases under ``scan``, a measured round
+    span each under ``python``)."""
     dev = device_mod.resolve(device)
-    if telemetry is not None:
-        raise NotImplementedError(
-            "telemetry comes with ROADMAP queue 1 item e (item 12)")
     if malicious is not None:
         malicious = malicious.to(dev)
     round_fn = make_round(model, fed_cfg, data_attack=data_attack,
@@ -489,6 +530,11 @@ def run(model, fed_cfg, data_fn, n_rounds, seed=0, *, eval_fn=None,
                        attacker=update_attack
                        if getattr(update_attack, "stateful", False)
                        else None)
+    if telemetry is not None:
+        telemetry.bind_engine("sync")
+        if telemetry.counters:
+            state = state._replace(
+                tele=obs_counters.init_column("sync", fed_cfg, dev))
     g_data, g_avail = gen(seed + 2), gen(seed + 3)
     if driver == "scan":
         def body(st, xs):
@@ -506,7 +552,7 @@ def run(model, fed_cfg, data_fn, n_rounds, seed=0, *, eval_fn=None,
         return scan_driver.run_chunked(
             body, state, lambda t: data_fn(t, g_data), n_rounds,
             chunk_steps=chunk_rounds, t0=1, index_key="round",
-            generators=(g_avail,))
+            generators=(g_avail,), telemetry=telemetry)
     if driver != "python":
         raise ValueError(f"driver must be 'scan' or 'python', got {driver!r}")
     history = []
@@ -515,6 +561,7 @@ def run(model, fed_cfg, data_fn, n_rounds, seed=0, *, eval_fn=None,
         if fed_cfg.avail_prob < 1.0:
             a = _draw_avail(K, fed_cfg.avail_prob, g_avail)
             batch["avail"] = a if t > 1 else torch.ones(K, device=dev)
+        w0 = telemetry.now_us() if telemetry is not None else 0.0
         t0 = time.perf_counter()
         state, metrics = round_fn(state, batch)
         row = {k: _host(v) for k, v in metrics.items()}
@@ -522,5 +569,14 @@ def run(model, fed_cfg, data_fn, n_rounds, seed=0, *, eval_fn=None,
         if eval_fn is not None:
             row.update({k: _host(v) for k, v in eval_fn(state.params).items()})
         row["round"] = t
+        observe_round(telemetry, row, w0)
         history.append(row)
     return state, history
+
+
+def observe_round(telemetry, row, w0):
+    """A per-round loop's row to ``telemetry``: its host read ended the
+    round, so the window from ``w0`` is a real measurement of it."""
+    if telemetry is not None:
+        telemetry.observe_rows([row], w0, telemetry.now_us() - w0,
+                               measured=True)

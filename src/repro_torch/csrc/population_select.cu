@@ -517,6 +517,201 @@ size_t topd_smem(int blk, int d, int* nq) {
   return 16 * (size_t)*nq + 8 * (size_t)(kSurv + n2);
 }
 
+// ---------------------------------------------------------------------------
+// The global path: d past the shared-memory budget.
+//
+// ps_topd's CTA holds the block's keys and a power of two >= d of 8-byte
+// slots in shared memory; from d = 16,385 (blk = d) that passes the limit.
+// There each block's candidates are all its keys, so the merged top-d is the
+// d largest keys of the whole array by the merge's order (+0.0 above -0.0,
+// the lower index first on equal bits), and past the keys above -inf the
+// blocks' -inf tails in block order (d - f_b copies of b*blk for a block
+// with f_b keys above -inf).  This path computes that over global memory,
+// every launch on the caller's stream, no host read:
+//   gs_init     zeroes the scratch (the select's state, the per-block
+//               counts, the padded composites);
+//   gs_hist x8  a radix select of the d-th largest 64-bit composite (the
+//               key's order image above 0xffffffff - index), 8 bits a
+//               pass from the top: a shared histogram a CTA, added into
+//               the scratch; the last CTA (a completion counter) picks the
+//               bin and ends the select when the bin is taken whole (the
+//               later passes return at once);
+//   gs_compact  the composites at or above the d-th into the scratch (and,
+//               when fewer than d keys are above -inf, the per-block counts
+//               of those that are);
+//   gs_sort_*   a bitonic sort of the next power of two >= d composites,
+//               descending: 2,048-composite tiles in shared memory, the
+//               strides past a tile one global pass each;
+//   gs_write    the indices in order, then the tails.
+// Bound: the same bytes as ps_topd's (4 B a key read, 4 B an index
+// written); the passes over the keys and the sort's launches set the time.
+
+constexpr int kTile = 2048;          // composites a CTA sorts in shared memory
+constexpr int kSortThreads = 1024;
+
+struct GlobalSelect {
+  u64 prefix;      // the composite's top bits fixed so far
+  u64 cmin;        // selected: the nonzero composites >= cmin
+  unsigned need;   // still to take below the prefix
+  int done;        // the select has ended
+  int n_sel;       // composites compacted
+  int counter;     // CTAs of the current pass finished
+  int short_;      // fewer than d keys above -inf
+  unsigned hist[kBins];
+};
+
+__device__ __forceinline__ u64 global_comp(float x, int i) {
+  return x > -INFINITY ? (u64)order_key(x) << 32 | (u64)(0xffffffffu - (unsigned)i)
+                       : 0ull;
+}
+
+__global__ void __launch_bounds__(kThreads)
+gs_init(GlobalSelect* st, int* fcount, int nb, u64* sel, int n2, int d) {
+  const int i0 = blockIdx.x * kThreads + threadIdx.x;
+  const int stride = gridDim.x * kThreads;
+  for (int i = i0; i < n2; i += stride) sel[i] = 0ull;
+  for (int i = i0; i < nb; i += stride) fcount[i] = 0;
+  if (i0 < kBins) st->hist[i0] = 0;
+  if (i0 == 0) {
+    st->prefix = 0;
+    st->cmin = 1;
+    st->need = (unsigned)d;
+    st->done = 0;
+    st->n_sel = 0;
+    st->counter = 0;
+    st->short_ = 0;
+  }
+}
+
+__global__ void __launch_bounds__(kThreads)
+gs_hist(const float* __restrict__ g, int m, GlobalSelect* st, int shift) {
+  __shared__ unsigned h[kBins];
+  __shared__ int last;
+  const int t = threadIdx.x;
+  if (st->done) return;
+  const u64 prefix = st->prefix;
+  h[t] = 0;
+  __syncthreads();
+  for (int i = blockIdx.x * kThreads + t; i < m; i += gridDim.x * kThreads) {
+    const u64 c = global_comp(g[i], i);
+    if (c != 0 && (shift == 56 || (c >> (shift + 8)) == prefix))
+      atomicAdd(&h[(unsigned)(c >> shift) & 0xffu], 1u);
+  }
+  __syncthreads();
+  if (h[t]) atomicAdd(&st->hist[t], h[t]);
+  __threadfence();
+  __syncthreads();
+  if (t == 0) last = atomicAdd(&st->counter, 1) == (int)gridDim.x - 1;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  h[t] = __ldcg(&st->hist[t]);
+  st->hist[t] = 0;                     // ready for the next pass
+  __syncthreads();
+  if (t < 32) {
+    const unsigned need = st->need;
+    const Pick pk = find_bin(h, need);
+    if (t == 0) {
+      st->counter = 0;
+      if (pk.total < need) {           // the first pass: fewer than d keys
+        st->cmin = 1;
+        st->done = 1;
+        st->short_ = 1;
+      } else {
+        const u64 p = prefix << 8 | pk.bin;
+        st->prefix = p;
+        st->need = need - pk.above;
+        if (pk.cnt == need - pk.above || shift == 0) {
+          st->cmin = p << shift;
+          st->done = 1;
+        }
+      }
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kThreads)
+gs_compact(const float* __restrict__ g, int m, int blk, GlobalSelect* st,
+           int* fcount, u64* sel) {
+  const u64 cmin = st->cmin;
+  const bool count = st->short_ != 0;
+  for (int i = blockIdx.x * kThreads + threadIdx.x; i < m;
+       i += gridDim.x * kThreads) {
+    const u64 c = global_comp(g[i], i);
+    if (c != 0 && c >= cmin) sel[atomicAdd(&st->n_sel, 1)] = c;
+    if (count && c != 0) atomicAdd(&fcount[i / blk], 1);
+  }
+}
+
+// Stages k in [k0, k1] of the descending bitonic network over a tile of
+// `tile` composites in shared memory, the strides below the tile; a pair's
+// direction comes from its global index, as in bitonic_desc.
+__global__ void __launch_bounds__(kSortThreads)
+gs_sort_tile(u64* sel, int tile, int k0, int k1) {
+  __shared__ u64 s[kTile];
+  const int base = blockIdx.x * tile, t = threadIdx.x;
+  for (int i = t; i < tile; i += kSortThreads) s[i] = sel[base + i];
+  __syncthreads();
+  for (int k = k0; k <= k1; k <<= 1)
+    for (int j = min(k, tile) >> 1; j > 0; j >>= 1) {
+      for (int i = t; i < tile; i += kSortThreads) {
+        const int l = i ^ j;
+        if (l > i) {
+          const u64 a = s[i], b = s[l];
+          if ((((base + i) & k) == 0) == (a < b)) {
+            s[i] = b;
+            s[l] = a;
+          }
+        }
+      }
+      __syncthreads();
+    }
+  for (int i = t; i < tile; i += kSortThreads) sel[base + i] = s[i];
+}
+
+// One stride j >= kTile of stage k, over global memory.
+__global__ void __launch_bounds__(kThreads)
+gs_sort_stride(u64* sel, int n2, int k, int j) {
+  for (int p = blockIdx.x * kThreads + threadIdx.x; p < n2 / 2;
+       p += gridDim.x * kThreads) {
+    const int i = (p / j) * 2 * j + p % j, l = i + j;
+    const u64 a = sel[i], b = sel[l];
+    if (((i & k) == 0) == (a < b)) {
+      sel[i] = b;
+      sel[l] = a;
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kThreads)
+gs_write(const u64* __restrict__ sel, const GlobalSelect* st,
+         const int* __restrict__ fcount, int nb, int blk, int d, int* out) {
+  const int n_sel = st->n_sel;
+  for (int r = blockIdx.x * kThreads + threadIdx.x; r < d;
+       r += gridDim.x * kThreads) {
+    if (r < n_sel) {
+      out[r] = (int)(0xffffffffu - (unsigned)(sel[r] & 0xffffffffull));
+      continue;
+    }
+    int left = r - n_sel, b = 0;         // the tails, block by block
+    for (; b < nb - 1 && left >= d - fcount[b]; ++b) left -= d - fcount[b];
+    out[r] = b * blk;
+  }
+}
+
+int next_pow2(int d) {
+  int n2 = 1;
+  while (n2 < d) n2 <<= 1;
+  return n2 < kTile ? kTile : n2;
+}
+
+size_t global_scratch(int m, int blk, int d, int* nb, int* n2) {
+  *nb = (m + blk - 1) / blk;
+  *n2 = next_pow2(d);
+  const size_t fc = (sizeof(GlobalSelect) + 4 * (size_t)*nb + 7) / 8 * 8;
+  return fc + 8 * (size_t)*n2;
+}
+
 }  // namespace
 
 extern "C" {
@@ -544,6 +739,45 @@ int ps_topd(const float* g, int m, int blk, int d, float* vals, int* idx,
   const int nb = (m + blk - 1) / blk;
   block_topd_kernel<<<nb, kThreads, smem, (cudaStream_t)stream>>>(
       g, m, blk, d, nq, vals, idx, out, counter);
+  return (int)cudaGetLastError();
+}
+
+// Bytes of scratch ps_topd_global takes at (m, blk, d).
+long long ps_topd_global_bytes(int m, int blk, int d) {
+  int nb = 0, n2 = 0;
+  return (long long)global_scratch(m, blk, d, &nb, &n2);
+}
+
+// The merged top-d of g (m,) fp32 when every block's candidates are all its
+// keys (blk == d), through global memory: out (d,) int32, bitwise ps_topd's
+// merged indices at the same (m, blk, d).  scratch: ps_topd_global_bytes,
+// 8-byte aligned, any contents.
+int ps_topd_global(const float* g, int m, int blk, int d, void* scratch,
+                   int* out, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  int nb = 0, n2 = 0;
+  global_scratch(m, blk, d, &nb, &n2);
+  GlobalSelect* st = reinterpret_cast<GlobalSelect*>(scratch);
+  int* fcount = reinterpret_cast<int*>(st + 1);
+  u64* sel = reinterpret_cast<u64*>(
+      static_cast<char*>(scratch) +
+      (sizeof(GlobalSelect) + 4 * (size_t)nb + 7) / 8 * 8);
+  const int grid = min((m + 4 * kThreads - 1) / (4 * kThreads), 1056);
+  gs_init<<<min((n2 + kThreads - 1) / kThreads, 1056), kThreads, 0, s>>>(
+      st, fcount, nb, sel, n2, d);
+  for (int shift = 56; shift >= 0; shift -= 8)
+    gs_hist<<<grid, kThreads, 0, s>>>(g, m, st, shift);
+  gs_compact<<<grid, kThreads, 0, s>>>(g, m, blk, st, fcount, sel);
+  const int tile = min(n2, kTile);
+  gs_sort_tile<<<n2 / tile, kSortThreads, 0, s>>>(sel, tile, 2, tile);
+  for (int k = 2 * kTile; k <= n2; k <<= 1) {
+    for (int j = k >> 1; j >= kTile; j >>= 1)
+      gs_sort_stride<<<min(n2 / 2 / kThreads, 1056), kThreads, 0, s>>>(
+          sel, n2, k, j);
+    gs_sort_tile<<<n2 / kTile, kSortThreads, 0, s>>>(sel, kTile, k, k);
+  }
+  gs_write<<<(d + kThreads - 1) / kThreads, kThreads, 0, s>>>(
+      sel, st, fcount, nb, blk, d, out);
   return (int)cudaGetLastError();
 }
 

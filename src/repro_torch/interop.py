@@ -110,7 +110,7 @@ def pools_from_numpy(np_pools, device="cpu", page_axis=1):
 
 def slot_state_from_numpy(jst, generator, device="cpu"):
     """A JAX ``SlotState`` (numpy fields) -> the port's: the same columns
-    (token ids and request ids as int64), no telemetry column, and
+    (token ids and request ids as int64), the same telemetry column, and
     ``generator`` in place of the PRNG key."""
     col = lambda a, dtype=None: torch.tensor(np.asarray(a), dtype=dtype,
                                              device=device)
@@ -118,4 +118,5 @@ def slot_state_from_numpy(jst, generator, device="cpu"):
         tok=col(jst.tok, torch.int64), length=col(jst.length),
         budget=col(jst.budget), active=col(jst.active),
         req_id=col(jst.req_id, torch.int64), alloc=col(jst.alloc),
-        table=col(jst.table), free=col(jst.free), gen=generator)
+        table=col(jst.table), free=col(jst.free),
+        tele={k: col(v) for k, v in jst.tele.items()}, gen=generator)

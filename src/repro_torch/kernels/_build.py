@@ -43,6 +43,10 @@ _SIGNATURES = {
     "ps_topd": [_P, _I, _I, _I, _P, _P, _P, _P, _P],
     # blk, d -> K7's shared memory a CTA, bytes
     "ps_topd_smem": [_I, _I],
+    # g, M, blk, d, scratch, out, stream (K7 past its shared memory)
+    "ps_topd_global": [_P, _I, _I, _I, _P, _P, _P],
+    # M, blk, d -> the global path's scratch, bytes (long long)
+    "ps_topd_global_bytes": [_I, _I, _I],
     # x, mask, out, C, N, cols, mode, trim_frac, stream
     "ra_fwd": [_P, _P, _P, _I, _I, _I, _I, _F, _P],
     # q, kp, vp, ks, vs, table, lengths, out, part, counter, q_bf16, int8,
@@ -52,6 +56,7 @@ _SIGNATURES = {
     # stream
     "fa_fwd": [_P] * 5 + [_I] * 8 + [_F, _P],
 }
+_RESTYPES = {"ps_topd_global_bytes": ctypes.c_longlong}
 
 
 class _Built:
@@ -117,7 +122,7 @@ def load():
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
+        fn.restype = _RESTYPES.get(name, ctypes.c_int)
     _Built.lib = lib
     return lib
 

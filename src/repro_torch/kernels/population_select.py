@@ -38,7 +38,12 @@ on keys tied at +-0.0 they differ as the JAX package's routes do.
 Dispatch: ``block_topd`` (stage 1) and ``topd_pallas`` (both stages) launch
 K7 for a CUDA tensor (or raise) and run the plain versions
 (``block_topd_plain``, ``topd_pallas_plain``) only for a CPU tensor; every
-launch counts one in ``block_topd.launches``.  ``draw_gumbel`` takes the
+call that launches counts one in ``block_topd.launches``.  Where
+``topd_pallas``'s CTA would pass the shared-memory limit (blk = d >
+16,384), its merged indices come from K7's global path
+(``ps_topd_global``: a radix select and a bitonic sort over global memory,
+bitwise the same indices; each such call also counts one in
+``topd_pallas.global_calls``).  ``draw_gumbel`` takes the
 noise from a ``torch.Generator``; everything else is a pure function of the
 keys.
 """
@@ -157,13 +162,28 @@ def _launch(g, d, blk, merge):
     if not 1 <= d <= blk:
         raise ValueError(f"need 1 <= d <= blk, got d={d}, blk={blk}")
     lib = _build.load()
-    if lib.ps_topd_smem(blk, d) > SMEM_LIMIT or m + blk >= 2 ** 31:
-        raise ValueError(f"blk={blk}, d={d}, M={m}: beyond K7's shared "
-                         "memory or int32 indices")
+    if m + blk >= 2 ** 31:
+        raise ValueError(f"blk={blk}, M={m}: beyond K7's int32 indices")
+    stream = torch.cuda.current_stream(g.device).cuda_stream
+    if lib.ps_topd_smem(blk, d) > SMEM_LIMIT:
+        if not (merge and blk == d):
+            raise ValueError(f"blk={blk}, d={d}: beyond K7's shared memory "
+                             "(the global path merges blocks of d keys)")
+        # every block's candidates are all its keys: the merged top-d by a
+        # select and a sort over global memory, in the wrapper's scratch
+        scratch = torch.empty(lib.ps_topd_global_bytes(m, blk, d),
+                              dtype=torch.uint8, device=g.device)
+        out = torch.empty(d, dtype=torch.int32, device=g.device)
+        rc = lib.ps_topd_global(g.data_ptr(), m, blk, d, scratch.data_ptr(),
+                                out.data_ptr(), stream)
+        if rc != 0:
+            raise RuntimeError(f"ps_topd_global failed: CUDA error {rc}")
+        block_topd.launches += 1
+        topd_pallas.global_calls += 1
+        return None, None, out
     nb = -(-m // blk)
     vals = torch.empty(nb, d, device=g.device)
     idx = torch.empty(nb, d, dtype=torch.int32, device=g.device)
-    stream = torch.cuda.current_stream(g.device).cuda_stream
     out = counter = None
     if merge:
         out = torch.empty(d, dtype=torch.int32, device=g.device)
@@ -207,6 +227,7 @@ def block_topd(g, d, blk):
 
 def reset_launch_counts():
     block_topd.launches = 0
+    topd_pallas.global_calls = 0
 
 
 def launch_counts():
@@ -214,18 +235,19 @@ def launch_counts():
     return {"block_topd": block_topd.launches}
 
 
-reset_launch_counts()
-
-
 def topd_pallas(g, d, *, blk=BLK):
     """Both stages through K7: on the card one launch on the unpadded keys,
     which merges the candidates in its last block (no padding copy, no
-    sort); on the CPU ``topd_pallas_plain``."""
+    sort), or, past the shared-memory limit, K7's global path; on the CPU
+    ``topd_pallas_plain``."""
     blk = max(int(blk), d)
     g = g.float()
     if g.device.type == "cpu":
         return topd_pallas_plain(g, d, blk)
     return _launch(g, d, blk, merge=True)[2]
+
+
+reset_launch_counts()
 
 
 def topd(g, d, *, method="segmented", blk=BLK):

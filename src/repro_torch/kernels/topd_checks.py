@@ -6,7 +6,10 @@ Each check raises ``AssertionError`` naming the case when the kernel's
 candidates are not bitwise ``block_topd_plain``'s (``candidates``), when the
 fused launch's (d,) indices are not bitwise the CPU path's
 (``block_topd_plain`` then ``_merge``, run on the same card tensors;
-``fused``), or when a call launches K7 other than once.
+``fused``), or when a call launches K7 other than once; past the
+shared-memory budget (``LARGE_CASES``) also when the call does not take
+K7's global path (``global_path``), and at the largest d that fits when it
+does (``smem_path``).
 """
 from __future__ import annotations
 
@@ -39,6 +42,16 @@ CASES = (
     ("mostly -inf, repeated tails", 5_000, 64, 256, "neginf"),
     ("unaligned view", 3 * 4096, 64, 4096, "unaligned"),
     ("unaligned view, ragged", 100_001, 64, 4096, "unaligned"),
+)
+# (label, M, d, kind) past the shared-memory budget: blk = d, K7's global
+# path (``ps_topd_global``)
+LARGE_CASES = (
+    ("gumbel, d = 16,385", 100_000, 16_385, "gumbel"),
+    ("gumbel, d = 20,000", 100_000, 20_000, "gumbel"),
+    ("duplicates, d = 20,000", 100_000, 20_000, "dup"),
+    ("+-0.0 mixture, d = 17,000", 60_000, 17_000, "zeros"),
+    ("mostly -inf, the top-d reaches the tails", 40_000, 16_500, "neginf"),
+    ("unaligned view, d = 16,385", 100_001, 16_385, "unaligned"),
 )
 # kinds on which every route gives argsort's order: no signed zeros, and the
 # top-d never reaches an exhausted block's tail
@@ -125,3 +138,24 @@ def every_route(g, d, blk):
         if not torch.equal(out, ref):
             raise AssertionError(f"topd M={g.shape[0]} d={d}: {name} order "
                                  "differs from argsort")
+
+
+def global_path(g, d):
+    """``topd_pallas`` past the shared-memory budget (blk = d) on the card:
+    bitwise the CPU path's indices, through K7's global path, one count a
+    call; returns them."""
+    start = ps.topd_pallas.global_calls
+    out = fused(g, d, d)
+    if ps.topd_pallas.global_calls - start != 1:
+        raise AssertionError(f"topd_pallas M={g.shape[0]} d={d}: did not "
+                             "take the global path")
+    return out
+
+
+def smem_path(g, d):
+    """``topd_pallas`` at a d whose CTA fits in shared memory: the one-launch
+    path, not the global one."""
+    start = ps.topd_pallas.global_calls
+    fused(g, d, max(d, ps.BLK))
+    if ps.topd_pallas.global_calls != start:
+        raise AssertionError(f"topd_pallas d={d} took the global path")

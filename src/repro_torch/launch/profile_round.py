@@ -54,6 +54,7 @@ from repro_torch.core.driver import ScanDriver
 from repro_torch.core.faults import FaultConfig
 from repro_torch.data.pipeline import build_federation
 from repro_torch.models.model import build
+from repro_torch.obs import counters as obs_counters
 from repro_torch.scenarios import engine as scenario_engine, registry
 
 ROUNDS = 10                 # timed steady-state rounds, after 2 warm-up
@@ -96,8 +97,9 @@ def busy_ms(events):
     return (total + (0.0 if end is None else end - start)) / 1e3
 
 
-def sync_round(args, dev, gen, fed=None):
-    """The sync engine's round as (body, state, batch_fn, generators)."""
+def sync_round(args, dev, gen, fed=None, telemetry=False):
+    """The sync engine's round as (body, state, batch_fn, generators); with
+    ``telemetry`` the state carries the sync counter column."""
     model = build(CNN_CONFIG)
     if fed is None:
         fed, _ = build_federation(0, kind="images", n=4000, n_clients=16,
@@ -106,15 +108,19 @@ def sync_round(args, dev, gen, fed=None):
                     local_lr=0.05, msl=4, pft=2, aggregator=args.aggregator,
                     compress=args.compress, error_feedback=True)
     state = fedfits.init_state(model.init(gen(0)), 16, cfg, gen(1))
+    if telemetry:
+        state = state._replace(
+            tele=obs_counters.init_column("sync", cfg, dev))
     round_fn = fedfits.make_round(model, cfg)
     g_data = gen(2)
     return (lambda st, xs: round_fn(st, xs[1]), state,
             lambda t: fed.data_fn(t, g_data), ())
 
 
-def async_round(args, dev, gen, fed=None):
+def async_round(args, dev, gen, fed=None, telemetry=False):
     """The buffered-async engine's round (``chip_smoke.py`` phase 5), its
-    draws inside, as (body, state, batch_fn, generators)."""
+    draws inside, as (body, state, batch_fn, generators); with
+    ``telemetry`` the state carries the async counter column."""
     if args.compress != "none":
         raise SystemExit("--engine async is dense-uplink only")
     model = build(CNN_CONFIG)
@@ -130,6 +136,9 @@ def async_round(args, dev, gen, fed=None):
     draw, round_fn = async_engine.make_async_round(model, cfg, fed.data,
                                                    faults=late)
     state = async_engine.init_async_state(model.init(gen(0)), cfg, gen(1))
+    if telemetry:
+        state = state._replace(
+            tele=obs_counters.init_column("async", cfg, dev))
     return (lambda st, xs: round_fn(st, draw(st)), state, lambda t: {}, ())
 
 
@@ -164,9 +173,10 @@ def scenario_round(args, dev, gen):
             lambda t: fed.data_fn(t, g_data), ())
 
 
-def _stepper(body, state, batch_fn, generators, driver):
+def _stepper(body, state, batch_fn, generators, driver, telemetry):
     """``step(t)``: round t under ``driver``, and ``chunk(t0, n)`` (scan:
-    n rounds as one chunk, returning its rows)."""
+    n rounds as one chunk, returning its rows; ``telemetry`` observes
+    them)."""
     box = [state]
     if driver == "python":
         def step(t):
@@ -175,17 +185,20 @@ def _stepper(body, state, batch_fn, generators, driver):
     drv = ScanDriver(body, chunk_steps=ROUNDS, generators=generators)
 
     def chunk(t0, n):
-        box[0], rows = drv.run(box[0], batch_fn, n, t0=t0, index_key="round")
+        box[0], rows = drv.run(box[0], batch_fn, n, t0=t0, index_key="round",
+                               telemetry=telemetry)
         return rows
     return (lambda t: chunk(t, 1)), chunk
 
 
 def measure(body, state, batch_fn, generators=(), *, driver="python",
-            device):
+            device, telemetry=None):
     """Times and traces ``body``'s round under ``driver`` on ``device``
-    (module docstring); returns a dict of the figures."""
+    (module docstring), the scan driver's rows to ``telemetry``; returns a
+    dict of the figures."""
     dev = torch.device(device)
-    step, chunk = _stepper(body, state, batch_fn, generators, driver)
+    step, chunk = _stepper(body, state, batch_fn, generators, driver,
+                           telemetry)
     walls = []
     for t in range(1, ROUNDS + 3):
         _sync(dev)

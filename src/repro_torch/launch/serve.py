@@ -10,11 +10,18 @@ dense full-cache loop as baselines.  On the card unless ``--device cpu``.
   PYTHONPATH=src python -m repro_torch.launch.serve --arch tiny-lm \
       --reduced --device cpu          # a CPU rehearsal
 
+  ... --trace serve_trace.json --telemetry-jsonl serve.jsonl
+                                      # telemetry: a row a decode step
+
 Engines:
   continuous  slot scheduler + paged KV + K8 (the default)
   fixed       the same steps, batch-until-drained admission
   dense       the fixed-batch full-cache loop (``make_decode_step``)
 
+``--trace`` writes a Perfetto trace (a measured span a decode step, the
+serve/* gauges as counter tracks) and ``--telemetry-jsonl`` the JSONL
+stream of the step rows; check them with ``python -m
+repro_torch.obs.check --engine serve --trace ... --jsonl ...``.
 Generation lengths are drawn log-uniformly in [--gen-min, --gen-max].
 Weights are a random init from ``--seed`` (fp32, cast once to the compute
 dtype for the engines).  It prints one JSON line, with the device's name
@@ -119,9 +126,6 @@ def main(argv=None):
     ap.add_argument("--trace", default=None, metavar="OUT_JSON")
     ap.add_argument("--telemetry-jsonl", default=None, metavar="OUT_JSONL")
     args = ap.parse_args(argv)
-    if args.trace or args.telemetry_jsonl:
-        raise NotImplementedError(
-            "--trace and --telemetry-jsonl come with ROADMAP queue 1 item e")
 
     dev = device_mod.resolve(args.device)
     cfg = get_config(args.arch)
@@ -137,8 +141,15 @@ def main(argv=None):
                           "device": device_name(dev)}))
         return
 
+    from repro_torch import obs
     from repro_torch.serve import ServeConfig, ServeEngine
 
+    telemetry = None
+    if args.trace or args.telemetry_jsonl:
+        sinks = [obs.JsonlSink(args.telemetry_jsonl)] \
+            if args.telemetry_jsonl else []
+        telemetry = obs.Telemetry(sinks=sinks, trace_path=args.trace,
+                                  run_name="serve")
     max_len = args.max_len or (args.prompt_len + args.gen_max)
     scfg = ServeConfig(
         max_slots=args.max_slots, page_size=args.page_size,
@@ -148,9 +159,13 @@ def main(argv=None):
     engine = ServeEngine(cfg, scfg, params, seed=args.seed, device=dev)
     reqs = draw_requests(args.requests, args.prompt_len, args.gen_min,
                          args.gen_max, cfg.vocab_size, seed=args.seed)
-    results, stats = engine.run(reqs, continuous=args.engine == "continuous")
+    results, stats = engine.run(reqs, telemetry=telemetry,
+                                continuous=args.engine == "continuous")
+    if telemetry is not None:
+        telemetry.finish()
     trail = stats.pop("occupancy_trail")
     step_ms = sorted(1e3 * t for t in stats.pop("step_s"))
+    admit_ms = sorted(1e3 * t for t in stats.pop("admit_s"))
     print(json.dumps({
         "arch": cfg.name, **stats,
         "requests": len(reqs),
@@ -160,6 +175,8 @@ def main(argv=None):
         "wall_s": round(stats["wall_s"], 3),
         "step_ms_median": (round(step_ms[len(step_ms) // 2], 3)
                            if step_ms else None),
+        "admit_ms_median": (round(admit_ms[len(admit_ms) // 2], 3)
+                            if admit_ms else None),
         "mean_occupancy": round(sum(trail) / max(len(trail), 1), 2),
         "sample_tokens": results[0][:16],
     }))

@@ -12,9 +12,12 @@ target class's base rate).
 
 Runs on the card unless ``device="cpu"``, through the engines' chunked
 driver (``driver="scan"``, ``chunk_rounds`` rounds a chunk, as in the JAX
-package) or their per-round loop (``driver="python"``).  Telemetry is
-ROADMAP queue 1 item e: ``telemetry`` takes only None or False, so the
-summary has the JAX package's keys minus the ``obs_*`` ones.
+package) or their per-round loop (``driver="python"``).  Telemetry is on
+by default, as in the JAX package: every cell runs with a
+``Telemetry(sinks=[MemorySink()])``, so every history row carries the
+``obs/`` keys and the summary ``obs_rows``, ``obs_warnings`` and
+``obs_warning_counts``; ``telemetry=False`` runs the telemetry-free
+program.
 """
 from __future__ import annotations
 
@@ -29,6 +32,7 @@ from repro_torch.configs.paper_models import CNN_CONFIG, MLP_CONFIG
 from repro_torch.core import async_engine, attacks, fedfits
 from repro_torch.data.pipeline import build_federation
 from repro_torch.models.model import build
+from repro_torch.obs import MemorySink, Telemetry
 from repro_torch.scenarios import registry
 
 ARCHS = {c.name: c for c in (CNN_CONFIG, MLP_CONFIG)}
@@ -155,10 +159,9 @@ def run_scenario(scenario, *, n_clients=10, n_rounds=10, seed=0,
     (a harder class separation than the pipeline's and a milder label
     skew, so the attacks have room to show).  The seed gives the data and
     the malicious rows; the run's generators are seeded ``seed + 1``.
-    ``driver`` and ``chunk_rounds`` go to the engine."""
-    if telemetry not in (None, False):
-        raise NotImplementedError(
-            "telemetry comes with ROADMAP queue 1 item e (item 12)")
+    ``driver`` and ``chunk_rounds`` go to the engine.  ``telemetry``: an
+    ``obs.Telemetry``; None (the default) gives the cell one with a
+    ``MemorySink``, False none."""
     s = setup(scenario, n_clients=n_clients, n_classes=n_classes, kind=kind,
               arch=arch, population=population, async_deadline=async_deadline,
               device=device)
@@ -168,6 +171,10 @@ def run_scenario(scenario, *, n_clients=10, n_rounds=10, seed=0,
         n_classes=n_classes, sep=sep, dirichlet_alpha=dirichlet_alpha,
         device=device)
     eval_fn = s.eval_fn(server_test)
+    if telemetry is None:
+        telemetry = Telemetry(sinks=[MemorySink()], run_name=sc.name)
+    elif telemetry is False:
+        telemetry = None
     t0 = time.perf_counter()
     if sc.async_mode:
         state, hist = async_engine.run_async(
@@ -177,15 +184,21 @@ def run_scenario(scenario, *, n_clients=10, n_rounds=10, seed=0,
             data_attack=s.data_attack, update_attack=s.update_attack,
             malicious=s.malicious, faults=sc.faults,
             straggler_rows=sc.straggler_rows, driver=driver,
-            chunk_rounds=chunk_rounds)
+            chunk_rounds=chunk_rounds, telemetry=telemetry)
     else:
         state, hist = fedfits.run(
             s.model, s.fed_cfg, federation.data_fn, n_rounds, seed + 1,
             eval_fn=eval_fn, device=device, data_attack=s.data_attack,
             update_attack=s.update_attack, malicious=s.malicious,
-            faults=sc.faults, driver=driver, chunk_rounds=chunk_rounds)
-    return summarize(sc, state, hist, s.n_mal,
-                     time.perf_counter() - t0), hist
+            faults=sc.faults, driver=driver, chunk_rounds=chunk_rounds,
+            telemetry=telemetry)
+    summary = summarize(sc, state, hist, s.n_mal, time.perf_counter() - t0)
+    if telemetry is not None:
+        obs = telemetry.finish()
+        summary["obs_rows"] = obs["rows"]
+        summary["obs_warnings"] = obs["n_warnings"]
+        summary["obs_warning_counts"] = obs["warnings"]
+    return summary, hist
 
 
 def summarize(sc, state, hist, n_mal, wall_s):

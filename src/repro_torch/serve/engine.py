@@ -25,17 +25,27 @@ from its own Gumbel draw.
 ``run(requests, continuous=False)`` is the fixed-batch baseline: the same
 steps, but admission only into an all-empty fleet.
 
-**The captured step.**  ``run`` drives the engine's own pools and
-``SlotState``, allocated once and reset at each run.  On the card its
-first decode step runs eagerly as the warm-up; then the step is captured
-once as a CUDA graph at its fixed (max_slots, 1) shape, the new
-``SlotState`` copied into the static one and the output packed into one
-float64 row inside the graph, with the sampling generator registered, and
-every later step is one replay and one host read.  Admission stays eager:
-it takes host ints and runs the 128-token prefill, which K9 serves and
-which is not captured; its new ``SlotState`` is copied into the static
-one.  ``_decode`` stays callable on any state for the checks.  On the CPU
-each step runs ``_decode`` eagerly.
+**The captured steps.**  ``run`` drives the engine's own pools and
+``SlotState``, allocated once and reset at each run.  On the card each
+step, decode and admission, runs eagerly once as its warm-up on a side
+stream and is then captured once as a CUDA graph, the new ``SlotState``
+copied into the static one and the output packed into one float64 row
+inside the graph, with the sampling generator registered with both
+graphs; every later step is one replay and one host read.  The decode
+step has a fixed (max_slots, 1) shape.  The admission takes its request
+from a static device buffer (the prompt padded to ``prompt_pad``, then
+``plen``, ``max_new`` and ``req_id``), filled by one non-blocking copy
+from pinned host memory, and uses those scalars only as device tensors
+(``clamp_max``, a device page count, ``index_select`` of the last hidden
+row), so one graph serves every request; its prefill attends by the
+plain einsum, as the JAX engine's does.
+``_decode`` and ``_admit`` stay callable on any state for the checks.  On
+the CPU both steps run eagerly.
+
+Both steps accumulate the serving slice of the telemetry registry into
+``SlotState.tele``, and ``run(telemetry=...)`` emits one measured row a
+decode step (the ``serve/*`` values, the admissions since the last step
+and the step's host-clock tokens/s).
 """
 from __future__ import annotations
 
@@ -49,6 +59,7 @@ from repro_torch.core.driver import copy_into
 from repro_torch.kernels import launches
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import transformer
+from repro_torch.obs import counters as obs_counters
 from repro_torch.serve import scheduler as sched
 from repro_torch.serve.scheduler import (HostLedger, Request, ServeConfig,
                                          SlotState)
@@ -148,6 +159,13 @@ class ServeEngine:
         self._admit = self._make_admit()
         self._static = None         # (pools, SlotState) that ``run`` drives
         self._graph = None          # the captured decode step
+        self._admit_graph = None    # the captured admission
+        # the admission's request, (prompt_pad + 3,) int64: the padded
+        # prompt, plen, max_new, req_id; filled from pinned host memory
+        n = scfg.prompt_pad + 3
+        self._req = torch.zeros(n, dtype=torch.int64, device=self.device)
+        self._req_host = torch.zeros(n, dtype=torch.int64,
+                                     pin_memory=self.device.type == "cuda")
 
     # -- state ---------------------------------------------------------
     def fresh_state(self) -> Tuple[dict, SlotState]:
@@ -179,13 +197,17 @@ class ServeEngine:
                      < st.alloc[:, None]) & done[:, None]
             free = sched.set_masked(st.free, st.table, 1.0, owned)
             new_active = act * (1.0 - done_f)
+            zero = torch.zeros((), device=dev)
             vals = {"serve/slot_occupancy": new_active.sum(),
+                    "serve/admitted": zero,
                     "serve/evicted": done_f.sum(),
                     "serve/tokens": act.sum(),
-                    "serve/pages_in_use": n - free.sum()}
+                    "serve/pages_in_use": n - free.sum(),
+                    "serve/tokens_per_s": zero}
             st2 = st._replace(
                 tok=nxt[:, None], length=new_len, active=new_active,
-                alloc=torch.where(done, 0, st.alloc), free=free)
+                alloc=torch.where(done, 0, st.alloc), free=free,
+                tele=obs_counters.accumulate(st.tele, vals, "serve"))
             out = {"next": nxt, "emitted": act, "finished": done_f,
                    "req": st.req_id, "vals": vals}
             return _strip_ctx(view), st2, out
@@ -201,11 +223,17 @@ class ServeEngine:
         def admit(params, pools, st: SlotState, prompt, plen, max_new,
                   req_id):
             """prompt: (prompt_pad,) int64 on the device; plen, max_new,
-            req_id: host ints."""
+            req_id: 0-d integer tensors on the device (host ints are taken
+            too, copied up; the captured admission passes tensors)."""
             dev = st.active.device
+            as_dev = lambda v: v if isinstance(v, torch.Tensor) \
+                else torch.tensor(v, dtype=torch.int32, device=dev)
+            plen, max_new, req_id = map(as_dev, (plen, max_new, req_id))
+            plen, max_new = plen.to(torch.int32), max_new.to(torch.int32)
             slot, has_slot = sched.pick_free_slot(st.active)
-            budget = min(plen + max_new - 1, scfg.max_len)
-            need = -(-budget // scfg.page_size)
+            budget = torch.clamp_max(plen + max_new - 1, scfg.max_len)
+            need = torch.div(budget + scfg.page_size - 1, scfg.page_size,
+                             rounding_mode="floor")
             pages, fits, free2 = sched.take_pages(st.free, need, maxp)
             ok = has_slot & fits
             live = ok & (max_new >= 2)
@@ -222,8 +250,8 @@ class ServeEngine:
                 params, cfg, tokens=prompt[None],
                 positions=torch.arange(pmax, device=dev)[None], cache=view,
                 collect_logits=False)
-            lg = transformer.lm_head(params, cfg,
-                                     hidden[0, plen - 1][None, None])[0]
+            last = hidden[0].index_select(0, (plen - 1).reshape(1).long())
+            lg = transformer.lm_head(params, cfg, last[None])[0]
             g = _draw(st.gen, lg.shape, scfg.temperature, dev)
             tok0 = sample(lg, scfg.temperature, g)[0]
             sl = torch.where(ok, slot, s)                    # s = drop row
@@ -233,7 +261,8 @@ class ServeEngine:
                     "serve/admitted": ok.float(),
                     "serve/evicted": ok.float() * (1.0 - live_f),
                     "serve/tokens": ok.float(),
-                    "serve/pages_in_use": n - free3.sum()}
+                    "serve/pages_in_use": n - free3.sum(),
+                    "serve/tokens_per_s": torch.zeros((), device=dev)}
             st2 = st._replace(
                 tok=_set_row(st.tok, sl, tok0),
                 length=_set_row(st.length, sl, plen),
@@ -241,18 +270,19 @@ class ServeEngine:
                 active=active2, req_id=_set_row(st.req_id, sl, req_id),
                 alloc=_set_row(st.alloc, sl,
                                torch.where(live, need, 0).to(torch.int32)),
-                table=_set_row(st.table, sl, row), free=free3)
+                table=_set_row(st.table, sl, row), free=free3,
+                tele=obs_counters.accumulate(st.tele, vals, "serve"))
             out = {"ok": ok, "slot": slot, "tok0": tok0, "vals": vals}
             return _strip_ctx(view), st2, out
 
         return admit
 
-    # -- the engine's own state and its captured step ------------------
+    # -- the engine's own state and its captured steps -----------------
     def _reset(self) -> Tuple[dict, SlotState]:
         """The engine's pools and ``SlotState``, allocated at the first run
         and put back in place to a fresh state's values at every later
-        one: zero pools (unit int8 scales), empty slots, the generator
-        reseeded."""
+        one: zero pools (unit int8 scales), empty slots, a zero counter
+        column, the generator reseeded."""
         if self._static is None:
             self._static = self.fresh_state()
             return self._static
@@ -264,40 +294,83 @@ class ServeEngine:
         copy_into(st, sched.init_slot_state(self.scfg, st.gen, self.device))
         return self._static
 
-    def _step(self, cache, st: SlotState) -> dict:
-        """One decode step on the engine's own state, its output on the
-        host: a replay of the captured step, or (the first time on the
-        card, and always on the CPU) ``_decode`` run eagerly."""
-        if self._graph is not None:
-            graph, out, packed, recorded = self._graph
-            graph.replay()
-            launches.add(recorded)
-            return _unpack(out, packed.cpu().tolist())
-        if self.device.type != "cuda":
-            _, st2, out = self._decode(self.params, cache, st)
-            host = _to_host(out)        # before the copy: out reads st
-            copy_into(st, st2)
-            return host
+    def _capture(self, st: SlotState, run):
+        """``run() -> (new SlotState, out)``, a step on the engine's own
+        state: run eagerly once on a side stream (the warm-up, whose
+        result stands), then captured as a CUDA graph with ``st.gen``
+        registered.  Returns ((graph, out, packed out, launches a
+        replay), the warm-up's packed out)."""
         cur = torch.cuda.current_stream(self.device)
         stream = torch.cuda.Stream(self.device)
         stream.wait_stream(cur)
-        with torch.cuda.stream(stream):       # the warm-up, then capture
-            _, st2, out = self._decode(self.params, cache, st)
-            host = _pack(out)
+        with torch.cuda.stream(stream):
+            st2, out = run()
+            host = _pack(out)           # before the copy: out may read st
             copy_into(st, st2)
             del st2, out
         graph = torch.cuda.CUDAGraph()
         graph.register_generator_state(st.gen)
         before = launches.snapshot()
         with torch.cuda.graph(graph, stream=stream):
-            _, st2, out = self._decode(self.params, cache, st)
+            st2, out = run()
             packed = _pack(out)
             copy_into(st, st2)
         recorded = launches.since(before)
         launches.restore(before)
         cur.wait_stream(stream)
-        self._graph = (graph, out, packed, recorded)
-        return _unpack(out, host.cpu().tolist())
+        return (graph, out, packed, recorded), host
+
+    def _run_step(self, name, st: SlotState, run) -> dict:
+        """``run()`` on the engine's own state, its output on the host: a
+        replay of the graph kept under ``name``, or (the first time on the
+        card, when the graph is captured, and always on the CPU) ``run``
+        eagerly."""
+        captured = getattr(self, name)
+        if captured is not None:
+            graph, out, packed, recorded = captured
+            graph.replay()
+            launches.add(recorded)
+            return _unpack(out, packed.cpu().tolist())
+        if self.device.type != "cuda":
+            st2, out = run()
+            host = _to_host(out)        # before the copy: out reads st
+            copy_into(st, st2)
+            return host
+        captured, host = self._capture(st, run)
+        setattr(self, name, captured)
+        return _unpack(captured[1], host.cpu().tolist())
+
+    def _step(self, cache, st: SlotState) -> dict:
+        """One decode step on the engine's own state (``_run_step``)."""
+        return self._run_step(
+            "_graph", st, lambda: self._decode(self.params, cache, st)[1:])
+
+    def _load_request(self, r: Request) -> None:
+        """``r`` into the static request buffer: the prompt padded to
+        ``prompt_pad``, then plen, max_new and req_id, written on the host
+        and sent up by one non-blocking copy from pinned memory (the
+        previous admission's host read has finished with it)."""
+        h = self._req_host.numpy()
+        h[:] = 0
+        h[:len(r.tokens)] = r.tokens
+        h[-3:] = (len(r.tokens), r.max_new, r.req_id)
+        self._req.copy_(self._req_host, non_blocking=True)
+
+    def _admit_static(self, cache, st: SlotState):
+        """``_admit`` of the request in the static buffer."""
+        p = self.scfg.prompt_pad
+        req = self._req
+        _, st2, out = self._admit(self.params, cache, st, req[:p], req[p],
+                                  req[p + 1], req[p + 2])
+        return st2, out
+
+    def _admission(self, cache, st: SlotState, r: Request) -> dict:
+        """Admits ``r`` into the engine's own state (``_run_step``); its
+        output on the host is the one read an admission, for the
+        scheduler's mirror check."""
+        self._load_request(r)
+        return self._run_step("_admit_graph", st,
+                              lambda: self._admit_static(cache, st))
 
     # -- host loop -----------------------------------------------------
     def run(self, requests: Sequence[Request], *, telemetry=None,
@@ -307,20 +380,23 @@ class ServeEngine:
         continuous=True: admit whenever a slot and pages free up.
         continuous=False: the fixed-batch baseline, admitting only into an
         all-empty fleet (the same steps; scheduling is the only
-        difference)."""
-        if telemetry is not None:
-            raise NotImplementedError(
-                "serving telemetry comes with ROADMAP queue 1 item e")
+        difference).  ``telemetry`` (an ``obs.Telemetry``) gets one
+        measured row a decode step.  ``stats`` holds the host-clock
+        seconds of each decode step (``step_s``) and admission
+        (``admit_s``)."""
         scfg = self.scfg
         for r in requests:
             sched.validate_request(r, scfg)
+        if telemetry is not None:
+            telemetry.bind_engine("serve")
         ledger = HostLedger(scfg)
         pending = list(requests)
         cache, st = self._reset()
         results: Dict[int, List[int]] = {r.req_id: [] for r in requests}
         occupancy_trail: List[int] = []
         step_s: List[float] = []
-        steps = total_emitted = 0
+        admit_s: List[float] = []
+        steps = total_emitted = admitted_since = 0
         t0 = time.perf_counter()
         while pending or ledger.n_active > 0:
             group_open = ledger.n_active == 0
@@ -333,13 +409,9 @@ class ServeEngine:
                     break
                 pending.pop(0)
                 want_slot = ledger.next_slot()
-                prompt = torch.zeros((scfg.prompt_pad,), dtype=torch.int64)
-                prompt[:len(r.tokens)] = torch.tensor(r.tokens)
-                _, st2, out = self._admit(
-                    self.params, cache, st, prompt.to(self.device),
-                    len(r.tokens), r.max_new, r.req_id)
-                out = _to_host(out)
-                copy_into(st, st2)
+                ta = time.perf_counter()
+                out = self._admission(cache, st, r)
+                admit_s.append(time.perf_counter() - ta)
                 if not out["ok"] or out["slot"] != want_slot:
                     raise RuntimeError(
                         f"scheduler mirror diverged on req {r.req_id}: "
@@ -347,6 +419,7 @@ class ServeEngine:
                         f"slot={want_slot}")
                 results[r.req_id].append(out["tok0"])
                 total_emitted += 1
+                admitted_since += 1
                 if r.max_new >= 2:
                     ledger.admit_at(want_slot, need)
             if ledger.n_active == 0:
@@ -354,17 +427,30 @@ class ServeEngine:
                     raise RuntimeError("scheduler stalled with pending "
                                        "requests (pool too small?)")
                 break
+            w0 = telemetry.now_us() if telemetry is not None else 0.0
             ts = time.perf_counter()
             out = self._step(cache, st)
-            step_s.append(time.perf_counter() - ts)
+            dt = time.perf_counter() - ts
+            step_s.append(dt)
             steps += 1
+            ntok = 0
             for i in range(scfg.max_slots):
                 if out["emitted"][i] > 0:
                     results[out["req"][i]].append(out["next"][i])
-                    total_emitted += 1
+                    ntok += 1
                 if out["finished"][i] > 0:
                     ledger.evict(i)
+            total_emitted += ntok
             occupancy_trail.append(int(out["vals"]["serve/slot_occupancy"]))
+            if telemetry is not None:
+                pre = obs_counters.METRIC_PREFIX
+                row = {"round": steps}
+                row.update({pre + k: float(v) for k, v in out["vals"].items()})
+                row[pre + "serve/admitted"] = float(admitted_since)
+                row[pre + "serve/tokens_per_s"] = ntok / max(dt, 1e-9)
+                telemetry.observe_rows([row], w0, telemetry.now_us() - w0,
+                                       measured=True, phases=False)
+            admitted_since = 0
         wall = time.perf_counter() - t0
         stats = {
             "engine": "continuous" if continuous else "fixed",
@@ -374,6 +460,7 @@ class ServeEngine:
             "tokens_per_s": total_emitted / max(wall, 1e-9),
             "occupancy_trail": occupancy_trail,
             "step_s": step_s,
+            "admit_s": admit_s,
             "free_pages_end": ledger.free_pages,
         }
         return results, stats

@@ -13,9 +13,10 @@ admission.
 Slot and page picks are stable argsorts over integer keys, so the first
 free slot and the lowest free pages are taken, as in the JAX package.
 :class:`HostLedger` replays that arithmetic on the host, so admission
-needs no device read.  ``SlotState`` has no telemetry column yet (ROADMAP
-queue 1 item e); its random state is a ``torch.Generator`` in place of a
-PRNG key.
+needs no device read.  ``SlotState`` carries the serving slice of the
+telemetry registry as its counter column (``tele``), which both steps
+accumulate; its random state is a ``torch.Generator`` in place of a PRNG
+key.
 """
 from __future__ import annotations
 
@@ -23,6 +24,8 @@ import dataclasses
 from typing import NamedTuple, Tuple
 
 import torch
+
+from repro_torch.obs import counters as obs_counters
 
 
 @dataclasses.dataclass(frozen=True)
@@ -64,12 +67,16 @@ class SlotState(NamedTuple):
     alloc: torch.Tensor     # (S,)   int32  pages owned by the slot
     table: torch.Tensor     # (S, maxp) int32  page table
     free: torch.Tensor      # (N,)   fp32   free-page mask over the pool
+    tele: dict              # obs counter column (the serve/* slice)
     gen: torch.Generator    # the sampling noise's generator
 
 
-def init_slot_state(scfg: ServeConfig, gen: torch.Generator,
-                    device=None) -> SlotState:
+def init_slot_state(scfg: ServeConfig, gen: torch.Generator, device=None,
+                    tele=None) -> SlotState:
+    """An empty fleet; ``tele`` defaults to a zeroed serve column."""
     s, maxp, n = scfg.max_slots, scfg.pages_per_slot, scfg.total_pages
+    if tele is None:
+        tele = obs_counters.init_column("serve", None, device)
     i32 = dict(dtype=torch.int32, device=device)
     return SlotState(
         tok=torch.zeros((s, 1), dtype=torch.int64, device=device),
@@ -77,7 +84,7 @@ def init_slot_state(scfg: ServeConfig, gen: torch.Generator,
         active=torch.zeros((s,), device=device),
         req_id=torch.full((s,), -1, dtype=torch.int64, device=device),
         alloc=torch.zeros((s,), **i32), table=torch.zeros((s, maxp), **i32),
-        free=torch.ones((n,), device=device), gen=gen)
+        free=torch.ones((n,), device=device), tele=tele, gen=gen)
 
 
 def kv_budget(plen: int, max_new: int, scfg: ServeConfig) -> int:

@@ -913,3 +913,144 @@ def test_driver_counts_replays_and_registers_generators(card):
                              donate=False)
     final, _ = keep.run(state, lambda t: {}, 2, t0=1)
     assert final["n"] is not keep._graph.state["n"] and int(final["n"]) == 2
+
+
+# ------------------------------------------ K7 past its shared memory ----
+
+@pytest.mark.parametrize("label,m,d,kind", topd_checks.LARGE_CASES)
+def test_topd_past_shared_memory_matches_cpu_path(card, label, m, d, kind):
+    """Cohorts of d > 16,384: ``topd_pallas`` takes K7's global path (a
+    radix select and a bitonic sort over global memory) and returns
+    bitwise the CPU path's indices, twice alike, one count a call."""
+    g = topd_checks.keys(m, d, d, kind, m + d, card)
+    out = topd_checks.global_path(g, d)
+    assert torch.equal(topd_checks.global_path(g, d), out)
+
+
+def test_topd_shapes_that_fit_keep_the_one_launch_path(card):
+    """d = 16,384 (the largest whose CTA fits) and the timed shapes of
+    earlier slices stay on the one-launch shared-memory path."""
+    for m, d in ((100_000, 16_384), (16_384, 16), (100_000, 64),
+                 (1_000_000, 64)):
+        topd_checks.smem_path(topd_checks.keys(m, d, 4096, "gumbel", m, card),
+                              d)
+
+
+def test_k9_replays_bitwise_its_eager_call(card):
+    """K9 captured in a CUDA graph (its TMA maps passed by value) and
+    replayed on new contents of the same buffers gives the eager call's
+    output on those contents, bit for bit, in both bodies."""
+    for dtype in (torch.bfloat16, torch.float32):
+        gen = torch.Generator(card).manual_seed(3)
+        q, k, v = (torch.randn(1, h, 128, 128, generator=gen, device=card,
+                               dtype=dtype) for h in (24, 8, 8))
+        graph, _, out = _capture(lambda: fa.flash_attention_fwd(q, k, v))
+        for _ in range(3):
+            for t in (q, k, v):
+                t.copy_(torch.randn(t.shape, generator=gen, device=card,
+                                    dtype=dtype))
+            graph.replay()
+            assert torch.equal(out, fa.flash_attention_fwd(q, k, v))
+
+
+# --------------------------------------------- the captured admission ----
+
+def _eager_admission_engine():
+    """A ServeEngine whose admissions run ``_admit`` eagerly every time (its
+    decode step still captured): the admission's baseline."""
+    from repro_torch.core.driver import copy_into
+    from repro_torch.serve import engine as serve_engine
+
+    class EagerAdmit(ServeEngine):
+        def _admission(self, cache, st, r):
+            self._load_request(r)
+            st2, out = self._admit_static(cache, st)
+            host = serve_engine._to_host(out)
+            copy_into(st, st2)
+            return host
+
+    return EagerAdmit
+
+
+@pytest.mark.parametrize("temperature", [0.0, 0.7])
+def test_admission_replay_matches_eager(card, temperature):
+    """The admission captured once and replayed for every later request
+    (plen, max_new and req_id as device scalars in a static buffer) gives
+    the eager admission's run: the same tokens, and the engine's pools
+    (but the drop page) and whole SlotState (its counter column too)
+    bitwise; the sampling draws
+    of both graphs advance the generator as the eager steps do."""
+    from repro_torch.launch.serve import draw_requests
+    cfg = get_config("tiny-lm").reduced()
+    params = tree.map(lambda t: t.to(card),
+                      build(cfg).init(torch.Generator().manual_seed(0)))
+    scfg = ServeConfig(max_slots=4, page_size=8, max_len=48, prompt_pad=16,
+                       attn="pallas", temperature=temperature)
+    reqs = draw_requests(10, 12, 1, 24, cfg.vocab_size, seed=6)
+    eager = _eager_admission_engine()(cfg, scfg, params, seed=2)
+    res_e, stats_e = eager.run(reqs)
+    engine = ServeEngine(cfg, scfg, params, seed=2)
+    res, stats = engine.run(reqs)
+    assert res == res_e and stats["steps"] == stats_e["steps"]
+    assert engine._admit_graph is not None and eager._admit_graph is None
+    (cache_e, st_e), (cache, st) = eager._static, engine._static
+    for f in st._fields:
+        if f == "gen":
+            assert torch.equal(st.gen.get_state(), st_e.gen.get_state())
+        elif f == "tele":
+            for k in st.tele:
+                assert torch.equal(st.tele[k], st_e.tele[k]), k
+        else:
+            assert torch.equal(getattr(st, f), getattr(st_e, f)), f
+    for b in cache:         # the drop page (the last) takes the inactive
+        for k in cache[b]:  # slots' appends in no set order, never read
+            assert torch.equal(cache[b][k][:, :-1], cache_e[b][k][:, :-1]), \
+                (b, k)
+    assert float(st.tele["serve/admitted"]) == len(reqs)
+    again, _ = engine.run(reqs)                 # the same graphs, reset
+    assert again == res
+
+
+# ------------------------------------------------- telemetry on the card --
+
+def test_telemetry_on_off_bitwise_on_card(deterministic_cudnn, tmp_path):
+    """Sync and async under the default (replayed) driver with telemetry on
+    and off: the same run bit for bit but the obs/ keys; the counter
+    column's totals the sums of the rows; the artifacts pass the port's
+    schema check."""
+    from repro_torch.obs import JsonlSink, Telemetry
+    from repro_torch.obs.check import check_jsonl, check_trace
+    model = build(MLP_CONFIG)
+    sync_fed, _ = build_federation(0, kind="tabular", n=600, n_clients=6,
+                                   batch_size=8)
+    async_fed, _ = build_federation(0, kind="tabular", n=600, n_clients=24,
+                                    batch_size=8)
+    late = faults.FaultConfig(straggler_frac=0.3, straggler_delay=3.0,
+                              base_delay=0.3)
+    runs = {
+        "sync": lambda **kw: fedfits.run(
+            model, FedConfig(n_clients=6, local_lr=0.05, avail_prob=0.7,
+                             aggregator="trimmed_mean"), sync_fed.data_fn,
+            7, 1, chunk_rounds=3, **kw),
+        "async": lambda **kw: async_engine.run_async(
+            model, FedConfig(n_clients=4, population=24, local_lr=0.05,
+                             aggregator="trimmed_mean", async_max_retries=2,
+                             select_method="pallas"), async_fed.data, 7, 2,
+            batch_size=8, faults=late, chunk_rounds=4, **kw)}
+    for engine, run in runs.items():
+        jsonl, trace = str(tmp_path / f"{engine}.jsonl"), \
+            str(tmp_path / f"{engine}.json")
+        tele = Telemetry(sinks=[JsonlSink(jsonl)], trace_path=trace)
+        st_on, h_on = run(telemetry=tele)
+        tele.finish()
+        st_off, h_off = run()
+        h_strip = [{k: v for k, v in r.items() if not k.startswith("obs/")}
+                   for r in h_on]
+        _bitwise_runs((st_off, h_off),
+                      (st_on._replace(tele=None), h_strip))
+        assert not check_jsonl(jsonl, require_obs=True, engine=engine)
+        assert not check_trace(trace, min_phases=5)
+        for name in ("wire/bytes_up", "select/team_size"):
+            rows = [float(r["obs/" + name]) for r in h_on]
+            want = sum(rows) if name.startswith("wire") else rows[-1]
+            assert float(st_on.tele[name]) == want, (engine, name)

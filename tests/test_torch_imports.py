@@ -37,7 +37,10 @@ print(len(names), bad, all(m in names for m in (
     "repro_torch.kernels.flash_attention_ops",
     "repro_torch.kernels.flash_attention_ref",
     "repro_torch.models.transformer", "repro_torch.configs.registry",
-    "repro_torch.core.driver", "repro_torch.kernels.launches")))
+    "repro_torch.core.driver", "repro_torch.kernels.launches",
+    "repro_torch.obs", "repro_torch.obs.counters", "repro_torch.obs.sinks",
+    "repro_torch.obs.monitors", "repro_torch.obs.trace",
+    "repro_torch.obs.check")))
 """
 
 
@@ -87,24 +90,14 @@ def test_unported_options_raise():
     for kw in [dict(agg_blk=512)]:
         with pytest.raises(NotImplementedError):
             fedfits.make_round(model, FedConfig(**kw))
-    with pytest.raises(NotImplementedError):
-        fedfits.run(model, FedConfig(), None, 1, device="cpu",
-                    telemetry=object())
     cfg = FedConfig(n_clients=2, population=8)
     pop = {"x": torch.zeros(8, 3, 22), "y": torch.zeros(8, 3),
            "eval_x": torch.zeros(8, 2, 22), "eval_y": torch.zeros(8, 2),
            "n": torch.ones(8)}
-    for drv in ("scan", "python"):
-        with pytest.raises(NotImplementedError, match="item e"):
-            async_engine.run_async(model, cfg, pop, 1, device="cpu",
-                                   driver=drv, telemetry=object())
     body = lambda st, xs: (st, {})
-    state = {"w": torch.zeros(2)}
-    with pytest.raises(NotImplementedError, match="item e"):
-        driver.ScanDriver(body).run(state, lambda t: {}, 1,
-                                    telemetry=object())
-    with pytest.raises(NotImplementedError, match="item e"):
-        driver.run_chunked(body, state, lambda t: {}, 1, telemetry=object())
+    # no entry point names item e any more: telemetry is ported
+    src = ROOT / "src" / "repro_torch"
+    assert not [p for p in src.rglob("*.py") if "item e" in p.read_text()]
     with pytest.raises(NotImplementedError, match="item g"):
         driver.ScanDriver(body, batch_sharding=object())
     with pytest.raises(NotImplementedError, match="item g"):

@@ -18,7 +18,7 @@ JAX package's, and the port's rounds under its attacks and faults.
     cross-round attacker), 4 rounds, against JAX's jitted round, fed JAX's
     draws, as ``tests/test_torch_async.py`` does;
   * ``run_scenario`` on the CPU: two runs of a cell give the same summary,
-    whose keys are JAX's minus the telemetry (``obs_*``) ones.
+    whose keys are JAX's, the telemetry (``obs_*``) ones included.
 
 Every round runs ``paper-mlp`` on the scenarios' tabular federation (their
 default model; ``fed_config``'s local lr 0.2 puts a reduced CNN's
@@ -355,13 +355,16 @@ def test_run_scenario_repeats_and_keys():
            "gated_frac": 0.0}
     jkeys = set(jengine.summarize(jregistry.get("cross_round_trimmed"),
                                   state, [row], 3, 0.0))
-    assert set(a) | {"wall_s"} == {k for k in jkeys
-                                   if not k.startswith("obs_")}
+    assert set(a) | {"wall_s"} == jkeys | {"obs_rows", "obs_warnings",
+                                           "obs_warning_counts"}
+    assert a["obs_rows"] == 2
     # the default driver is the chunked one; the per-round loop agrees
     c, _ = engine.run_scenario("cross_round_trimmed", driver="python", **kw)
     c.pop("wall_s")
     assert c == a
     with pytest.raises(ValueError, match="driver"):
         engine.run_scenario("clean_trimmed", driver="jit", **kw)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        engine.run_scenario("clean_trimmed", telemetry=object(), **kw)
+    # telemetry=False opts out: no obs keys in the summary or the rows
+    d, dh = engine.run_scenario("cross_round_trimmed", telemetry=False, **kw)
+    assert set(d) == jkeys
+    assert not [k for k in dh[0] if k.startswith("obs/")]

@@ -337,18 +337,21 @@ def test_sampled_engine_is_seeded_and_complete(tiny):
     assert [len(a[r.req_id]) for r in reqs] == [r.max_new for r in reqs]
 
 
-def test_launch_main_rehearses_on_cpu(capsys):
+def test_launch_main_rehearses_on_cpu(capsys, tmp_path):
     import json
+    from repro_torch.obs.check import check_jsonl, check_trace
     for engine in ("continuous", "dense"):
         launch_serve.main(["--arch", "tiny-lm", "--reduced", "--device",
                            "cpu", "--requests", "3", "--gen-min", "2",
                            "--gen-max", "6", "--engine", engine])
         row = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
         assert row["device"] == "cpu" and row["tokens"] > 0
-    with pytest.raises(NotImplementedError, match="item e"):
-        launch_serve.main(["--device", "cpu", "--trace", "t.json"])
-    with pytest.raises(NotImplementedError, match="item e"):
-        ServeEngine(get_config("tiny-lm").reduced(), ServeConfig(),
-                    build(get_config("tiny-lm").reduced()).init(
-                        torch.Generator()), device="cpu").run(
-            [], telemetry=object())
+    # telemetry: a trace and a JSONL stream that pass the schema checks
+    trace, jsonl = str(tmp_path / "t.json"), str(tmp_path / "t.jsonl")
+    launch_serve.main(["--arch", "tiny-lm", "--reduced", "--device", "cpu",
+                       "--requests", "3", "--gen-min", "2", "--gen-max", "6",
+                       "--trace", trace, "--telemetry-jsonl", jsonl])
+    row = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert row["tokens"] > 0
+    assert not check_trace(trace, min_phases=5)
+    assert not check_jsonl(jsonl, require_obs=True, engine="serve")
