@@ -217,6 +217,29 @@ Phases, one line each (a failure raises, so the exit code is not 0):
               that check; a 2-layer fp32 cut within 1e-4; the first decode
               step of that cut on the card and on the CPU port within 1e-4
               of the largest logit.  The params and pools are freed.
+  9. pod      the pod trainer (``core/pod.py``) through its entry point
+              ``launch/train.py`` (in process, NCCL at world size 1,
+              ``--robust per_client``) at tiny-lm's full width and depth
+              (64,233,984 fp32 parameters, C = 4, 16 x 256 tokens a
+              step, AdamW): 20 fedavg steps (the loss must fall), 2 each
+              of trimmed_mean, median and krum, int8 with error feedback
+              4 fedavg and 2 krum steps (``comm_bytes_up`` by formula);
+              each step must launch its path's kernels once (K1, K2, K3,
+              K6a, K6b, K6c), and the counts join the kernels line.  Under
+              deterministic algorithms: scan bitwise python (6 steps,
+              chunks of 2), ``agg_mesh`` bitwise None, and a run resumed
+              from its step-4 checkpoint bitwise the uninterrupted one;
+              step 1 at 2 layers against the CPU port (SGD): the
+              aggregated grads within POD_CPU_REL of their largest, and a
+              step with one client's rows swapped for another's outside
+              it; K1, K2, K3, K6a, K6b and K6c at (1, 4, 64,233,984)
+              against their plain versions (NSUM_REL on the sums over N)
+              and K3 / K6c against the fp64 Gram, timed
+              beside bound and library (the kernels line's ``pod``
+              entries); the step's wall, busy, launches and tokens/s
+              under both drivers.  It runs in a child process
+              (``python3 chip_smoke.py --pod``, which runs it alone) that
+              fixes cuBLAS's workspace before cuBLAS starts.
 The last three lines are the nvidia-smi line, the kernels JSON and the
 result JSON.  ``python3 chip_smoke.py --kernels`` runs phases 1, 2, 2b and
 2c alone and ends with the nvidia-smi line and the kernels JSON (launches
@@ -390,6 +413,25 @@ FWD_FP32_ATOL = 1e-4
 ROUND1_LOGIT_REL = 1e-4
 
 
+# phase 9: the pod trainer (core/pod.py through launch/train.py) at tiny-lm's
+# full width, 64,233,984 fp32 parameters: C = 4 clients, a global batch of
+# 16 sequences of 256 tokens, AdamW; (aggregator, codec, steps) of each run
+# of the entry point, in order
+POD_ARCH, POD_C, POD_GB, POD_SEQ = "tiny-lm", 4, 16, 256
+POD_SCHEDULE = (("fedavg", "none", 20), ("trimmed_mean", "none", 2),
+                ("median", "none", 2), ("krum", "none", 2),
+                ("fedavg", "int8", 4), ("krum", "int8", 2))
+POD_SHAPE = (1, POD_C, 64_233_984)          # K1-K3 / K6 on the pod path
+POD_PARITY = (6, 2)             # scan vs python: steps, chunk
+POD_CKPT = (8, 4)               # the resume check: steps, checkpoint at
+# step 1 on the card against the CPU port: full width, 2 layers, SGD.  The
+# aggregated, clipped grads (SGD's momentum after one step), as a share of
+# their largest: fp32 forward and backward sums over up to 32,000 terms in
+# other orders
+POD_CPU_LAYERS, POD_CPU_REL = 2, 1e-4
+POD_TIMEOUT = 900               # seconds for the phase's child process
+
+
 def bound(bytes_moved, ops, ops_per_s=FP32_OPS_PER_S):
     """(bound_ms, bound_by): the larger of bytes over HBM rate and the
     operations over the peak rate of the inputs' type (fp32 unless given)."""
@@ -491,12 +533,17 @@ def _import_port():
     sys.path.insert(0, str(SRC))
 
 
-def _card():
-    import torch
-    smi = subprocess.run(
+def _smi():
+    """nvidia-smi's name and power limit of the first card."""
+    return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
+
+
+def _card():
+    import torch
+    smi = _smi()
     from repro_torch.kernels import _build
     t0 = time.perf_counter()
     _build.load()
@@ -2918,6 +2965,488 @@ def _forward(box, smi):
     return k9
 
 
+# ---------------------------------------------------------------- phase 9 --
+def _pod_train(*extra):
+    """``launch/train.py``'s main path in this process -> (state, rows)."""
+    from repro_torch.launch import train
+    return train.main(["--arch", POD_ARCH, "--clients", str(POD_C),
+                       "--global-batch", str(POD_GB), "--seq", str(POD_SEQ),
+                       "--robust", "per_client", "--device", DEVICE,
+                       *extra])
+
+
+def _pod_launches():
+    """The pod path's kernel counters (K1-K3, K6a-c), by name."""
+    from repro_torch.comm.kernels import comm_codecs as cc
+    from repro_torch.kernels import robust_pipeline as rp
+    return {**rp.launch_counts(), **cc.launch_counts()}
+
+
+def _pod_reset():
+    from repro_torch.comm.kernels import comm_codecs as cc
+    from repro_torch.kernels import robust_pipeline as rp
+    rp.reset_launch_counts()
+    cc.reset_launch_counts()
+
+
+def _same_state(label, a, b):
+    """Two pod states bit for bit: every tensor, and the generators'
+    states."""
+    import torch
+    from repro_torch import tree
+    la, lb = tree.leaves(a), tree.leaves(b)
+    if len(la) != len(lb):
+        raise AssertionError(f"{label}: the states differ in structure")
+    for i, (x, y) in enumerate(zip(la, lb)):
+        if isinstance(x, torch.Generator):
+            x, y = x.get_state(), y.get_state()
+        if isinstance(x, torch.Tensor) and not (
+                x.dtype == y.dtype and x.shape == y.shape
+                and torch.equal(x.cpu(), y.cpu())):
+            raise AssertionError(f"{label}: state leaf {i} differs")
+
+
+def _same_rows(label, a, b, host=("wall_ms", "chunk_ms")):
+    """Two histories bit for bit, but the host clocks."""
+    import numpy as np
+    if len(a) != len(b):
+        raise AssertionError(f"{label}: {len(a)} rows against {len(b)}")
+    for ra, rb in zip(a, b):
+        keys = set(ra) - set(host)
+        if keys != set(rb) - set(host):
+            raise AssertionError(f"{label}: the rows' keys differ")
+        for k in keys:
+            x, y = np.asarray(ra[k]), np.asarray(rb[k])
+            if (x.dtype, x.shape, x.tobytes()) != (y.dtype, y.shape,
+                                                    y.tobytes()):
+                raise AssertionError(f"{label}: {k} differs at step "
+                                     f"{ra['step']}")
+
+
+def _pod_entry_point(out):
+    """Phase 9: the schedule through ``launch/train.py``; returns the
+    launches of K1-K3 and K6a-c on this path, by name."""
+    total = {}
+    bytes_up = _pod_int8_bytes()
+    for agg, comp, steps in POD_SCHEDULE:
+        _pod_reset()
+        t0 = time.perf_counter()
+        _, rows = _pod_train("--steps", str(steps), "--aggregator", agg,
+                             "--compress", comp)
+        got = {k: n for k, n in _pod_launches().items() if n}
+        for k, n in got.items():
+            total[k] = total.get(k, 0) + n
+        want = (["dequant_gate_partials"] if comp == "int8"
+                else ["cosine_gate_partials"])
+        want.append(("dequant_" if comp == "int8" else "")
+                    + {"trimmed_mean": "gated_combine[trimmed]",
+                       "median": "gated_combine[median]"}.get(
+                           agg, "gated_combine[mean]"))
+        if agg == "krum":
+            want.append("dequant_pairwise_gram" if comp == "int8"
+                        else "pairwise_gram")
+        for k in want:
+            if got.get(k) != steps:
+                raise AssertionError(f"[pod] {agg}/{comp}: {k} launched "
+                                     f"{got.get(k, 0)} times in {steps} "
+                                     "steps")
+        losses = [float(r["loss"]) for r in rows]
+        print(f"[pod] train.main --aggregator {agg} --compress {comp}: "
+              f"{steps} steps in {time.perf_counter() - t0:.1f} s, loss "
+              f"{losses[0]:.4f} -> {losses[-1]:.4f}, launches {got}")
+        if agg == "fedavg" and comp == "none":
+            if not losses[-1] < losses[0]:
+                raise AssertionError("[pod] the loss did not fall over "
+                                     f"{steps} steps: {losses}")
+            out["fedavg_loss"] = [losses[0], losses[-1]]
+            # chunks of 8: steps 8-15 are one chunk replayed whole
+            out["scan_chunk_step_ms"] = float(rows[min(8, steps - 1)][
+                "wall_ms"])
+        if comp == "int8":
+            got_b = float(rows[0]["comm_bytes_up"])
+            out["comm_bytes_up"] = got_b
+            if got_b != bytes_up:
+                raise AssertionError(f"[pod] comm_bytes_up {got_b} != "
+                                     f"{bytes_up}")
+            print(f"[pod] comm_bytes_up {got_b:.0f} B a step = float32("
+                  f"C x (N + 4 NQ)) = {bytes_up:.0f}")
+    return total
+
+
+def _pod_determinism(out):
+    """Phase 9 under deterministic algorithms: scan bitwise python through
+    the entry point, the mesh-sharded aggregation bitwise the unsharded one
+    at world size 1, and a run resumed from its step-4 checkpoint bitwise
+    the uninterrupted run."""
+    import shutil
+    import tempfile
+    import torch
+    steps, chunk = POD_PARITY
+    runs = {}
+    for drv in ("python", "scan"):
+        _pod_reset()
+        st, rows = _pod_train("--steps", str(steps), "--chunk-rounds",
+                              str(chunk), "--driver", drv)
+        runs[drv] = (st, rows, _pod_launches())
+    _same_state("[parity] pod scan vs python", runs["scan"][0],
+                runs["python"][0])
+    _same_rows("[parity] pod scan vs python", runs["scan"][1],
+               runs["python"][1])
+    if runs["scan"][2] != runs["python"][2]:
+        raise AssertionError(f"[parity] pod launches differ: {runs}")
+    launched = {k: n for k, n in runs["scan"][2].items() if n}
+    out["scan_launches"] = launched
+    print(f"[parity] pod {steps} steps, chunks of {chunk}: scan vs python "
+          f"bitwise (params, opt state, fed state, every history key); "
+          f"launches under both {launched}")
+
+    for agg, comp in (("trimmed_mean", "none"), ("fedavg", "int8")):
+        _pod_mesh_parity(agg, comp)
+
+    root = tempfile.mkdtemp(prefix="pod_ckpt_")
+    try:
+        n, at = POD_CKPT
+        args = ("--steps", str(n), "--ckpt-dir", root, "--ckpt-every",
+                str(at))
+        st_a, rows_a = _pod_train(*args)
+        shutil.rmtree(f"{root}/step_{n:08d}")
+        st_b, rows_b = _pod_train(*args)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    _same_rows("[ckpt] pod resume", rows_a[at:], rows_b)
+    _same_state("[ckpt] pod resume", st_a, st_b)
+    print(f"[ckpt] pod: restored at step {at}, steps {at}-{n - 1} and the "
+          f"final state bitwise the uninterrupted run's")
+
+
+def _pod_state(cfg, fed, tc, dev, mesh=None, seed=0):
+    import torch
+    from repro_torch.core import pod
+    from repro_torch.models import transformer
+    from repro_torch.optim import optimizers
+    params = transformer.init_transformer(
+        torch.Generator(device=dev).manual_seed(seed), cfg)
+    opt_init, _ = optimizers.make_optimizer(tc)
+    return pod.init_pod_state(params, opt_init, fed.n_clients, fed,
+                              torch.Generator(device=dev).manual_seed(
+                                  seed + 1), mesh=mesh)
+
+
+def _pod_cfgs(**fed_kw):
+    from repro_torch.configs.base import FedConfig, TrainConfig
+    from repro_torch.configs.registry import get_config
+    cfg = get_config(POD_ARCH)
+    fed = FedConfig(n_clients=POD_C, **fed_kw)
+    tc = TrainConfig(global_batch=POD_GB, seq_len=POD_SEQ, total_steps=10,
+                     warmup_steps=1)
+    return cfg, fed, tc
+
+
+def _pod_mesh_parity(agg, comp, steps=2):
+    """``agg_mesh`` set against None at world size 1, ``steps`` steps."""
+    import torch
+    from repro_torch.core import pod
+    from repro_torch.launch import train
+    from repro_torch.launch.mesh import make_host_mesh
+    cfg, fed, tc = _pod_cfgs(aggregator=agg, compress=comp)
+    dev = torch.device(DEVICE)
+    sample = train.synthetic_lm_batches(cfg, tc, POD_C, 0, dev)
+    mesh = make_host_mesh()
+    outs = []
+    for m in (mesh, None):
+        step = pod.make_train_step(cfg, fed, tc, robust="per_client",
+                                   agg_mesh=m)
+        st = _pod_state(cfg, fed, tc, dev, mesh=m)
+        rows = []
+        for t in range(steps):
+            st, met = step(st, sample(t))
+            rows.append({**{k: v.cpu().numpy() for k, v in met.items()},
+                         "step": t})
+        outs.append((st, rows))
+    _same_state(f"[mesh] {agg}/{comp}", outs[0][0], outs[1][0])
+    _same_rows(f"[mesh] {agg}/{comp}", outs[0][1], outs[1][1])
+    print(f"[mesh] pod {agg}/{comp}: agg_mesh (NCCL, world size 1) bitwise "
+          f"agg_mesh=None over {steps} steps")
+
+
+def _pod_cpu_step(out):
+    """Step 1 at full width and POD_CPU_LAYERS layers on the card and on
+    the CPU port, from the same init and batch, compared on the aggregated
+    grads: SGD's momentum after one step is the clipped aggregate itself
+    (the params move by lr times it, ~1e-7, about an ulp of a param).
+    Then the card's step once more with client C-1's rows replaced by
+    client 0's: that aggregate must be outside the tolerance, or the check
+    could not see a client dropped."""
+    import dataclasses
+    import torch
+    from repro_torch import tree
+    from repro_torch.core import pod
+    from repro_torch.launch import train
+    cfg, fed, tc = _pod_cfgs()
+    cfg = cfg.replace(n_layers=POD_CPU_LAYERS)
+    tc = dataclasses.replace(tc, optimizer="sgd")
+    cpu = torch.device("cpu")
+    batch = train.synthetic_lm_batches(cfg, tc, POD_C, 0, cpu)(0)
+    st_cpu = _pod_state(cfg, fed, tc, cpu)
+    to = lambda v: v.to(DEVICE) if isinstance(v, torch.Tensor) else v
+
+    def on_card():
+        st = tree.map(to, st_cpu)
+        return st._replace(fed=st.fed._replace(
+            rng=torch.Generator(device=DEVICE)))
+
+    step = pod.make_train_step(cfg, fed, tc, robust="per_client")
+    t0 = time.perf_counter()
+    new_cpu, m_cpu = step(st_cpu, batch)
+    cpu_s = time.perf_counter() - t0
+    ref = tree.leaves(new_cpu.opt_state.momentum)
+    scale = max(float(r.abs().max()) for r in ref)
+
+    def rel_err(new):
+        return max(float((a.cpu() - b).abs().max()) for a, b in zip(
+            tree.leaves(new.opt_state.momentum), ref)) / scale
+
+    new_gpu, m_gpu = step(on_card(), tree.map(to, batch))
+    err = rel_err(new_gpu)
+    if not (err <= POD_CPU_REL and torch.equal(new_gpu.fed.team.cpu(),
+                                               new_cpu.fed.team)):
+        raise AssertionError(f"[pod] step 1 on the card vs the CPU port: "
+                             f"aggregated grads {err:.3e} of their largest")
+    bc = POD_GB // POD_C
+    swapped = {k: v.clone() if isinstance(v, torch.Tensor) else v
+               for k, v in batch.items()}
+    for k in ("tokens", "targets"):
+        swapped[k][-bc:] = batch[k][:bc]
+    fault = rel_err(step(on_card(), tree.map(to, swapped))[0])
+    if not fault > POD_CPU_REL:
+        raise AssertionError(f"[pod] a swapped client's step reads {fault:.3e}"
+                             f", inside POD_CPU_REL")
+    out["cpu_step_rel"], out["cpu_step_fault_rel"] = err, fault
+    print(f"[pod] step 1 at full width, {POD_CPU_LAYERS} layers: card vs CPU "
+          f"port aggregated grads {err:.3e} of their largest ({scale:.4g}; "
+          f"tol {POD_CPU_REL}), same team; client {POD_C - 1}'s rows "
+          f"swapped for client 0's: {fault:.3e}; loss "
+          f"{float(m_gpu['loss']):.5f} / {float(m_cpu['loss']):.5f} (the "
+          f"CPU step took {cpu_s:.1f} s)")
+
+
+def _pod_kernels():
+    """K1, K2 (three modes), K3, K6a, K6b and K6c at the pod path's shape
+    (POD_SHAPE: tiny-lm's 64,233,984 parameters, C = 4) against their plain
+    versions, and K3 / K6c against the fp64 Gram; CUDA-event times beside
+    the bound and the library call.  The plain versions run once each
+    (about a second a call at this N)."""
+    import torch
+    from repro_torch.comm.kernels import comm_codecs as cc
+    from repro_torch.kernels import robust_pipeline as rp
+    sizes = _pod_sizes()
+    g, c, n = POD_SHAPE
+    if sum(sizes) != n:
+        raise AssertionError(f"tiny-lm has {sum(sizes)} parameters, not {n}")
+    x, m, w = _inputs(POD_SHAPE, 22, [[1.0] * c])
+    q, s, layout = _encode(x, sizes)
+    calls = {
+        "cosine_gate_partials": (lambda: rp.cosine_gate_partials(x, m),
+                                 lambda: rp.cosine_gate_partials_plain(x, m),
+                                 None),
+        "gated_combine[mean]": (
+            lambda: rp.gated_combine(x, m, w, mode="mean"),
+            lambda: rp.gated_combine_plain(x, m, w, mode="mean"),
+            lambda: torch.matmul(w[:, None, :], x)),
+        "gated_combine[trimmed]": (
+            lambda: rp.gated_combine(x, m, m, mode="trimmed"),
+            lambda: rp.gated_combine_plain(x, m, m, mode="trimmed"), None),
+        "gated_combine[median]": (
+            lambda: rp.gated_combine(x, m, m, mode="median"),
+            lambda: rp.gated_combine_plain(x, m, m, mode="median"),
+            lambda: torch.quantile(x, 0.5, dim=1)),
+        "pairwise_gram": (lambda: rp.pairwise_gram(x),
+                          lambda: rp.pairwise_gram_plain(x),
+                          lambda: torch.bmm(x, x.transpose(1, 2))),
+        "dequant_gate_partials": (
+            lambda: cc.dequant_gate_partials(q, s, layout, m),
+            lambda: cc.dequant_gate_partials_plain(q, s, layout, m), None),
+        "dequant_gated_combine[mean]": (
+            lambda: cc.dequant_gated_combine(q, s, layout, m, w, mode="mean"),
+            lambda: cc.dequant_gated_combine_plain(q, s, layout, m, w,
+                                                   mode="mean"), None),
+        "dequant_pairwise_gram": (
+            lambda: cc.dequant_pairwise_gram(q, s, layout, m),
+            lambda: cc.dequant_pairwise_gram_plain(q, s, layout, m), None),
+    }
+    gram_of = {"pairwise_gram": lambda: x,
+               "dequant_pairwise_gram": lambda: cc.dequant_masked(q, s,
+                                                                  layout, m)}
+    entries = {}
+    for name, (kern, plain, lib) in calls.items():
+        base, _, mode = name.partition("[")
+        out = kern()
+        start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        torch.cuda.synchronize()
+        start.record()
+        ref = plain()
+        stop.record()
+        torch.cuda.synchronize()
+        plain_ms = start.elapsed_time(stop)
+        if isinstance(out, tuple):
+            err = max(_check(f"[pod] {name}/{i} {POD_SHAPE}", o, r,
+                             rel=NSUM_REL) for i, (o, r) in
+                      enumerate(zip(out, ref)))
+        elif name in gram_of:
+            err = _check(f"[pod] {name} {POD_SHAPE}", out, ref, rel=NSUM_REL)
+            _gram_exact(name, out, ref, gram_of[name]())
+        else:
+            err = _check(f"[pod] {name} {POD_SHAPE}", out, ref,
+                         exact=mode == "median]")
+        del out, ref
+        if lib and mode == "median]":
+            _check(f"torch.quantile(0.5) as {name} {POD_SHAPE}", lib(),
+                   kern(), rel=NSUM_REL)
+        bound_ms, bound_by = bound(*kernel_work(
+            base, g, c, n, mode.rstrip("]") or None, nq=layout.n_scales,
+            n_leaves=len(sizes)))
+        e = {"ms": time_ms(kern), "plain_ms": plain_ms, "bound_ms": bound_ms,
+             "bound_by": bound_by, "library_ms": time_ms(lib) if lib else None,
+             "max_abs_err": err, "shape": list(POD_SHAPE)}
+        entries[name] = e
+        print(f"[pod] {name} {POD_SHAPE}: {e['ms']:.4f} ms, plain "
+              f"{plain_ms:.1f} ms, library {e['library_ms']}, bound "
+              f"{bound_ms:.4f} ms ({bound_by}), max abs err {err:.3e}")
+    return entries
+
+
+def _gram_exact(name, out, ref, x):
+    """A Gram at POD_SHAPE against x's fp64 Gram: its diagonal and its
+    off-diagonal entries each within NSUM_REL of their own largest value
+    (the off-diagonal ones are ~1e4 times smaller at this N, so a cross
+    term summed wrong would hide under the whole matrix's scale)."""
+    import torch
+    exact = torch.bmm(x.double(), x.double().transpose(1, 2))
+    eye = torch.eye(exact.shape[-1], dtype=torch.bool, device=exact.device)
+    for part, sel in (("diagonal", eye), ("off-diagonal", ~eye)):
+        e = exact[:, sel]
+        scale = float(e.abs().max())
+        k_err = float((out.double()[:, sel] - e).abs().max())
+        p_err = float((ref.double()[:, sel] - e).abs().max())
+        if not k_err <= NSUM_REL * scale:
+            raise AssertionError(f"[pod] {name} {part}: {k_err:.3e} from "
+                                 f"the fp64 Gram (largest {scale:.4g})")
+        print(f"[pod] {name} {part} against the fp64 Gram (largest "
+              f"{scale:.4g}): kernel {k_err:.3e}, plain {p_err:.3e} "
+              f"(tol {NSUM_REL * scale:.3e})")
+
+
+def _pod_sizes():
+    """The pod model's leaf sizes, from the params ``init_transformer``
+    draws."""
+    import torch
+    from repro_torch import tree
+    from repro_torch.models import transformer
+    params = transformer.init_transformer(
+        torch.Generator(device=DEVICE).manual_seed(0), _pod_cfgs()[0])
+    return [int(p.numel()) for p in tree.leaves(params)]
+
+
+def _pod_int8_bytes():
+    """The reference formula of the int8 uplink a step: C x (N codes + 4
+    bytes x NQ scales), NQ = sum over leaves of ceil(n_l / 128), as the
+    float32 metric holds it."""
+    import numpy as np
+    sizes = _pod_sizes()
+    return float(np.float32(POD_C * (sum(sizes) + 4 * sum(
+        -(-n // QBLK) for n in sizes))))
+
+
+def _pod_step_timing(smi):
+    """The pod step's wall under both drivers (``profile_round.measure``:
+    the median of 10 steady steps, one host read each; scan: a chunk of 10
+    replayed), one traced step's device busy time, idle share and launches
+    from the host, and trained tokens/s."""
+    import torch
+    from repro_torch.core import pod
+    from repro_torch.launch import profile_round as pr
+    from repro_torch.launch import train
+    from repro_torch.launch.mesh import make_host_mesh
+    cfg, fed, tc = _pod_cfgs()
+    dev = torch.device(DEVICE)
+    mesh = make_host_mesh()
+    step = pod.make_train_step(cfg, fed, tc, robust="per_client",
+                               agg_mesh=mesh)
+    sample = train.synthetic_lm_batches(cfg, tc, POD_C, 0, dev)
+    out = {}
+    for drv in ("python", "scan"):
+        m = pr.measure(lambda st, xs: step(st, xs[1]),
+                       _pod_state(cfg, fed, tc, dev, mesh), sample,
+                       driver=drv, device=dev)
+        wall = m["chunk_round_ms"] if drv == "scan" else m["median_ms"]
+        out[drv] = {"step_ms": m["median_ms"], "chunk_step_ms":
+                    m.get("chunk_round_ms"), "busy_ms": m["busy_ms"],
+                    "traced_ms": m["traced_ms"], "idle": m["idle"],
+                    "host_launches": m["host_launches"],
+                    "tokens_per_s": POD_GB * POD_SEQ / wall * 1e3}
+        print(f"[timing] pod step driver={drv}: {m['median_ms']:.2f} ms "
+              f"median of {len(m['walls'])} (one host read each)"
+              + (f", {m['chunk_round_ms']:.2f} ms a step over a replayed "
+                 f"chunk of {pr.ROUNDS}" if drv == "scan" else "")
+              + f"; traced step busy {m['busy_ms']:.2f} of "
+              f"{m['traced_ms']:.2f} ms (idle {m['idle']:.3f}), "
+              f"{m['host_launches']} launches from the host; "
+              f"{out[drv]['tokens_per_s']:.0f} tokens/s | {smi}")
+    return out
+
+
+def _pod_child():
+    """``python3 chip_smoke.py --pod``: phase 9 alone, in a process whose
+    cuBLAS workspace it fixes (CUBLAS_WORKSPACE_CONFIG, which must be set
+    before cuBLAS starts: the earlier phases' process has long started
+    it), so that deterministic algorithms can be switched on for the
+    bitwise checks.  Prints its lines and then one JSON line ``{"pod":
+    ...}`` for the parent."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.kernels import _build
+    from repro_torch.launch import mesh as mesh_mod
+    import os
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    t0 = time.perf_counter()
+    smi = _smi()
+    _build.load()
+    mesh_mod.start_group(DEVICE)
+    out = {}
+    try:
+        out["launches"] = _pod_entry_point(out)
+        torch.use_deterministic_algorithms(True)
+        try:
+            _pod_determinism(out)
+        finally:
+            torch.use_deterministic_algorithms(False)
+        _pod_cpu_step(out)
+        out["kernels"] = _pod_kernels()
+        out["step"] = _pod_step_timing(smi)
+    finally:
+        dist.destroy_process_group()
+    out["seconds"] = time.perf_counter() - t0
+    print(f"[pod] phase 9 took {out['seconds']:.1f} s, peak "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
+    print(json.dumps({"pod": out}))
+    return 0
+
+
+def _pod(smi):
+    """Phase 9: the pod trainer in a child process (``_pod_child``);
+    returns its result dict."""
+    proc = subprocess.run([sys.executable, str(Path(__file__).resolve()),
+                           "--pod"], capture_output=True, text=True,
+                          timeout=POD_TIMEOUT)
+    lines = proc.stdout.splitlines()
+    print("\n".join(l for l in lines if not l.startswith('{"pod"')))
+    if proc.returncode != 0:
+        sys.stderr.write(proc.stderr[-20000:])
+        raise RuntimeError(f"phase 9 failed (exit {proc.returncode})")
+    return json.loads(next(l for l in reversed(lines)
+                           if l.startswith('{"pod"')))["pod"]
+
+
 def main(argv=()):
     _import_port()
     import torch
@@ -2929,6 +3458,8 @@ def main(argv=()):
     from repro_torch.data.pipeline import build_federation
     from repro_torch.models.model import build
 
+    if "--pod" in argv:             # phase 9 alone, as _pod runs it
+        return _pod_child()
     smi = _card()
     model = build(CNN_CONFIG)
     cnn_sizes = [p.numel() for p in tree.leaves(model.init(torch.Generator()))]
@@ -2965,8 +3496,15 @@ def main(argv=()):
     box = []
     counts.update(_serving(smi, box))
     counts["flash_attention_fwd"] = _forward(box, smi)
+    del box
+    pod = _pod(smi)
+    for name, n in pod["launches"].items():
+        counts[name] += n
     for entry in report:
         entry["launches"] = counts[entry["name"]]
+        if entry["name"] in pod["kernels"]:
+            entry["pod"] = {**pod["kernels"][entry["name"]],
+                            "launches": pod["launches"].get(entry["name"], 0)}
     print(smi)
     print(json.dumps({"kernels": report}))
     print(json.dumps({"ok": True, "device": {

@@ -104,6 +104,15 @@ class WireLayout:
         self.n_scales = self.scale_offsets[-1]
         self._cache = {}
 
+    def part(self, sizes):
+        """The layout of leaves ``sizes`` with this quant block (a rank's
+        shard of a record), kept here, so that its index tensors are built
+        once, by an eager step, and found by a captured one."""
+        key = ("part", tuple(int(n) for n in sizes))
+        if key not in self._cache:
+            self._cache[key] = WireLayout(sizes, self.qblk)
+        return self._cache[key]
+
     def padded_len(self, align):
         return sum(_cdiv(n, align) * align for n in self.sizes)
 

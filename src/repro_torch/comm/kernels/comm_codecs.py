@@ -224,3 +224,64 @@ def fused_dequant_aggregate_tree(enc, layout, weights, mask, cfg, *, like):
         cosine_thresh=cfg.cosine_outlier_thresh, krum_f=cfg.krum_f)[0]
     return tree.map(lambda o, l: o.to(l.dtype), tree.row_views(out, like),
                     like)
+
+
+def fused_dequant_pipeline_sharded(parts, weights, mask, *, counted, reduce,
+                                   aggregator="trimmed_mean", trim_frac=0.2,
+                                   cosine_thresh=-0.5, krum_f=1):
+    """``robust_pipeline.eq11_sharded`` through K6a-c over (q (G, C, n_p),
+    s (G, C, nq_p), layout_p) parts: each rank streams only its code and
+    scale columns, and only the (G, 2C + 1) partials and Krum's Gram cross
+    the ranks."""
+    return rp.eq11_sharded(
+        parts, counted, reduce, weights, mask,
+        pass1=lambda p, m: dequant_gate_partials(*p, m),
+        combine=lambda p, m, w, mode, tf: dequant_gated_combine(
+            *p, m, w, mode=mode, trim_frac=tf),
+        gram=lambda p, m: dequant_pairwise_gram(*p, m),
+        aggregator=aggregator, trim_frac=trim_frac,
+        cosine_thresh=cosine_thresh, krum_f=krum_f)
+
+
+def fused_dequant_aggregate_sharded(enc, layout, weights, mask, cfg, mesh, *,
+                                    like, axes=None):
+    """Mesh-sharded fused-dequant aggregation: the port of
+    ``repro/comm/kernels/comm_codecs.py:fused_dequant_aggregate_sharded``.
+
+    ``enc`` is the int8 record of this rank's clients (``codecs.QuantLeaf``
+    of (C/W, N) codes and (C/W, NQ) scales over ``layout``), ``like`` the
+    params tree.  A leaf splits over the ``axes`` ranks where its size
+    divides their count times the quant block (``align=qblk``), so each
+    rank's code shard carries exactly its own scale columns: one
+    all_to_all each moves the codes and the scales into (C, n/W) column
+    shards (wire bytes, not fp32), every rank dequantizes and streams only
+    its shard through K6a and K6b (K6c), only the partials and Krum's Gram
+    cross ranks, and the (N,) result is all-gathered.  Leaves that do not
+    split stay whole and count once, on the first rank."""
+    from repro_torch.core.aggregation import shard_axes
+    from repro_torch.sharding import collectives, specs
+
+    axes = shard_axes(mesh, axes)
+    qblk = layout.qblk
+    _, flags = specs.client_flat_specs(layout.sizes, mesh, axes, align=qblk)
+    cols = collectives.ColumnShards(layout.sizes, flags, mesh)
+    scols = collectives.ColumnShards(
+        [-(-n // qblk) for n in layout.sizes], flags, mesh)
+    q_sh, q_rep = cols.to_columns(enc.q, mesh)
+    s_sh, s_rep = scols.to_columns(enc.s, mesh)
+    own = mesh.index(axes) == 0
+    parts = [((q[None], s[None], layout.part(n)), c)
+             for q, s, n, c in ((q_sh, s_sh, cols.sh_sizes, True),
+                                (q_rep, s_rep, cols.rep_sizes, own)) if n]
+    outs = fused_dequant_pipeline_sharded(
+        [p for p, _ in parts], weights[None], mask[None],
+        counted=[c for _, c in parts],
+        reduce=lambda t: collectives.all_reduce_sum(t, mesh),
+        aggregator=cfg.aggregator, trim_frac=cfg.trim_frac,
+        cosine_thresh=cfg.cosine_outlier_thresh, krum_f=cfg.krum_f)
+    outs = [o[0] for o in outs]
+    empty = q_sh.new_empty(0, dtype=torch.float32)
+    out_sh = outs.pop(0) if cols.sh_sizes else empty
+    out = cols.gather(out_sh, outs[0] if outs else empty, mesh)
+    return tree.map(lambda o, l: o.to(l.dtype), tree.row_views(out, like),
+                    like)

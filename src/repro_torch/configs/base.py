@@ -8,7 +8,9 @@ out, as the port has no activation rematerialisation).  ``FedConfig``
 keeps every field of the JAX one, with the same defaults, so a config
 written for one package reads the same in the other; the options this
 slice does not run raise ``NotImplementedError`` in
-``core.fedfits.make_round``.
+``core.fedfits.make_round``.  ``TrainConfig``, ``MeshConfig`` and the
+input shapes are the pod trainer's (``core/pod.py``, ``launch/train.py``);
+the JAX file's TPU roofline constants have no place here.
 """
 from __future__ import annotations
 
@@ -143,3 +145,58 @@ class FedConfig:
             raise ValueError(
                 f"compress={self.compress!r} is not supported by the "
                 f"buffered-async engine (population={self.population})")
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    """The pod trainer's optimisation settings (the JAX package's
+    defaults)."""
+    global_batch: int = 256
+    seq_len: int = 4096
+    lr: float = 3.0e-4
+    warmup_steps: int = 100
+    total_steps: int = 1000
+    weight_decay: float = 0.1
+    grad_clip: float = 1.0
+    optimizer: str = "adamw"          # sgd|adam|adamw
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1.0e-8
+    seed: int = 0
+    microbatch: int = 0               # 0 = no accumulation
+    eval_batch: int = 0               # per-client fitness-eval examples (0 -> gb//C)
+
+
+@dataclass(frozen=True)
+class MeshConfig:
+    data: int = 16
+    model: int = 16
+    pods: int = 1                     # >1 adds leading "pod" axis
+
+    @property
+    def axis_names(self):
+        return ("pod", "data", "model") if self.pods > 1 else ("data", "model")
+
+    @property
+    def shape(self):
+        return (
+            (self.pods, self.data, self.model)
+            if self.pods > 1
+            else (self.data, self.model)
+        )
+
+
+@dataclass(frozen=True)
+class InputShape:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                         # train | prefill | decode
+
+
+INPUT_SHAPES = {
+    "train_4k": InputShape("train_4k", 4_096, 256, "train"),
+    "prefill_32k": InputShape("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": InputShape("decode_32k", 32_768, 128, "decode"),
+    "long_500k": InputShape("long_500k", 524_288, 1, "decode"),
+}

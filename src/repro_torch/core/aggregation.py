@@ -253,6 +253,67 @@ def aggregate(updates, weights, mask, cfg):
     return aggregate_ref(updates, weights, mask, cfg)
 
 
+def shard_axes(mesh, axes):
+    """The mesh axes the aggregation shards over (default: every axis but
+    "pod"); they must span the mesh's group, whose collectives the
+    aggregation calls."""
+    from repro_torch.sharding import specs
+    if axes is None:
+        axes = tuple(a for a in mesh.axis_names if a != "pod")
+    axes = tuple(axes)
+    if specs._axis_size(mesh, axes) != mesh.size:
+        raise NotImplementedError(
+            f"axes {axes} do not span the mesh {mesh.shape}: a sub-group "
+            "of the ranks is ROADMAP queue 1 item g'")
+    return axes
+
+
+def aggregate_sharded(updates, weights, mask, cfg, mesh, axes=None, *,
+                      like=None):
+    """Mesh-sharded Eq.-11 aggregation: the port of
+    ``repro/core/aggregation.py:aggregate_sharded``.
+
+    ``updates`` holds the rows of this rank's clients, C/W of the mesh's
+    C (rank r has clients r C/W to (r + 1) C/W - 1): a tree of (C/W, ...)
+    leaves, or with ``like`` (the params tree) one (C/W, N) buffer whose
+    columns are ``like``'s leaves in order (the pod step's grads, streamed
+    in place).  ``weights`` and ``mask`` are the whole (C,) columns.  Each
+    leaf's flattened axis shards over the ``axes`` ranks where its size
+    divides their count (``specs.client_flat_specs``): one all_to_all
+    turns the rows into (C, n/W) column shards, every rank streams only
+    its shard through K1 and K2 (K3), only the (C,) cosine partials and
+    Krum's (C, C) Gram cross ranks (one all-reduce each), and the (N,)
+    result is all-gathered.  Leaves that do not split stay whole on every
+    rank and count once, on the first.  Returns the aggregate, shaped like
+    ``like`` (default: ``updates`` without its client axis), each leaf in
+    its dtype.  Equal to ``aggregate`` up to the order of the cross-rank
+    sums; at W = 1, with every leaf split, bitwise."""
+    from repro_torch.kernels import robust_pipeline as rp
+    from repro_torch.sharding import collectives, specs
+
+    axes = shard_axes(mesh, axes)
+    if like is None:
+        like = tree.map(lambda l: l[0], updates)
+        updates = tree.flatten_rows(updates)
+    sizes = [l.numel() for l in tree.leaves(like)]
+    _, flags = specs.client_flat_specs(sizes, mesh, axes)
+    cols = collectives.ColumnShards(sizes, flags, mesh)
+    sh, rep = cols.to_columns(updates.float(), mesh)
+    own = mesh.index(axes) == 0
+    parts = [(x[None], c) for x, c in ((sh, True), (rep, own))
+             if x.shape[1]]
+    outs = rp.fused_pipeline_sharded(
+        [x for x, _ in parts], weights[None], mask[None],
+        counted=[c for _, c in parts],
+        reduce=lambda t: collectives.all_reduce_sum(t, mesh),
+        **rp._pipeline_args(cfg))
+    outs = [o[0] for o in outs]
+    out_sh = outs.pop(0) if sh.shape[1] else sh.new_empty(0)
+    out = cols.gather(out_sh, outs[0] if outs else sh.new_empty(0), mesh)
+    return tree.map(lambda o, l: o.to(l.dtype), tree.row_views(out, like),
+                    like)
+
+
 def two_stage_ref(slot_updates, slot_weights, slot_masks, cfg):
     """Reference of the two-stage scheme over trees of (G, C, ...) leaves:
     ``aggregate_ref`` per cohort, then the cross-slot mean weighted by each

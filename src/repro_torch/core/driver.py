@@ -40,8 +40,10 @@ chunk and the rounds' attributed phase spans inside the chunk's window.
 It adds no host read and no launch: the counter column is one more part of
 the static state, its values more columns of the history row.
 
-Not in this slice: ``batch_sharding`` (ROADMAP queue 1 item g; one card,
-no mesh).
+``batch_sharding`` (a tree of ``sharding.specs.NamedSharding`` matching one
+batch, e.g. ``launch.inputs.batch_shardings``) makes the staging cut each
+rank's rows out of every batch before they go to the device, so a rank of
+a mesh holds only its clients' rows (the pod path, ``core/pod.py``).
 """
 from __future__ import annotations
 
@@ -54,22 +56,28 @@ from repro_torch import tree
 from repro_torch.kernels import launches
 
 
-def _no_sharding(batch_sharding):
-    if batch_sharding is not None:
-        raise NotImplementedError(
-            "batch_sharding comes with the pod path, ROADMAP queue 1 item g "
-            "(one card, no mesh)")
+def chunk_sharding(batch_sharding):
+    """Lifts a per-batch ``NamedSharding`` tree to the stacked (chunk, ...)
+    layout: the same mesh and spec behind a leading whole chunk dim."""
+    from repro_torch.sharding.specs import NamedSharding, P, map_shardings
+    return map_shardings(lambda s: NamedSharding(s.mesh, P(None, *s.spec)),
+                         batch_sharding)
 
 
 def stage_chunk(batch_fn, ts, batch_sharding=None, *, device=None):
     """Builds the batches of steps ``ts`` (``batch_fn(t)``, once each, in
     order) and stacks them: returns ``(ts (n,) int32, {key: (n, ...)})``
-    on ``device`` (default: the batches' own).  On a CUDA device the step
-    indices go up from pinned memory without a synchronize."""
-    _no_sharding(batch_sharding)
+    on ``device`` (default: the batches' own).  With ``batch_sharding``
+    (the stacked sharding, ``chunk_sharding``) each leaf is cut to this
+    rank's piece first, so only its rows go to the device.  On a CUDA
+    device the step indices go up from pinned memory without a
+    synchronize."""
     batches = [dict(batch_fn(t)) for t in ts]
     stacked = tree.map(lambda *xs: torch.stack(xs), *batches) \
         if batches and batches[0] else {}
+    if batch_sharding is not None:
+        stacked = tree.map(lambda v, s: s.local(v).contiguous(), stacked,
+                           batch_sharding)
     if device is None:
         ls = tree.leaves(stacked)
         device = ls[0].device if ls else torch.device("cpu")
@@ -276,14 +284,16 @@ class ScanDriver:
     per-round loop does (the async round updates its buffer rows in
     place).  ``generators``: CUDA generators the body draws from beside
     the state's own (an availability draw, say), registered with the
-    graph.  ``captures`` and ``replays`` count the graphs captured and
-    the steps replayed."""
+    graph.  ``batch_sharding``: the per-batch ``NamedSharding`` tree each
+    chunk's batches are cut with (``stage_chunk``).  ``captures`` and
+    ``replays`` count the graphs captured and the steps replayed."""
 
     def __init__(self, body: Callable, *, chunk_steps: int = 8,
                  batch_sharding=None, donate: bool = True,
                  generators=()):
-        _no_sharding(batch_sharding)
         self.body = body
+        self.put_sharding = (chunk_sharding(batch_sharding)
+                             if batch_sharding is not None else None)
         self.chunk_steps = int(chunk_steps)
         self.donate = donate
         self.generators = tuple(generators)
@@ -292,7 +302,7 @@ class ScanDriver:
         self._stager = None
 
     def stage(self, batch_fn, ts, device=None):
-        return stage_chunk(batch_fn, ts, device=device)
+        return stage_chunk(batch_fn, ts, self.put_sharding, device=device)
 
     def run(self, state, batch_fn, n_steps, *, t0: int = 0,
             index_key: str = "step",
@@ -326,7 +336,7 @@ class ScanDriver:
         for ts in self._chunks(t0, n_steps):
             w0, u0 = time.perf_counter(), spans.now()
             spans.begin("stage")
-            ts_dev, stacked = stage_chunk(batch_fn, ts, device=dev)
+            ts_dev, stacked = self.stage(batch_fn, ts, dev)
             spans.end("stage", steps=len(ts))
             spans.begin("compute")
             packed = []
@@ -355,7 +365,7 @@ class ScanDriver:
 
         def stage(ts):
             with torch.cuda.stream(self._stager):
-                ts_dev, stacked = stage_chunk(batch_fn, ts, device=dev)
+                ts_dev, stacked = self.stage(batch_fn, ts, dev)
                 done = torch.cuda.Event()
                 done.record(self._stager)
             return ts, ts_dev, stacked, done

@@ -48,7 +48,12 @@
 // output tile of 16 x 16 (C <= 16) or 32 x 32 each, a 2 x 2 or 4 x 4 register
 // micro-tile a thread fed by float4 reads of double-buffered shared-memory
 // stages, and column chunks sized by robust_pipeline.py:gram_split to fill
-// the card (at least 2 waves of blocks at the main path's shapes).
+// the card (at least 2 waves of blocks at the main path's shapes).  A thread
+// sums each 64 columns from zero and adds that to its running sum, so no
+// fp32 chain is longer than 64 or its chunk over 64: one chain over a whole
+// chunk (121,600 columns at 6.4e7 on 132 SMs) drifts with its growing
+// partial sum, 2.2e-5 of the largest Gram entry, where the plain version's
+// 8,192-column steps stay near 2e-6.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -538,6 +543,13 @@ struct GramTile {
   static constexpr int kLD = kTK + 4;                // stage row stride
   static constexpr int kRowsPerPass = kGramThreads / kTK;
   static constexpr int kLoads = 2 * TS / kRowsPerPass;  // a thread a stage
+  // stages a partial sum covers before it joins the running sum: 64
+  // columns for either source, so K6c adds in K3's order
+  static constexpr int kSubStages = 64 / kTK;
+  // the running sums: registers in a 16 x 16 tile, shared memory in a
+  // 32 x 32 one, where a second 4 x 4 set of registers took ptxas from 168
+  // to 190 and the C = 96 Gram from 0.062 to 0.088 ms on an H100
+  static constexpr bool kSharedRun = TS == 32;
 };
 
 __device__ __forceinline__ void cp_async4(float* dst, const float* src,
@@ -634,12 +646,21 @@ gram_partials(Src src, float* __restrict__ part, int C, int N, int chunk,
                              diag ? TS : 2 * TS, c1};
   stager.init();
   const int ty = t / 8, tx = t % 8;
-  float acc[MT][MT];
+  float acc[MT][MT];  // the running sums (kSharedRun: in run, this thread's)
+  __shared__ float run[T::kSharedRun ? MT * MT : 1][kGramThreads];
 #pragma unroll
   for (int a = 0; a < MT; ++a)
 #pragma unroll
-    for (int b = 0; b < MT; ++b) acc[a][b] = 0.f;
-  int cur = 0;
+    for (int b = 0; b < MT; ++b) {
+      acc[a][b] = 0.f;
+      if constexpr (T::kSharedRun) run[a * MT + b][t] = 0.f;
+    }
+  float sub[MT][MT];  // the current kSubStages stages' columns
+#pragma unroll
+  for (int a = 0; a < MT; ++a)
+#pragma unroll
+    for (int b = 0; b < MT; ++b) sub[a][b] = 0.f;
+  int cur = 0, nsub = 0;
   stager.fetch(c0, stage[0]);
   stager.land(stage[0]);
   __syncthreads();
@@ -660,13 +681,26 @@ gram_partials(Src src, float* __restrict__ part, int C, int N, int chunk,
       for (int ii = 0; ii < MT; ++ii)
 #pragma unroll
         for (int jj = 0; jj < MT; ++jj) {
-          float v = acc[ii][jj];
+          float v = sub[ii][jj];
           v = fmaf(a[ii].x, b[jj].x, v);
           v = fmaf(a[ii].y, b[jj].y, v);
           v = fmaf(a[ii].z, b[jj].z, v);
           v = fmaf(a[ii].w, b[jj].w, v);
-          acc[ii][jj] = v;
+          sub[ii][jj] = v;
         }
+    }
+    if (++nsub == T::kSubStages || !more) {
+#pragma unroll
+      for (int ii = 0; ii < MT; ++ii)
+#pragma unroll
+        for (int jj = 0; jj < MT; ++jj) {
+          if constexpr (T::kSharedRun)
+            run[ii * MT + jj][t] += sub[ii][jj];
+          else
+            acc[ii][jj] += sub[ii][jj];
+          sub[ii][jj] = 0.f;
+        }
+      nsub = 0;
     }
     if (more) stager.land(stage[cur ^ 1]);
     __syncthreads();
@@ -678,6 +712,7 @@ gram_partials(Src src, float* __restrict__ part, int C, int N, int chunk,
 #pragma unroll
     for (int jj = 0; jj < MT; ++jj) {
       const int i = ty + 8 * ii, j = tx + 8 * jj;
+      if constexpr (T::kSharedRun) acc[ii][jj] = run[ii * MT + jj][t];
       if (i < ni && j < nj) {
         pg[(size_t)(i0 + i) * C + j0 + j] = acc[ii][jj];
         if (!diag) pg[(size_t)(j0 + j) * C + i0 + i] = acc[ii][jj];

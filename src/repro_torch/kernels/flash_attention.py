@@ -16,8 +16,8 @@ ragged last tile is masked) and any head dim up to 256 are taken.
 
 Forward only, as the reference's Pallas path: under grad, with an input
 that requires grad, both devices raise rather than return an output that
-drops the attention's gradient (a backward kernel comes with ROADMAP
-queue 1 item g).
+drops the attention's gradient (a backward kernel is ROADMAP queue 1
+item g'; the pod path trains with the plain attention).
 
 Dispatch: a CUDA tensor launches the kernel or the wrapper raises; a CPU
 tensor runs ``flash_attention_fwd_plain``.  ``flash_attention_fwd.launches``
@@ -125,7 +125,7 @@ def flash_attention_fwd(q, k, v, *, causal=True, window=0):
         raise RuntimeError(
             "flash_attention_fwd (K9) is forward only: it has no backward "
             "kernel, so its output would drop the gradient of q, k and v; "
-            "the backward comes with ROADMAP queue 1 item g.  Call it "
+            "the backward is ROADMAP queue 1 item g'.  Call it "
             "under torch.no_grad() or on inputs that do not require grad.")
     if q.device.type == "cpu":
         return flash_attention_fwd_plain(q, k, v, causal=causal,

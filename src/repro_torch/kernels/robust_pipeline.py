@@ -484,6 +484,57 @@ def eq11(partials, combine, gram, weights, mask, *, aggregator, trim_frac,
     raise ValueError(aggregator)
 
 
+def eq11_sharded(parts, counted, reduce, weights, mask, *, pass1, combine,
+                 gram, aggregator, trim_frac, cosine_thresh, krum_f):
+    """The Eq.-11 pipeline over one rank's column parts of a matrix whose
+    columns are spread over the ranks of a mesh: the distribution hook of
+    the JAX package's ``fused_pipeline_leafwise(axis_name=, leaf_scale=)``.
+
+    ``parts``: the rank's (G, C, n_p) inputs of ``pass1(part, mask)``,
+    ``combine(part, mask, weights, mode, trim_frac)`` and ``gram(part, mask)``
+    (one kernel family).  Pass 1's (G, 2C + 1) partials, summed over the
+    parts whose ``counted`` flag is set, are summed over the ranks by
+    ``reduce`` (an in-place all-reduce) between pass 1 and the gate, and
+    so is Krum's Gram matrix: a part held whole by every rank is counted on
+    one of them only (JAX's 0/1 ``leaf_scale``).  The kernels themselves do
+    not change.  Returns the (G, n_p) output of every part."""
+    G, C = mask.shape
+
+    def summed(fn, width, m):
+        acc = None
+        for part, c in zip(parts, counted):
+            if c:
+                v = fn(part, m)
+                acc = v if acc is None else acc + v
+        if acc is None:
+            acc = torch.zeros(G, *width, device=mask.device)
+        return reduce(acc)
+
+    def partials(m):
+        acc = summed(lambda p, mm: torch.cat(pass1(p, mm), 1), (2 * C + 1,), m)
+        return acc[:, :C], acc[:, C:2 * C], acc[:, 2 * C:]
+
+    return eq11(
+        partials,
+        lambda m, w, mode, tf: [combine(p, m, w, mode, tf) for p in parts],
+        lambda m: summed(gram, (C, C), m),
+        weights, mask, aggregator=aggregator, trim_frac=trim_frac,
+        cosine_thresh=cosine_thresh, krum_f=krum_f)
+
+
+def fused_pipeline_sharded(parts, weights, mask, *, counted, reduce,
+                           aggregator="trimmed_mean", trim_frac=0.2,
+                           cosine_thresh=-0.5, krum_f=1):
+    """``eq11_sharded`` through K1-K3 over fp32 (G, C, n_p) parts."""
+    return eq11_sharded(
+        parts, counted, reduce, weights, mask,
+        pass1=lambda x, m: _pass1(x, m, cosine_gate_partials),
+        combine=lambda x, m, w, mode, tf: _combine(x, m, w, mode, tf,
+                                                   gated_combine),
+        gram=lambda x, m: _gram(x, pairwise_gram), aggregator=aggregator,
+        trim_frac=trim_frac, cosine_thresh=cosine_thresh, krum_f=krum_f)
+
+
 def fused_pipeline(x, weights, mask, *, aggregator="trimmed_mean",
                    trim_frac=0.2, cosine_thresh=-0.5, krum_f=1, flat=False):
     """Full Eq.-11 pipeline over a cohort batch x (G, C, N) with weights

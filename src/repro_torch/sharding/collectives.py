@@ -1,0 +1,101 @@
+"""The collectives of the sharded robust aggregation, over a mesh's process
+group (``launch/mesh.py``): the counterparts of what GSPMD inserts around
+the JAX package's ``shard_map`` (``aggregation.aggregate_sharded``).
+
+A rank holds the rows of its own clients, (C/W, N) with the columns in leaf
+order.  ``ColumnShards.to_columns`` turns them into the (C, n/W) column
+shards of every split leaf by one ``all_to_all`` (the reshard that JAX's
+``with_sharding_constraint`` folds into the producer) and gathers the rows
+of the leaves that stay whole; ``ColumnShards.gather`` all-gathers the
+aggregated shards back into the (N,) row.  At W = 1 the all_to_all is the
+identity and is not called (the rows are already the columns); every other
+collective goes through ``torch.distributed`` at every world size, so a
+world-size-1 run takes the same path as a wider one.  Every call is safe
+to record as a CUDA graph: the buffers come from ``torch.empty`` and the
+collectives are NCCL's (``launch/mesh.py`` starts the group).
+"""
+from __future__ import annotations
+
+import torch
+import torch.distributed as dist
+
+
+def all_reduce_sum(t, mesh):
+    """Sums ``t`` over the mesh's ranks, in place; returns it."""
+    dist.all_reduce(t, group=mesh.group)
+    return t
+
+
+def all_gather_rows(x, mesh):
+    """Every rank's (r, ...) ``x``, rank-major: (W * r, ...)."""
+    parts = [torch.empty_like(x) for _ in range(mesh.size)]
+    dist.all_gather(parts, x.contiguous(), group=mesh.group)
+    return torch.cat(parts)
+
+
+class ColumnShards:
+    """The split of a matrix whose columns are leaves of ``sizes``: leaf l
+    with ``flags[l]`` (``specs.client_flat_specs``) splits into W equal
+    column blocks, rank p's the p-th; the others stay whole on every rank.
+    ``sh_sizes`` and ``rep_sizes`` are a rank's leaf widths in its shard
+    matrix and in the matrix of whole leaves."""
+
+    def __init__(self, sizes, flags, mesh):
+        self.w = mesh.size
+        self.sizes, self.flags = tuple(sizes), tuple(flags)
+        self.offsets = [0]
+        for n in self.sizes:
+            self.offsets.append(self.offsets[-1] + n)
+        self.sh_sizes = [n // self.w for n, f in zip(self.sizes, self.flags)
+                         if f]
+        self.rep_sizes = [n for n, f in zip(self.sizes, self.flags) if not f]
+        self.whole = all(self.flags)
+
+    def _cols(self, x, sharded, p=0):
+        """The columns of ``x`` (rows, N) that go to the shard matrix of rank
+        ``p`` (``sharded``) or to the matrix of whole leaves, in leaf order."""
+        out = []
+        for n, f, a in zip(self.sizes, self.flags, self.offsets):
+            if f and sharded:
+                b = n // self.w
+                out.append(x[:, a + p * b:a + (p + 1) * b])
+            elif not f and not sharded:
+                out.append(x[:, a:a + n])
+        return out
+
+    def to_columns(self, x, mesh):
+        """This rank's clients' rows ``x`` (C/W, N) -> ``(sh, rep)``: the
+        (C, sum sh_sizes) shard matrix and the (C, sum rep_sizes) whole
+        leaves, both contiguous, rows in client order."""
+        r = x.shape[0]
+        if self.w == 1 and self.whole:
+            return x.contiguous(), x[:, :0]
+        send = torch.stack([torch.cat(self._cols(x, True, p), 1)
+                            if self.sh_sizes else x[:, :0]
+                            for p in range(self.w)])      # (W, r, n_sh)
+        if self.w == 1:
+            sh = send
+        else:
+            sh = torch.empty_like(send)
+            dist.all_to_all_single(sh, send, group=mesh.group)
+        sh = sh.reshape(self.w * r, -1)
+        rep = (all_gather_rows(torch.cat(self._cols(x, False), 1), mesh)
+               if self.rep_sizes else x.new_empty(self.w * r, 0))
+        return sh, rep
+
+    def gather(self, out_sh, out_rep, mesh):
+        """The (N,) row from this rank's aggregated shard ``out_sh`` (sum
+        sh_sizes,) and the whole leaves ``out_rep`` (sum rep_sizes,)."""
+        shards = all_gather_rows(out_sh[None], mesh)        # (W, n_sh)
+        if self.w == 1 and self.whole:
+            return shards[0]
+        out, s, q = [], 0, 0
+        for n, f in zip(self.sizes, self.flags):
+            if f:
+                b = n // self.w
+                out.append(shards[:, s:s + b].reshape(-1))
+                s += b
+            else:
+                out.append(out_rep[q:q + n])
+                q += n
+        return torch.cat(out)

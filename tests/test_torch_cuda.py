@@ -1054,3 +1054,120 @@ def test_telemetry_on_off_bitwise_on_card(deterministic_cudnn, tmp_path):
             rows = [float(r["obs/" + name]) for r in h_on]
             want = sum(rows) if name.startswith("wire") else rows[-1]
             assert float(st_on.tele[name]) == want, (engine, name)
+
+
+# ------------------------------------------------------------ the pod path --
+POD_SMALL = dict(n_layers=2, d_model=64, n_heads=4, n_kv_heads=2, d_ff=128,
+                 vocab_size=128, head_dim=16)
+
+
+def _pod_leaves():
+    """The leaf sizes of tiny-lm at the small config (its 12 leaves)."""
+    cfg = get_config("tiny-lm").replace(**POD_SMALL)
+    from repro_torch.models import transformer
+    params = transformer.init_transformer(torch.Generator(), cfg)
+    return [p.numel() for p in tree.leaves(params)]
+
+
+def test_pod_kernels_match_plain(card):
+    """K1-K3 and K6a-c at the pod path's shape, C = 4 clients over the
+    small tiny-lm's leaves, against their plain versions."""
+    sizes = _pod_leaves()
+    n = sum(sizes)
+    rng = np.random.default_rng(3)
+    x = torch.from_numpy(rng.standard_normal((1, 4, n), np.float32)
+                         * 1e-2).to(card)
+    m = torch.ones(1, 4, device=card)
+    w = torch.full((1, 4), 0.25, device=card)
+    for o, r in zip(rp.cosine_gate_partials(x, m),
+                    rp.cosine_gate_partials_plain(x, m)):
+        _close_rel(o, r)
+    for mode in rp.MODES:
+        out = rp.gated_combine(x, m, w, mode=mode)
+        ref = rp.gated_combine_plain(x, m, w, mode=mode)
+        if mode == "median":
+            assert torch.equal(out, ref)
+        else:
+            torch.testing.assert_close(out, ref, rtol=1e-5, atol=1e-6)
+    _close_rel(rp.pairwise_gram(x), rp.pairwise_gram_plain(x))
+    layout = codecs.WireLayout(sizes, 128)
+    enc = codecs.Codec("int8").encode_flat(x[0], layout)
+    q, s = enc.q[None], enc.s[None]
+    for o, r in zip(dq.dequant_gate_partials(q, s, layout, m),
+                    dq.dequant_gate_partials_plain(q, s, layout, m)):
+        _close_rel(o, r)
+    torch.testing.assert_close(
+        dq.dequant_gated_combine(q, s, layout, m, w, mode="mean"),
+        dq.dequant_gated_combine_plain(q, s, layout, m, w, mode="mean"),
+        rtol=1e-5, atol=1e-6)
+    _close_rel(dq.dequant_pairwise_gram(q, s, layout, m),
+               dq.dequant_pairwise_gram_plain(q, s, layout, m))
+
+
+def test_gram_long_chunks_hold_against_fp64(card):
+    """K3 and K6c at 2^26 columns, C = 4 (chunks of ~1.3e5 columns a block
+    on a 132-SM card, as on the pod path): the diagonal and the
+    off-diagonal entries each within 1e-5 of their own largest fp64
+    value."""
+    n = 1 << 26
+    rng = np.random.default_rng(11)
+    x = torch.from_numpy(rng.standard_normal((1, 4, n), np.float32)
+                         * 1e-2).to(card)
+    m = torch.ones(1, 4, device=card)
+    layout = codecs.WireLayout([n], 128)
+    enc = codecs.Codec("int8").encode_flat(x[0], layout)
+    q, s = enc.q[None], enc.s[None]
+    eye = torch.eye(4, dtype=torch.bool, device=card)
+    for out, xs in ((rp.pairwise_gram(x), x),
+                    (dq.dequant_pairwise_gram(q, s, layout, m),
+                     dq.dequant_masked(q, s, layout, m))):
+        exact = torch.bmm(xs.double(), xs.double().transpose(1, 2))
+        for sel in (eye, ~eye):
+            e = exact[:, sel]
+            err = float((out.double()[:, sel] - e).abs().max())
+            assert err <= 1e-5 * float(e.abs().max())
+
+
+@pytest.mark.parametrize("fed_kw", [
+    dict(aggregator="fedavg"), dict(aggregator="trimmed_mean"),
+    dict(aggregator="krum"), dict(aggregator="fedavg", compress="int8")],
+    ids=["fedavg", "trimmed_mean", "krum", "int8"])
+def test_pod_step_on_card_matches_cpu(card, fed_kw):
+    """Two per-client pod steps on the card (the kernels) and on the CPU
+    port (their plain versions) from the same init and batches, SGD:
+    the same team, params within 1e-5; each kernel of the path launched
+    once a step."""
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.core import pod
+    from repro_torch.models import transformer
+    from repro_torch.optim import optimizers
+    cfg = get_config("tiny-lm").replace(**POD_SMALL)
+    fed = FedConfig(n_clients=4, **fed_kw)
+    tc = TrainConfig(global_batch=8, seq_len=32, lr=1e-2, warmup_steps=1,
+                     total_steps=4, optimizer="sgd")
+    opt_init, _ = optimizers.make_optimizer(tc)
+    params = transformer.init_transformer(torch.Generator().manual_seed(0),
+                                          cfg)
+    s_cpu = pod.init_pod_state(params, opt_init, 4, fed, torch.Generator())
+    to = lambda v: v.to(card) if isinstance(v, torch.Tensor) else v
+    s_gpu = tree.map(to, s_cpu)
+    s_gpu = s_gpu._replace(fed=s_gpu.fed._replace(
+        rng=torch.Generator(card)))
+    step = pod.make_train_step(cfg, fed, tc, robust="per_client")
+    rng = np.random.default_rng(5)
+    rp.reset_launch_counts()
+    dq.reset_launch_counts()
+    for _ in range(2):
+        toks = torch.from_numpy(rng.integers(0, 128, (8, 33)))
+        batch = {"tokens": toks[:, :-1], "targets": toks[:, 1:]}
+        s_gpu, _ = step(s_gpu, tree.map(to, batch))
+        s_cpu, _ = step(s_cpu, batch)
+        assert torch.equal(s_gpu.fed.team.cpu(), s_cpu.fed.team)
+        for a, b in zip(tree.leaves(s_gpu.params), tree.leaves(s_cpu.params)):
+            torch.testing.assert_close(a.cpu(), b, rtol=0, atol=1e-5)
+    counts = {**rp.launch_counts(), **dq.launch_counts()}
+    pass1 = ("dequant_gate_partials" if "compress" in fed_kw
+             else "cosine_gate_partials")
+    assert counts[pass1] == 2
+    if fed_kw["aggregator"] == "krum":
+        assert counts["pairwise_gram"] == 2

@@ -4,6 +4,7 @@ JAX package, the entry points raise without CUDA, and chip_smoke.py
 prints no result and exits non-zero without CUDA or outside the repo."""
 import dataclasses
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -40,7 +41,11 @@ print(len(names), bad, all(m in names for m in (
     "repro_torch.core.driver", "repro_torch.kernels.launches",
     "repro_torch.obs", "repro_torch.obs.counters", "repro_torch.obs.sinks",
     "repro_torch.obs.monitors", "repro_torch.obs.trace",
-    "repro_torch.obs.check")))
+    "repro_torch.obs.check", "repro_torch.core.pod",
+    "repro_torch.optim.optimizers", "repro_torch.checkpoint.checkpoint",
+    "repro_torch.sharding.specs", "repro_torch.sharding.collectives",
+    "repro_torch.launch.mesh", "repro_torch.launch.inputs",
+    "repro_torch.launch.train")))
 """
 
 
@@ -79,6 +84,10 @@ def test_entry_points_raise_without_cuda():
         ServeEngine(cfg, ServeConfig(), build(cfg).init(torch.Generator()))
     with pytest.raises(RuntimeError, match="device='cpu'"):
         launch_serve.main(["--arch", "tiny-lm", "--reduced"])
+    from repro_torch.launch import train as launch_train
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        launch_train.main(["--arch", "tiny-lm", "--reduced", "--steps", "1",
+                           "--robust", "per_client"])
 
 
 def test_unported_options_raise():
@@ -95,13 +104,25 @@ def test_unported_options_raise():
            "eval_x": torch.zeros(8, 2, 22), "eval_y": torch.zeros(8, 2),
            "n": torch.ones(8)}
     body = lambda st, xs: (st, {})
-    # no entry point names item e any more: telemetry is ported
+    # no entry point names item e or item g any more: telemetry and the pod
+    # path are ported (item g' is what the pod path leaves for later)
     src = ROOT / "src" / "repro_torch"
-    assert not [p for p in src.rglob("*.py") if "item e" in p.read_text()]
-    with pytest.raises(NotImplementedError, match="item g"):
-        driver.ScanDriver(body, batch_sharding=object())
-    with pytest.raises(NotImplementedError, match="item g"):
-        driver.stage_chunk(lambda t: {}, [0], batch_sharding=object())
+    assert not [p for p in src.rglob("*.py") if "item e" in p.read_text()
+                or re.search(r"item g\b(?!')", p.read_text())]
+    # the driver stages a rank's rows of each batch: rank 1 of 2 here
+    from repro_torch.launch.mesh import Mesh, make_host_mesh
+    from repro_torch.sharding.specs import NamedSharding, P
+    mesh = Mesh(("data", "model"), (2, 1), None, 1)
+    sh = {"x": NamedSharding(mesh, P(("data",), None))}
+    _, stacked = driver.stage_chunk(
+        lambda t: {"x": torch.arange(8.0).reshape(4, 2) + t}, [0, 1],
+        batch_sharding=driver.chunk_sharding(sh))
+    assert stacked["x"].tolist() == [[[4.0, 5.0], [6.0, 7.0]],
+                                     [[5.0, 6.0], [7.0, 8.0]]]
+    assert driver.ScanDriver(body, batch_sharding=sh).put_sharding == \
+        driver.chunk_sharding(sh)
+    with pytest.raises(NotImplementedError, match="item g'"):
+        make_host_mesh(1, 2)
     with pytest.raises(ValueError, match="dense-uplink"):
         async_engine.make_async_round(
             model, dataclasses.replace(cfg, population=0, compress="int8"),
