@@ -240,6 +240,56 @@ Phases, one line each (a failure raises, so the exit code is not 0):
               under both drivers.  It runs in a child process
               (``python3 chip_smoke.py --pod``, which runs it alone) that
               fixes cuBLAS's workspace before cuBLAS starts.
+  10. blocks  the other block kinds at their published widths, in two child
+              processes (``python3 chip_smoke.py --blocks`` runs both
+              alone; ``--blocks models`` / ``--blocks train`` one): K8 at
+              granite's, dbrx's and musicgen's GQA groups (2, 6, 1), and
+              K9 at each forward's heads and length (hymba's
+              sliding-window band at g = 5, dh 64, window 1,024, S =
+              2,048; dbrx's g = 6 and llama-3.2-vision's g = 8, dh 128, S
+              = 512; musicgen's g = 1, dh 64, S = 1,024) in fp32 and bf16,
+              against their plain versions, timed beside bound and SDPA.
+              granite-moe-1b-a400m at full width and depth (1,385,219,072
+              parameters, bf16) served by ``ServeEngine`` (16 slots, pages
+              of 16, prompts of 128, 24 requests): every request its
+              tokens, K8 once a layer and step, the first decode-step
+              logits within SERVE_LOGIT_REL of the ref engine's, the eager
+              steps the same tokens, 10 replayed decode steps bitwise
+              ``_decode`` at T = 0 and 0.7.  hymba-1.5b at full depth:
+              ``Model.forward`` at S = 2,048 through K9 (32 launches)
+              within FWD_HIDDEN_REL of the plain attention, a 1,100-token
+              prefill into the ring cache (W = 1,024) and the mamba state
+              and 64 decode steps.  xlstm-350m and musicgen-large (frame
+              embeddings in; K9 at g = 1) at full depth the same at S =
+              1,024 with 16 decode steps, musicgen also served paged with
+              a token table in front.  dbrx-132b cut to 2 layers (served
+              too: K8 at g = 6) and llama-3.2-vision-90b to one cycle of 5
+              layers (image embeddings (1, 1,601, 8,192), the
+              cross-attention gate at 0.5): forward, prefill, 4 decode
+              steps.  Every decode run once in fp32, each step within
+              DECODE_FP32_REL of the full forward's logits at that
+              position (xlstm: every layer an mLSTM at the 1,024-token
+              prompt, and the published pattern at a 4-token prompt
+              within XL_SLSTM_REL), and once in bf16 (timed), the first
+              step within SERVE_LOGIT_REL.  Each model at full width and 2
+              layers in fp32 on the card against the CPU port within
+              ROUND1_LOGIT_REL, a swapped input (batch rows, image
+              embeddings, or one expert's weights for dbrx) outside it.
+              Then granite trained by ``launch/train.py`` (C = 4, 16 x 256
+              tokens, AdamW, NCCL at world size 1): 8 fedavg steps (the
+              loss falls), 2 trimmed_mean and 2 krum, K1-K3 once a step;
+              scan bitwise python under deterministic algorithms; the
+              replayed step timed and traced; step 1 at 2 layers against
+              the CPU port (a swapped client outside it); and K1, K2
+              (three modes) and K3 on the (1, 4, 1,385,219,072) grads
+              buffer (rows 2-3 past 2^31 and 2^32 elements): each row's
+              last 4,096 columns against the plain versions, then random
+              on the whole, K2 against its plain version and K1's sums and
+              K3's Gram against fp64 sums, timed beside bound and library.
+              Its launches join the kernels line, each path's read right
+              after the reset that precedes it (``blocks_launches``: {path:
+              n}); K8's and K9's entries carry the new shapes as
+              ``blocks``, K1-K3's the granite buffer as ``granite_pod``.
 The last three lines are the nvidia-smi line, the kernels JSON and the
 result JSON.  ``python3 chip_smoke.py --kernels`` runs phases 1, 2, 2b and
 2c alone and ends with the nvidia-smi line and the kernels JSON (launches
@@ -407,6 +457,16 @@ K8_ATOL, K9_ATOL = 2e-5, 1e-5
 # dropped
 SERVE_LOGIT_REL = 2.0 ** -5
 FWD_HIDDEN_REL = 2.0 ** -4
+# fp32 prefill + decode steps against the full forward at the same
+# position, as a share of the step's largest logit: the same sums in other
+# orders (chunked scans against one-step recurrences, a ring against the
+# band) through up to 48 layers
+DECODE_FP32_REL = 1e-3
+# xlstm-350m's 7:1 pattern in fp32 at a 4-token prompt: its sLSTM at the
+# random init amplifies rounding ~1.2x a step (on the H100 16 decode steps
+# drift 1.8e-4 -> 3.3e-3, and a 1,024-token prompt reads 1.1), so its
+# steps are held at the bf16 bound; a state carried wrong moves them O(1)
+XL_SLSTM_PROMPT, XL_SLSTM_REL = 4, 2.0 ** -5
 # fp32 paths: 2 layers of full-width matmuls (sums over 3,072 and 9,216
 # terms) in other orders
 FWD_FP32_ATOL = 1e-4
@@ -430,6 +490,40 @@ POD_CKPT = (8, 4)               # the resume check: steps, checkpoint at
 # other orders
 POD_CPU_LAYERS, POD_CPU_REL = 2, 1e-4
 POD_TIMEOUT = 900               # seconds for the phase's child process
+
+# phase 10: the other block kinds at their published widths.  granite at
+# full depth, served (GRANITE_REQS requests, generations in GRANITE_GEN) and
+# trained through launch/train.py (C = 4, 16 x 256 tokens a step; the
+# schedule's (aggregator, steps), in chunks of GRANITE_CHUNK; scan vs python
+# over GRANITE_PARITY's (steps, chunk)); K1-K3 on its (1, 4, N) grads
+# buffer, checked on each row's last TAIL_COLS columns.  hymba, xlstm and
+# musicgen at full depth; dbrx cut to DBRX_LAYERS layers and
+# llama-3.2-vision to one cycle of VISION_LAYERS (4 attn + 1 xattn)
+GRANITE = "granite-moe-1b-a400m"
+GRANITE_PARAMS = 1_385_219_072
+GRANITE_REQS, GRANITE_GEN = 24, (16, 128)
+GRANITE_SCHEDULE = (("fedavg", 8), ("trimmed_mean", 2), ("krum", 2))
+GRANITE_CHUNK = 4
+GRANITE_PARITY = (3, 2)
+GRANITE_SHAPE = (1, POD_C, GRANITE_PARAMS)
+TAIL_COLS = 4096
+WHOLE_CHUNK = 1 << 24           # columns a step of the checks on the whole
+HYMBA, XLSTM, MUSICGEN = "hymba-1.5b", "xlstm-350m", "musicgen-large"
+HYMBA_SEQ, HYMBA_PREFILL, HYMBA_DECODE = 2048, 1100, 64
+XL_SEQ, XL_DECODE = 1024, 16
+DBRX, DBRX_LAYERS = "dbrx-132b", 2
+VISION, VISION_LAYERS = "llama-3.2-vision-90b", 5
+CUT_SEQ, CUT_DECODE = 512, 4    # the depth-cut models: forward length,
+                                # decode steps
+# the CPU-port checks: full width, 2 layers, (2, BLK_CPU_SEQ) inputs
+BLK_CPU_LAYERS, BLK_CPU_SEQ = 2, 16
+# K8 at each served model's (Hq, Hkv, dh): GQA groups 2, 6 and 1
+K8_BLOCKS = {GRANITE: (16, 8, 64), DBRX: (48, 8, 128),
+             MUSICGEN: (32, 32, 64)}
+# K9 at each forward's heads: the sequence length it runs at
+K9_BLOCKS = {HYMBA: HYMBA_SEQ, DBRX: CUT_SEQ, VISION: CUT_SEQ,
+             MUSICGEN: XL_SEQ}
+BLOCKS_TIMEOUT = 900            # seconds for the phase's child process
 
 
 def bound(bytes_moved, ops, ops_per_s=FP32_OPS_PER_S):
@@ -3294,7 +3388,7 @@ def _pod_kernels():
                       enumerate(zip(out, ref)))
         elif name in gram_of:
             err = _check(f"[pod] {name} {POD_SHAPE}", out, ref, rel=NSUM_REL)
-            _gram_exact(name, out, ref, gram_of[name]())
+            _gram_exact(f"[pod] {name}", out, ref, _gram64(gram_of[name]()))
         else:
             err = _check(f"[pod] {name} {POD_SHAPE}", out, ref,
                          exact=mode == "median]")
@@ -3315,25 +3409,49 @@ def _pod_kernels():
     return entries
 
 
-def _gram_exact(name, out, ref, x):
-    """A Gram at POD_SHAPE against x's fp64 Gram: its diagonal and its
-    off-diagonal entries each within NSUM_REL of their own largest value
-    (the off-diagonal ones are ~1e4 times smaller at this N, so a cross
-    term summed wrong would hide under the whole matrix's scale)."""
+def _gram64(x, chunk=1 << 26):
+    """The fp64 Gram of a (G, C, N) buffer, summed in column chunks."""
     import torch
-    exact = torch.bmm(x.double(), x.double().transpose(1, 2))
-    eye = torch.eye(exact.shape[-1], dtype=torch.bool, device=exact.device)
-    for part, sel in (("diagonal", eye), ("off-diagonal", ~eye)):
-        e = exact[:, sel]
+    gram = torch.zeros(x.shape[0], x.shape[1], x.shape[1],
+                       dtype=torch.float64, device=x.device)
+    for s in range(0, x.shape[-1], chunk):
+        xc = x[..., s:s + chunk].double()
+        gram += torch.bmm(xc, xc.transpose(1, 2))
+    return gram
+
+
+def _within_own_scale(name, parts, out, exact, ref=None):
+    """``out`` against the fp64 ``exact``: each of ``parts`` ({label:
+    selector}) within NSUM_REL of its own largest value (a Gram's
+    off-diagonal entries are ~1e4 times smaller than its diagonal at these
+    N, so a cross term summed wrong would hide under the whole matrix's
+    scale); the plain version's ``ref`` is printed beside.  Returns the
+    largest error as a share of its part's scale."""
+    worst = 0.0
+    for part, sel in parts.items():
+        e = exact[sel]
         scale = float(e.abs().max())
-        k_err = float((out.double()[:, sel] - e).abs().max())
-        p_err = float((ref.double()[:, sel] - e).abs().max())
+        k_err = float((out.double()[sel] - e).abs().max())
+        plain = ("" if ref is None else ", plain "
+                 f"{float((ref.double()[sel] - e).abs().max()):.3e}")
         if not k_err <= NSUM_REL * scale:
-            raise AssertionError(f"[pod] {name} {part}: {k_err:.3e} from "
-                                 f"the fp64 Gram (largest {scale:.4g})")
-        print(f"[pod] {name} {part} against the fp64 Gram (largest "
-              f"{scale:.4g}): kernel {k_err:.3e}, plain {p_err:.3e} "
-              f"(tol {NSUM_REL * scale:.3e})")
+            raise AssertionError(f"{name} {part}: {k_err:.3e} from the fp64 "
+                                 f"reference (largest {scale:.4g})")
+        print(f"{name} {part} against the fp64 reference (largest "
+              f"{scale:.4g}): kernel {k_err:.3e}{plain} (tol "
+              f"{NSUM_REL * scale:.3e})")
+        worst = max(worst, k_err / scale)
+    return worst
+
+
+def _gram_exact(name, out, ref, exact):
+    """A Gram against the fp64 Gram ``exact``: its diagonal and its
+    off-diagonal entries each within NSUM_REL of their own largest."""
+    import torch
+    eye = torch.eye(exact.shape[-1], dtype=torch.bool, device=exact.device)
+    return _within_own_scale(name, {"diagonal": (slice(None), eye),
+                                    "off-diagonal": (slice(None), ~eye)},
+                             out, exact, ref)
 
 
 def _pod_sizes():
@@ -3447,6 +3565,961 @@ def _pod(smi):
                            if l.startswith('{"pod"')))["pod"]
 
 
+# --------------------------------------------------------------- phase 10 --
+def _gen(seed):
+    import torch
+    return torch.Generator(device=DEVICE).manual_seed(seed)
+
+
+def _blk_reset():
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import paged_decode as pd
+    from repro_torch.kernels import robust_pipeline as rp
+    fa.reset_launch_counts()
+    pd.reset_launch_counts()
+    rp.reset_launch_counts()
+
+
+def _blk_counts():
+    """The launches of K1-K3, K8 and K9 since the last ``_blk_reset``."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import paged_decode as pd
+    from repro_torch.kernels import robust_pipeline as rp
+    return {k: n for k, n in {**rp.launch_counts(), **pd.launch_counts(),
+                              **fa.launch_counts()}.items() if n}
+
+
+def _blk_free():
+    import gc
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _blk_params(cfg, seed=0, cast=True):
+    """Random params of ``cfg`` drawn in fp32 on the card, cast once to the
+    compute dtype (``transformer.cast_params``) unless ``cast`` is False."""
+    from repro_torch.models import transformer
+    from repro_torch.models.model import build
+    p = build(cfg).init(_gen(seed))
+    return transformer.cast_params(p, cfg) if cast else p
+
+
+def _blk_kernels():
+    """K8 at the GQA groups of granite (g = 2), dbrx (6) and musicgen (1),
+    and K9 at the head shapes and lengths of the forwards phase 10 runs:
+    hymba's sliding-window band (g = 5, dh 64, window 1,024), dbrx's (g =
+    6, dh 128), llama-3.2-vision's (g = 8, dh 128) and musicgen's (g = 1,
+    dh 64), in fp32 and bf16: each against its plain version on the card,
+    then timed beside its bound and (K9) SDPA.  Returns {kernel: {arch:
+    entry}}."""
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import paged_decode as pd
+    from repro_torch.kernels.flash_attention_ref import band_mask
+    out = {"paged_flash_decode": {}, "flash_attention_fwd": {}}
+    for arch, (hq, hkv, dh) in K8_BLOCKS.items():
+        cfg = get_config(arch)
+        if (cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim) != (hq, hkv,
+                                                                     dh):
+            raise AssertionError(f"{arch}: heads are not {hq}/{hkv}/{dh}")
+        q, kp, vp, table, lengths = _paged_inputs(
+            hq + dh, SERVE_SLOTS, SERVE_MAXP, SERVE_PAGE, hq, hkv, dh)
+        kern = lambda: pd.paged_flash_decode(q, kp, vp, table, lengths)
+        plain = lambda: pd.paged_flash_decode_plain(q, kp, vp, table, lengths)
+        res = kern()
+        err = _atol(f"paged_flash_decode {arch} g={hq // hkv}", res, plain(),
+                    K8_ATOL)
+        if float(res[3].abs().max()) != 0.0 or not torch.equal(res, kern()):
+            raise AssertionError(f"K8 {arch}: inactive slot not 0 or two "
+                                 "calls differ")
+        shape = {"S": SERVE_SLOTS, "Hq": hq, "Hkv": hkv, "dh": dh,
+                 "g": hq // hkv, "page": SERVE_PAGE, "maxp": SERVE_MAXP,
+                 "keys": int(lengths.sum())}
+        e = _attn_entry("paged_flash_decode", K8_SOURCE, K8_REPLACES, err,
+                        kern, plain, None,
+                        paged_work(lengths, SERVE_PAGE, SERVE_MAXP, hq, hkv,
+                                   dh, 4, 2), shape)
+        e["device_ms"] = device_ms(kern)
+        out["paged_flash_decode"][arch] = e
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    for arch, seq in K9_BLOCKS.items():
+        cfg = get_config(arch)
+        hq, hkv, dh, w = (cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim,
+                          cfg.sliding_window)
+        qkv = [torch.randn(1, h, seq, dh, generator=_gen(7), device=DEVICE)
+               for h in (hq, hkv, hkv)]
+        err = 0.0
+        for dtype in (torch.float32, torch.bfloat16):
+            x = [t.to(dtype) for t in qkv]
+            res = fa.flash_attention_fwd(*x, causal=True, window=w)
+            ref = fa.flash_attention_fwd_plain(*x, causal=True, window=w)
+            label = f"flash_attention_fwd {arch} {dtype} g={hq // hkv} w={w}"
+            err = max(err, _bf16_close(label, res, ref)
+                      if dtype == torch.bfloat16
+                      else _atol(label, res, ref, K9_ATOL))
+            del res, ref
+        x = [t.bfloat16() for t in qkv]
+        band = band_mask(seq, True, w, DEVICE)
+        kern = lambda: fa.flash_attention_fwd(*x, causal=True, window=w)
+        e = _attn_entry(
+            "flash_attention_fwd", K9_SOURCE, K9_REPLACES, err, kern,
+            lambda: fa.flash_attention_fwd_plain(*x, causal=True, window=w),
+            lambda: sdpa(*x, attn_mask=band, enable_gqa=True),
+            flash_work(1, hq, hkv, seq, dh, w, 2),
+            {"B": 1, "Hq": hq, "Hkv": hkv, "g": hq // hkv, "S": seq,
+             "dh": dh, "dtype": "bfloat16", "window": w}, BF16_OPS_PER_S)
+        e["device_ms"] = device_ms(kern)
+        out["flash_attention_fwd"][arch] = e
+    print("[blocks] K8 at g = 2 / 6 / 1 and K9 at g = 5 (window 1,024), 6, "
+          "8 and 1, fp32 and bf16, agree with their plain versions")
+    return out
+
+
+def _blk_serve(cfg, params, n_req, gen, out, smi, full=False):
+    """Paged serving of ``cfg`` behind ``ServeEngine`` (16 slots, pages of
+    16, prompts of 128, K8): every request its tokens, every page back, K8
+    once a layer and decode step, the first decode-step logits of 8
+    requests within SERVE_LOGIT_REL of the ``attn="ref"`` engine's.
+    ``full``: also the run with both steps eager (the same tokens) and the
+    replayed decode step bitwise ``_decode`` run eagerly (``_serve_parity``
+    at T = 0 and 0.7).  Returns K8's launches."""
+    import torch
+    from repro_torch.kernels import paged_decode as pd
+    from repro_torch.launch.serve import draw_requests
+    from repro_torch.serve import ServeConfig, ServeEngine
+    scfg = ServeConfig(**SERVE_CFG, attn="pallas")
+    engine = ServeEngine(cfg, scfg, params)
+    engine.run(draw_requests(1, SERVE_PROMPT, 2, 2, cfg.vocab_size, seed=9))
+    reqs = draw_requests(n_req, SERVE_PROMPT, *gen, cfg.vocab_size, seed=0)
+    pd.reset_launch_counts()
+    results, stats = engine.run(reqs)
+    k8 = pd.launch_counts()["paged_flash_decode"]
+    _complete(f"{cfg.name} continuous", results, stats, reqs, scfg)
+    if k8 != cfg.n_layers * stats["steps"]:
+        raise AssertionError(f"{cfg.name}: K8 launched {k8} times in "
+                             f"{stats['steps']} decode steps")
+    med, lo, hi = _step_ms(stats)
+    out["serve"] = {"requests": n_req, "tokens": stats["tokens"],
+                    "steps": stats["steps"], "step_ms": med,
+                    "tokens_per_s": stats["tokens_per_s"], "k8": k8}
+    _serve_line(f"{cfg.name}, {n_req} requests, K8 x{k8} ({cfg.n_layers} a "
+                "step), decode step and admission replayed", stats, smi)
+    ref_engine = ServeEngine(cfg, ServeConfig(**SERVE_CFG, attn="ref"),
+                             params)
+    first, v = reqs[:8], cfg.vocab_size       # not the padded columns
+    out["serve"]["first_step_err"] = _logits_close(
+        f"serve {cfg.name} K8 vs ref",
+        _first_step_logits(engine, first)[:, :v],
+        _first_step_logits(ref_engine, first)[:, :v], SERVE_LOGIT_REL)
+    del ref_engine
+    if full:
+        eager = _eager_admission_engine(cfg, scfg, params, eager_decode=True)
+        eager.run(draw_requests(1, SERVE_PROMPT, 2, 2, cfg.vocab_size,
+                                seed=9))
+        e_results, e_stats = eager.run(reqs)
+        del eager
+        if e_results != results:
+            raise AssertionError(f"{cfg.name}: the eager steps emitted other "
+                                 "tokens than the replayed ones")
+        out["serve"]["eager_step_ms"] = _step_ms(e_stats)[0]
+        out["serve"]["eager_tokens_per_s"] = e_stats["tokens_per_s"]
+        _serve_line(f"{cfg.name}, {n_req} requests, _decode and _admit "
+                    "eagerly (the same tokens)", e_stats, smi)
+        _serve_parity(engine, cfg, params, reqs[:SERVE_SLOTS])
+    del engine
+    _blk_free()
+    return k8
+
+
+def _blk_train(*extra):
+    from repro_torch.launch import train
+    return train.main(["--arch", GRANITE, "--clients", str(POD_C),
+                       "--global-batch", str(POD_GB), "--seq", str(POD_SEQ),
+                       "--robust", "per_client", "--device", DEVICE,
+                       *extra])
+
+
+def _host_state(state):
+    import torch
+    from repro_torch import tree
+    return tree.map(lambda v: v.cpu() if isinstance(v, torch.Tensor) else v,
+                    state)
+
+
+def _blk_granite_train(out, smi):
+    """granite-moe-1b-a400m trained by ``launch/train.py`` at full width and
+    depth (C = 4, 16 x 256 tokens a step, AdamW, NCCL at world size 1):
+    GRANITE_SCHEDULE, each step launching K1 and its K2 mode once (and K3
+    under krum); the fedavg loss must fall.  Then, under deterministic
+    algorithms, scan bitwise python (GRANITE_PARITY).  Returns {path:
+    launches} of the schedule's runs."""
+    import torch
+    paths = {}
+    for agg, steps in GRANITE_SCHEDULE:
+        _blk_reset()
+        t0 = time.perf_counter()
+        st, rows = _blk_train("--steps", str(steps), "--aggregator", agg,
+                              "--chunk-rounds", str(GRANITE_CHUNK))
+        secs = time.perf_counter() - t0
+        del st
+        _blk_free()
+        got = paths[f"{GRANITE} trained ({agg})"] = _blk_counts()
+        want = ["cosine_gate_partials",
+                {"trimmed_mean": "gated_combine[trimmed]"}.get(
+                    agg, "gated_combine[mean]")]
+        if agg == "krum":
+            want.append("pairwise_gram")
+        for k in want:
+            if got.get(k) != steps:
+                raise AssertionError(f"[blocks] granite {agg}: {k} launched "
+                                     f"{got.get(k, 0)} times in {steps} "
+                                     "steps")
+        losses = [float(r["loss"]) for r in rows]
+        print(f"[blocks] granite train.main --aggregator {agg}: {steps} steps "
+              f"in {secs:.1f} s, loss {losses[0]:.4f} -> {losses[-1]:.4f}, "
+              f"aux in it; launches {got}")
+        if agg == "fedavg":
+            if not losses[-1] < losses[0]:
+                raise AssertionError(f"[blocks] granite: the loss did not "
+                                     f"fall: {losses}")
+            out["loss"] = [losses[0], losses[-1]]
+    # the per-step loop at the default algorithms: its step's wall
+    st, rows = _blk_train("--steps", str(GRANITE_PARITY[0]), "--driver",
+                          "python")
+    del st
+    _blk_free()
+    eager = sorted(float(r["wall_ms"]) for r in rows[1:])
+    out["eager_step_ms"] = eager[len(eager) // 2]
+    out["eager_tokens_per_s"] = POD_GB * POD_SEQ / out["eager_step_ms"] * 1e3
+    print(f"[timing] granite pod step, the per-step loop: "
+          f"{out['eager_step_ms']:.2f} ms, {out['eager_tokens_per_s']:.0f} "
+          f"trained tokens/s | {smi}")
+    steps, chunk = GRANITE_PARITY
+    torch.use_deterministic_algorithms(True)
+    try:
+        runs = {}
+        for drv in ("python", "scan"):
+            _blk_reset()
+            st, rows = _blk_train("--steps", str(steps), "--chunk-rounds",
+                                  str(chunk), "--driver", drv)
+            runs[drv] = (_host_state(st), rows, _blk_counts())
+            del st
+            _blk_free()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    _same_state("[parity] granite scan vs python", runs["scan"][0],
+                runs["python"][0])
+    _same_rows("[parity] granite scan vs python", runs["scan"][1],
+               runs["python"][1])
+    if runs["scan"][2] != runs["python"][2]:
+        raise AssertionError(f"[parity] granite launches differ: "
+                             f"{runs['scan'][2]} / {runs['python'][2]}")
+    print(f"[parity] granite pod {steps} steps, chunks of {chunk}, "
+          f"deterministic algorithms: scan vs python bitwise (params, AdamW "
+          f"state, fed state, every history key); launches "
+          f"{runs['scan'][2]}")
+    del runs
+    _blk_free()
+    return paths
+
+
+def _blk_granite_trace(out, smi):
+    """granite's replayed pod step timed and traced
+    (``profile_round.measure`` under the scan driver): the median of 10
+    steady steps (the replayed step's time and tokens/s), one traced step's
+    device busy time, idle share, launches from the host and its largest
+    kernels by device time."""
+    import torch
+    from repro_torch.configs.base import FedConfig, TrainConfig
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core import pod
+    from repro_torch.launch import profile_round as pr
+    from repro_torch.launch import train
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import transformer
+    from repro_torch.optim import optimizers
+    cfg = get_config(GRANITE)
+    fed = FedConfig(n_clients=POD_C)
+    tc = TrainConfig(global_batch=POD_GB, seq_len=POD_SEQ, total_steps=30,
+                     warmup_steps=1)
+    dev = torch.device(DEVICE)
+    mesh = make_host_mesh()
+    opt_init, _ = optimizers.make_optimizer(tc)
+    state = pod.init_pod_state(transformer.init_transformer(_gen(0), cfg),
+                               opt_init, POD_C, fed, _gen(1), mesh=mesh)
+    step = pod.make_train_step(cfg, fed, tc, robust="per_client",
+                               agg_mesh=mesh)
+    m = pr.measure(lambda st, xs: step(st, xs[1]), state,
+                   train.synthetic_lm_batches(cfg, tc, POD_C, 0, dev),
+                   driver="scan", device=dev)
+    del state
+    top = sorted(m["by_kernel"].items(), key=lambda kv: -kv[1][0])[:8]
+    out["replayed_step_ms"] = m["median_ms"]
+    out["replayed_tokens_per_s"] = POD_GB * POD_SEQ / m["median_ms"] * 1e3
+    out["trace"] = {"step_ms": m["median_ms"], "busy_ms": m["busy_ms"],
+                    "traced_ms": m["traced_ms"], "idle": m["idle"],
+                    "host_launches": m["host_launches"],
+                    "top": [[n[:80], ms, c] for n, (ms, c) in top]}
+    print(f"[timing] granite pod step replayed: {m['median_ms']:.2f} ms "
+          f"median of {len(m['walls'])}, "
+          f"{out['replayed_tokens_per_s']:.0f} trained tokens/s; traced "
+          f"step busy "
+          f"{m['busy_ms']:.2f} of {m['traced_ms']:.2f} ms (idle "
+          f"{m['idle']:.3f}), {m['host_launches']} launches from the host "
+          f"| {smi}")
+    for name, (ms, c) in top:
+        print(f"[timing]   {ms:9.3f} ms  x{c:<5} {name[:90]}")
+    _blk_free()
+
+
+def _blk_granite_cpu_step(out):
+    """Step 1 of granite at full width and 2 layers (fp32, SGD, 16 x
+    BLK_CPU_SEQ tokens) on the card and on the CPU port: the aggregated
+    grads within POD_CPU_REL of their largest; a step with client C - 1's
+    rows swapped for client 0's must miss them."""
+    import dataclasses
+    import torch
+    from repro_torch import tree
+    from repro_torch.configs.base import FedConfig, TrainConfig
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core import pod
+    from repro_torch.launch import train
+    from repro_torch.models import transformer
+    from repro_torch.optim import optimizers
+    cfg = get_config(GRANITE).replace(n_layers=BLK_CPU_LAYERS,
+                                      dtype="float32")
+    fed = FedConfig(n_clients=POD_C)
+    tc = TrainConfig(global_batch=POD_GB, seq_len=BLK_CPU_SEQ,
+                     total_steps=10, warmup_steps=1, optimizer="sgd")
+    cpu = torch.device("cpu")
+    batch = train.synthetic_lm_batches(cfg, tc, POD_C, 0, cpu)(0)
+    params = tree.map(lambda t: t.cpu(),
+                      transformer.init_transformer(_gen(0), cfg))
+    opt_init, _ = optimizers.make_optimizer(tc)
+    st_cpu = pod.init_pod_state(params, opt_init, POD_C, fed,
+                                torch.Generator().manual_seed(1))
+    to = lambda v: v.to(DEVICE) if isinstance(v, torch.Tensor) else v
+
+    def on_card():
+        st = tree.map(to, st_cpu)
+        return st._replace(fed=st.fed._replace(
+            rng=torch.Generator(device=DEVICE)))
+
+    step = pod.make_train_step(cfg, fed, tc, robust="per_client")
+    t0 = time.perf_counter()
+    new_cpu, _ = step(st_cpu, batch)
+    cpu_s = time.perf_counter() - t0
+    ref = tree.leaves(new_cpu.opt_state.momentum)
+    scale = max(float(r.abs().max()) for r in ref)
+
+    def rel_err(new):
+        return max(float((a.cpu() - b).abs().max()) for a, b in zip(
+            tree.leaves(new.opt_state.momentum), ref)) / scale
+
+    err = rel_err(step(on_card(), tree.map(to, batch))[0])
+    bc = POD_GB // POD_C
+    swapped = {k: v.clone() for k, v in batch.items()}
+    for k in swapped:
+        swapped[k][-bc:] = batch[k][:bc]
+    fault = rel_err(step(on_card(), tree.map(to, swapped))[0])
+    print(f"[blocks] granite step 1 at full width, {BLK_CPU_LAYERS} layers: "
+          f"card vs CPU port aggregated grads {err:.3e} of their largest "
+          f"({scale:.4g}; tol {POD_CPU_REL}); client {POD_C - 1}'s rows "
+          f"swapped for client 0's: {fault:.3e} (the CPU step took "
+          f"{cpu_s:.1f} s)")
+    if not err <= POD_CPU_REL < fault:
+        raise AssertionError("[blocks] granite step 1 vs the CPU port: "
+                             f"{err:.3e}, swapped {fault:.3e}")
+    out["cpu_step_rel"], out["cpu_step_fault_rel"] = err, fault
+
+
+def _partials64(x, chunk=WHOLE_CHUNK):
+    """K1's sums over N of an all-live (G, C, N) buffer in fp64, in column
+    chunks: each row's dot with the coordinate median (the mean of the
+    middle two of a sorted column at even C), its squared norm, and the
+    median's squared norm."""
+    import torch
+    g, c, n = x.shape
+    dots = torch.zeros(g, c, dtype=torch.float64, device=x.device)
+    sqn = torch.zeros_like(dots)
+    refsq = torch.zeros(g, 1, dtype=torch.float64, device=x.device)
+    for s in range(0, n, chunk):
+        xc = x[..., s:s + chunk].double()
+        v = xc.sort(1).values
+        med = 0.5 * (v[:, (c - 1) // 2] + v[:, c // 2])[:, None]
+        dots += (xc * med).sum(-1)
+        sqn += (xc * xc).sum(-1)
+        refsq += (med * med).sum(-1)
+    return dots, sqn, refsq
+
+
+def _blk_big_kernels():
+    """K1, K2 (three modes) and K3 on one (1, 4, 1,385,219,072) fp32 buffer,
+    granite's per-client grads at C = 4 (22.2 GB; rows 2 and 3 start past
+    2^32 elements).  First zeros but each row's last TAIL_COLS columns,
+    random: the kernels on the whole buffer against their plain versions on
+    those columns alone (the zeros add exact zeros; K2's other columns must
+    be 0).  Then random on the whole: K2's three modes against their plain
+    versions on the whole (in column steps of WHOLE_CHUNK: ``plain_ms``),
+    K1's partial sums and K3's Gram against fp64 sums in column chunks
+    (each part within NSUM_REL of its own largest; the plain versions'
+    fp32 sums, also taken in steps of WHOLE_CHUNK, printed beside); each
+    kernel timed beside its bound and library call.  Returns the
+    entries."""
+    import torch
+    from repro_torch.kernels import robust_pipeline as rp
+    g, c, n = GRANITE_SHAPE
+    x = torch.zeros(GRANITE_SHAPE, device=DEVICE)
+    x[..., -TAIL_COLS:] = torch.randn(g, c, TAIL_COLS, generator=_gen(5),
+                                      device=DEVICE)
+    m = torch.ones(g, c, device=DEVICE)
+    w = torch.rand(g, c, generator=_gen(6), device=DEVICE) + 0.1
+    w = w / w.sum(1, keepdim=True)
+    tail = x[..., -TAIL_COLS:].contiguous()
+    big = dict(chunk=WHOLE_CHUNK)
+    calls = {
+        "cosine_gate_partials": (
+            lambda a: rp.cosine_gate_partials(a, m),
+            lambda a, **k: rp.cosine_gate_partials_plain(a, m, **k), None),
+        "gated_combine[mean]": (
+            lambda a: rp.gated_combine(a, m, w, mode="mean"),
+            lambda a, **k: rp.gated_combine_plain(a, m, w, mode="mean", **k),
+            lambda a: torch.matmul(w[:, None, :], a)),
+        "gated_combine[trimmed]": (
+            lambda a: rp.gated_combine(a, m, m, mode="trimmed"),
+            lambda a, **k: rp.gated_combine_plain(a, m, m, mode="trimmed",
+                                                  **k), None),
+        "gated_combine[median]": (
+            lambda a: rp.gated_combine(a, m, m, mode="median"),
+            lambda a, **k: rp.gated_combine_plain(a, m, m, mode="median",
+                                                  **k), None),
+        "pairwise_gram": (
+            lambda a: rp.pairwise_gram(a),
+            lambda a, **k: rp.pairwise_gram_plain(a, **k),
+            lambda a: torch.bmm(a, a.transpose(1, 2))),
+    }
+
+    def timed(fn):
+        start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        torch.cuda.synchronize()
+        start.record()
+        res = fn()
+        stop.record()
+        torch.cuda.synchronize()
+        return res, start.elapsed_time(stop)
+
+    errs, tail_ms = {}, {}
+    for name, (kern, plain, _) in calls.items():
+        res = kern(x)
+        ref, tail_ms[name] = timed(lambda: plain(tail))
+        if isinstance(res, tuple):
+            errs[name] = max(_check(f"[blocks] {name} tail/{i}", o, r,
+                                    rel=NSUM_REL)
+                             for i, (o, r) in enumerate(zip(res, ref)))
+        elif name == "pairwise_gram":
+            errs[name] = _check(f"[blocks] {name} tail", res, ref,
+                                rel=NSUM_REL)
+        else:
+            if float(res[..., :-TAIL_COLS].abs().max()) != 0.0:
+                raise AssertionError(f"[blocks] {name}: a zero column is "
+                                     "not 0")
+            errs[name] = _check(f"[blocks] {name} tail", res[..., -TAIL_COLS:],
+                                ref, exact=name.endswith("median]"))
+        del res, ref
+    print(f"[blocks] K1, K2 (mean, trimmed, median) and K3 at {GRANITE_SHAPE}"
+          f" ({g * c * n:,} elements; row 3 starts at element {3 * n:,}): "
+          f"the last {TAIL_COLS} columns of every row against the plain "
+          f"versions there, max abs err {errs}")
+    del tail
+    x.normal_(generator=_gen(8)).mul_(1e-2)
+    exact = {"cosine_gate_partials": _partials64(x),
+             "pairwise_gram": _gram64(x)}
+    entries = {}
+    for name, (kern, plain, lib) in calls.items():
+        base, _, mode = name.partition("[")
+        res = kern(x)
+        ref, plain_ms = timed(lambda: plain(x, **big))
+        label = f"[blocks] {name} whole"
+        if name == "cosine_gate_partials":
+            whole = max(_within_own_scale(label, {part: ...}, o, e, r)
+                        for part, o, e, r in zip(("dots", "sqnorms", "refsq"),
+                                                 res, exact[name], ref))
+        elif name == "pairwise_gram":
+            whole = _gram_exact(label, res, ref, exact[name])
+        else:
+            whole = _check(label, res, ref, exact=mode == "median]")
+        del res, ref
+        bound_ms, bound_by = bound(*kernel_work(base, g, c, n,
+                                                mode.rstrip("]") or None))
+        e = {"ms": time_ms(lambda: kern(x)), "plain_ms": plain_ms,
+             "plain_chunk": WHOLE_CHUNK, "plain_tail_ms": tail_ms[name],
+             "bound_ms": bound_ms, "bound_by": bound_by,
+             "library_ms": time_ms(lambda: lib(x)) if lib else None,
+             "max_abs_err": (max(errs[name], whole)
+                             if base == "gated_combine" else errs[name]),
+             "whole_err": whole,
+             "shape": list(GRANITE_SHAPE)}
+        entries[name] = e
+        print(f"[blocks] {name} {GRANITE_SHAPE}: {e['ms']:.3f} ms, plain "
+              f"{plain_ms:.1f} ms (column steps of {WHOLE_CHUNK}), library "
+              f"{e['library_ms']}, bound {bound_ms:.3f} ms ({bound_by}); "
+              f"tail max abs err {errs[name]:.3e}, whole {whole:.3e} "
+              + ("of the largest" if base != "gated_combine" else "abs"))
+    del x, exact
+    _blk_free()
+    return entries
+
+
+def _blk_decode_check(name, cfg, params, inputs, prompt, n_decode, ring,
+                      out, smi, tol=None):
+    """Prefill ``prompt`` inputs into the model's cache (ring: sliding-window
+    rings), then ``n_decode`` decode steps fed the next inputs, each step's
+    logits against the full forward's (plain attention) at that position.
+    In fp32 every step within ``tol`` (by default DECODE_FP32_REL) of its
+    own largest logit (a cache or recurrent state carried wrong from step 2
+    on shows there); in bf16 the first within SERVE_LOGIT_REL, the later
+    steps' drift printed.  Every step's logits finite."""
+    import torch
+    from repro_torch.models.model import build
+    from repro_torch.models.transformer import DTYPES
+    model = build(cfg.replace(attn_impl="xla"))
+    total, v = prompt + n_decode, cfg.vocab_size
+    full = model.forward(params, inputs)[:, prompt:total, :v].float()
+    cache = model.init_cache(1, total + 1, ring=ring,
+                             dtype=DTYPES[cfg.dtype], device=DEVICE)
+    head = {k: (v if k == "image_embeds" else v[:, :prompt])
+            for k, v in inputs.items()}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, cache = model.prefill(params, head, cache)
+    torch.cuda.synchronize()
+    prefill_ms = 1e3 * (time.perf_counter() - t0)
+    rels, walls = [], []
+    for i in range(n_decode):
+        nxt = {k: v[:, prompt + i:prompt + i + 1] for k, v in inputs.items()
+               if k != "image_embeds"}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = model.decode(params, nxt, cache, prompt + i)
+        torch.cuda.synchronize()
+        walls.append(1e3 * (time.perf_counter() - t0))
+        step = logits[:, 0, :v].float()
+        if not bool(torch.isfinite(step).all()):
+            raise AssertionError(f"[blocks] {name}: decode step {i + 1}'s "
+                                 "logits are not finite")
+        rels.append(float((step - full[:, i]).abs().max())
+                    / float(full[:, i].abs().max()))
+    fp32 = cfg.dtype == "float32"
+    tol = tol or (DECODE_FP32_REL if fp32 else SERVE_LOGIT_REL)
+    held = rels if fp32 else rels[:1]
+    bad = [(i + 1, r) for i, r in enumerate(held) if not r <= tol]
+    walls.sort()
+    out["decode"] = {"prompt": prompt, "steps": n_decode, "ring": ring,
+                     "first_step_rel": rels[0], "worst_step_rel": max(rels),
+                     "held": "every step" if fp32 else "the first step",
+                     "prefill_ms": prefill_ms,
+                     "decode_ms": walls[len(walls) // 2]}
+    print(f"[blocks] {name} {cfg.dtype}: prefill {prompt} in "
+          f"{prefill_ms:.1f} ms, {n_decode} decode steps "
+          f"({'ring' if ring else 'full'} cache), step ms median "
+          f"{walls[len(walls) // 2]:.2f}; against the full forward, as a "
+          f"share of each step's largest logit: step 1 {rels[0]:.3e}, the "
+          f"worst {max(rels):.3e} (tol {tol}, held on "
+          f"{out['decode']['held']}) | {smi}")
+    if bad:
+        raise AssertionError(f"[blocks] {name}: decode steps beyond {tol} "
+                             f"of the full forward: {bad[:4]}")
+
+
+def _blk_forward(name, cfg, params, inputs, out, smi, k9=0,
+                 rel=FWD_HIDDEN_REL):
+    """``Model.forward`` at full width with ``attn_impl="pallas"`` (K9 in
+    each attention layer where S >= 128), timed on its second call: ``k9``
+    launches, finite logits, and the last hidden state within ``rel`` of
+    the plain attention's largest (None: printed, not held; a bf16 MoE
+    forward routes a near-tied token elsewhere when the attention rounds
+    differently, and that token's row moves by its whole size)."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import transformer
+    from repro_torch.models.model import build
+    cfg = cfg.replace(attn_impl="pallas")
+    build(cfg).forward(params, inputs)         # warm-up: cuBLAS's plans
+    fa.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits = build(cfg).forward(params, inputs)
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0)
+    got = fa.launch_counts()["flash_attention_fwd"]
+    if got != k9 or not bool(torch.isfinite(
+            logits[..., :cfg.vocab_size]).all()):
+        raise AssertionError(f"[blocks] {name}: K9 launched {got} times "
+                             f"(want {k9}) or the logits are not finite")
+    del logits
+    kw = dict(tokens=inputs.get("tokens"), embeds=inputs.get("embeds"),
+              image_embeds=inputs.get("image_embeds"), collect_logits=False)
+    hid = {impl: transformer.forward(params, cfg.replace(attn_impl=impl),
+                                     **kw)[0].float()
+           for impl in ("pallas", "xla")}
+    scale = float(hid["xla"].abs().max())
+    err = float((hid["pallas"] - hid["xla"]).abs().max()) / scale
+    shape = tuple(next(iter(inputs.values())).shape[:2])
+    print(f"[blocks] {name} Model.forward {shape} {cfg.dtype}, K9 x{got}: "
+          f"{ms:.1f} ms; last hidden vs the plain attention {err:.5f} of "
+          f"max |h| (tol {rel}) | {smi}")
+    if rel is not None and not err <= rel:
+        raise AssertionError(f"[blocks] {name}: forward vs plain {err}")
+    out["forward"] = {"ms": ms, "k9": got, "hidden_rel": err}
+    return got
+
+
+def _blk_inputs(cfg, b, s, seed):
+    """Random inputs of ``cfg``: tokens, or frame embeddings (bf16) for an
+    embeddings-input model, and image embeddings for a VLM."""
+    import torch
+    g = _gen(seed)
+    inp = {}
+    if cfg.embed_inputs:
+        inp["tokens"] = torch.randint(0, cfg.vocab_size, (b, s), generator=g,
+                                      device=DEVICE)
+    else:
+        inp["embeds"] = torch.randn(b, s, cfg.d_model, generator=g,
+                                    device=DEVICE).bfloat16()
+    if cfg.arch_type == "vlm":
+        inp["image_embeds"] = torch.randn(b, cfg.n_image_tokens, cfg.d_model,
+                                          generator=g,
+                                          device=DEVICE).bfloat16()
+    return inp
+
+
+def _blk_cpu_forward(name, cfg, out, swap):
+    """The model at full width and ``cfg``'s layers in fp32, (2,
+    BLK_CPU_SEQ) inputs, on the card and on the CPU port from the same
+    params (cross-attention gates opened to 0.5): logits within
+    ROUND1_LOGIT_REL of the largest; ``swap`` (of the card's params or
+    inputs) must miss them."""
+    import torch
+    from repro_torch import tree
+    from repro_torch.models.model import build
+    model = build(cfg)
+    params = _blk_params(cfg, seed=11, cast=False)
+    for block in params["layers"].values():
+        if "gate" in block:
+            block["gate"].fill_(0.5)
+    inputs = {k: v.float() if v.is_floating_point() else v
+              for k, v in _blk_inputs(cfg, 2, BLK_CPU_SEQ, 12).items()}
+    v = cfg.vocab_size                      # not the padded columns
+    card = model.forward(params, inputs)[..., :v].float().cpu()
+    params_cpu = tree.map(lambda t: t.cpu(), params)
+    cpu = model.forward(params_cpu, {k: t.cpu() for k, t in inputs.items()}
+                        )[..., :v]
+    del params_cpu
+    p2, i2 = swap(params, inputs)
+    fault = model.forward(p2, i2)[..., :v].float().cpu()
+    del params, p2, i2
+    _blk_free()
+    scale = float(cpu.abs().max())
+    err = float((card - cpu).abs().max()) / scale
+    bad = float((fault - cpu).abs().max()) / scale
+    print(f"[blocks] {name} at full width, {cfg.n_layers} layers "
+          f"{cfg.layers}, fp32: card vs CPU port logits {err:.3e} of the "
+          f"largest (tol {ROUND1_LOGIT_REL}); swapped {bad:.3e}")
+    if not err <= ROUND1_LOGIT_REL < bad:
+        raise AssertionError(f"[blocks] {name} vs the CPU port: {err:.3e}, "
+                             f"swapped {bad:.3e}")
+    out["cpu_rel"], out["cpu_fault_rel"] = err, bad
+
+
+def _swap_rows(key):
+    """A control: the two batch rows of input ``key`` exchanged."""
+    def swap(params, inputs):
+        return params, dict(inputs, **{key: inputs[key].flip(0)})
+    return swap
+
+
+def _swap_experts(params, inputs):
+    """A control: experts 0 and 1 of layer 0 exchange their gate weights."""
+    import copy
+    p = copy.copy(params)
+    layers = {k: dict(v) for k, v in params["layers"].items()}
+    moe = dict(layers["b0"]["moe"])
+    wg = moe["wg"].clone()
+    wg[0, [0, 1]] = wg[0, [1, 0]]
+    moe["wg"] = wg
+    layers["b0"] = dict(layers["b0"], moe=moe)
+    p["layers"] = layers
+    return p, inputs
+
+
+def _blk_fp32(cfg):
+    """``cfg`` in fp32, its params drawn as ``_blk_params`` draws them (the
+    same values before the cast), for the decode checks."""
+    cfg32 = cfg.replace(dtype="float32")
+    return cfg32, _blk_params(cfg32, cast=False)
+
+
+def _fp32_inputs(inputs):
+    return {k: v.float() if v.is_floating_point() else v
+            for k, v in inputs.items()}
+
+
+def _blk_models(smi, out):
+    """Phase 10's models other than granite's training: granite served;
+    hymba, xlstm, musicgen, dbrx (2 layers) and llama-3.2-vision (one cycle
+    of 5 layers) forward, prefill and decode (fp32 every step held, bf16
+    timed); dbrx and musicgen served; each against the CPU port at 2
+    layers.  Returns {path: launches}: K8's in each served run and K9's in
+    each bf16 forward, read right after the reset that precedes that run
+    (the check runs around them left out)."""
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import transformer
+    paths = {}
+
+    def reset():
+        torch.cuda.reset_peak_memory_stats()
+        return time.perf_counter()
+
+    def done(name, t0):
+        out[name]["seconds"] = time.perf_counter() - t0
+        out[name]["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        print(f"[blocks] {name} took {out[name]['seconds']:.1f} s, peak "
+              f"{out[name]['peak_gb']:.2f} GB | {smi}")
+        _blk_free()
+
+    def serve(name, cfg, params, *args, **kw):
+        paths[f"{name} served"] = {"paged_flash_decode": _blk_serve(
+            cfg, params, *args, out[name], smi, **kw)}
+
+    def forward(name, cfg, params, inputs, k9, **kw):
+        got = _blk_forward(name, cfg, params, inputs, out[name], smi, k9=k9,
+                           **kw)
+        if got:
+            paths[f"{name} forward"] = {"flash_attention_fwd": got}
+
+    def decode32(name, cfg, seq, prompt, n_decode, ring, tol=None):
+        """The fp32 decode check; returns the params cast to ``cfg``'s
+        dtype."""
+        cfg32, p32 = _blk_fp32(cfg)
+        out[name].setdefault("fp32", {})
+        _blk_decode_check(name, cfg32, p32,
+                          _fp32_inputs(_blk_inputs(cfg, 1, seq, 2)), prompt,
+                          n_decode, ring, out[name]["fp32"], smi, tol)
+        out[name]["params"] = sum(t.numel() for t in _leaves(p32))
+        params = transformer.cast_params(p32, cfg)
+        del p32
+        _blk_free()
+        return params
+
+    # granite served at full width and depth
+    t0 = reset()
+    cfg = get_config(GRANITE)
+    params = _blk_params(cfg)
+    n = sum(t.numel() for t in _leaves(params))
+    if n != GRANITE_PARAMS:
+        raise AssertionError(f"granite has {n:,} parameters")
+    out[GRANITE] = {"params": n}
+    serve(GRANITE, cfg, params, GRANITE_REQS, GRANITE_GEN, full=True)
+    del params
+    done(GRANITE, t0)
+
+    # hymba: K9's band at g = 5, then the ring cache and the mamba state
+    t0 = reset()
+    cfg = get_config(HYMBA)
+    out[HYMBA] = {}
+    seq = HYMBA_PREFILL + HYMBA_DECODE
+    params = decode32(HYMBA, cfg, seq, HYMBA_PREFILL, HYMBA_DECODE, True)
+    forward(HYMBA, cfg, params, _blk_inputs(cfg, 1, HYMBA_SEQ, 1),
+            cfg.n_layers)
+    _blk_decode_check(HYMBA, cfg, params, _blk_inputs(cfg, 1, seq, 2),
+                      HYMBA_PREFILL, HYMBA_DECODE, True, out[HYMBA], smi)
+    del params
+    _blk_cpu_forward(HYMBA, cfg.replace(n_layers=BLK_CPU_LAYERS,
+                                        dtype="float32"),
+                     out[HYMBA], _swap_rows("tokens"))
+    done(HYMBA, t0)
+
+    # xlstm: mLSTM and sLSTM, no attention.  In fp32 every layer an mLSTM at
+    # the published prompt (the chunked prefill carries state over 4
+    # chunks), then the published 7:1 pattern at a short prompt held within
+    # XL_SLSTM_REL: at its random init the sLSTM amplifies rounding step by
+    # step, so a 1,024-token prompt's comparison reads O(1) (PERF.md)
+    t0 = reset()
+    cfg = get_config(XLSTM)
+    out[XLSTM] = {"fp32_mlstm": {}}
+    cfg32, p32 = _blk_fp32(cfg.replace(block_pattern=("mlstm",) *
+                                       cfg.n_layers))
+    _blk_decode_check(f"{XLSTM} (every layer mLSTM)", cfg32, p32,
+                      _fp32_inputs(_blk_inputs(cfg, 1, XL_SEQ + XL_DECODE,
+                                               2)), XL_SEQ, XL_DECODE, False,
+                      out[XLSTM]["fp32_mlstm"], smi)
+    del p32
+    params = decode32(XLSTM, cfg, XL_SLSTM_PROMPT + XL_DECODE,
+                      XL_SLSTM_PROMPT, XL_DECODE, False, XL_SLSTM_REL)
+    forward(XLSTM, cfg, params, _blk_inputs(cfg, 1, XL_SEQ, 1), 0)
+    _blk_decode_check(XLSTM, cfg, params,
+                      _blk_inputs(cfg, 1, XL_SEQ + XL_DECODE, 2), XL_SEQ,
+                      XL_DECODE, False, out[XLSTM], smi)
+    del params
+    _blk_cpu_forward(XLSTM, cfg.replace(
+        n_layers=BLK_CPU_LAYERS, dtype="float32",
+        block_pattern=("mlstm", "slstm")), out[XLSTM], _swap_rows("tokens"))
+    done(XLSTM, t0)
+
+    # musicgen: frame embeddings in; K9 at g = 1; served paged with a token
+    # table in front (its decode reads back the tokens it samples)
+    t0 = reset()
+    cfg = get_config(MUSICGEN)
+    out[MUSICGEN] = {}
+    params = decode32(MUSICGEN, cfg, XL_SEQ + XL_DECODE, XL_SEQ, XL_DECODE,
+                      False)
+    forward(MUSICGEN, cfg, params, _blk_inputs(cfg, 1, XL_SEQ, 1),
+            cfg.n_layers)
+    _blk_decode_check(MUSICGEN, cfg, params,
+                      _blk_inputs(cfg, 1, XL_SEQ + XL_DECODE, 2), XL_SEQ,
+                      XL_DECODE, False, out[MUSICGEN], smi)
+    params["embed"] = (torch.randn(cfg.padded_vocab, cfg.d_model,
+                                   generator=_gen(3), device=DEVICE) *
+                       0.02).bfloat16()
+    serve(MUSICGEN, cfg.replace(embed_inputs=True), params, 6, (4, 12))
+    del params
+    _blk_cpu_forward(MUSICGEN, cfg.replace(n_layers=BLK_CPU_LAYERS,
+                                           dtype="float32"),
+                     out[MUSICGEN], _swap_rows("embeds"))
+    done(MUSICGEN, t0)
+
+    # dbrx, 2 layers.  The fp32 checks at no-drop capacity, as the JAX tests
+    # hold MoE decode against the forward (a capacity drop, or a near-tied
+    # route that rounding flips, moves a token's row by its whole size):
+    # the CPU port, K9 against the plain attention, decode against the
+    # forward.  Then in bf16: the forward's time and K9's launches (its
+    # hidden state against the plain attention's printed, not held: a route
+    # flips), and serving (K8 at g = 6)
+    t0 = reset()
+    cfg = get_config(DBRX).replace(n_layers=DBRX_LAYERS)
+    exact = cfg.replace(capacity_factor=float(cfg.n_experts))
+    out[DBRX] = {"fp32": {}}
+    _blk_cpu_forward(DBRX, exact.replace(dtype="float32"), out[DBRX],
+                     _swap_experts)
+    exact32, p32 = _blk_fp32(exact)
+    out[DBRX]["params"] = sum(t.numel() for t in _leaves(p32))
+    _blk_forward(DBRX, exact32, p32,
+                 _fp32_inputs(_blk_inputs(exact, 1, CUT_SEQ, 1)),
+                 out[DBRX]["fp32"], smi, k9=cfg.n_layers,
+                 rel=ROUND1_LOGIT_REL)
+    _blk_decode_check(DBRX, exact32, p32,
+                      _fp32_inputs(_blk_inputs(exact, 1, CUT_SEQ, 2)),
+                      CUT_SEQ - CUT_DECODE, CUT_DECODE, False,
+                      out[DBRX]["fp32"], smi)
+    params = transformer.cast_params(p32, cfg)
+    del p32
+    _blk_free()
+    forward(DBRX, cfg, params, _blk_inputs(cfg, 1, CUT_SEQ, 1),
+            cfg.n_layers, rel=None)
+    serve(DBRX, cfg, params, 6, (4, 12))
+    del params
+    done(DBRX, t0)
+
+    # llama-3.2-vision, one cycle (4 attn + 1 xattn), the cross-attention
+    # gate opened to 0.5 (init 0) so that the image path counts
+    t0 = reset()
+    cfg = get_config(VISION).replace(n_layers=VISION_LAYERS)
+    out[VISION] = {}
+    cfg32, p32 = _blk_fp32(cfg)
+    p32["layers"][f"b{VISION_LAYERS - 1}"]["gate"].fill_(0.5)
+    out[VISION]["fp32"] = {}
+    _blk_decode_check(VISION, cfg32, p32,
+                      _fp32_inputs(_blk_inputs(cfg, 1, CUT_SEQ, 2)),
+                      CUT_SEQ - CUT_DECODE, CUT_DECODE, False,
+                      out[VISION]["fp32"], smi)
+    out[VISION]["params"] = sum(t.numel() for t in _leaves(p32))
+    params = transformer.cast_params(p32, cfg)
+    del p32
+    _blk_free()
+    forward(VISION, cfg, params, _blk_inputs(cfg, 1, CUT_SEQ, 1),
+            VISION_LAYERS - 1)
+    _blk_decode_check(VISION, cfg, params, _blk_inputs(cfg, 1, CUT_SEQ, 2),
+                      CUT_SEQ - CUT_DECODE, CUT_DECODE, False, out[VISION],
+                      smi)
+    del params
+    _blk_cpu_forward(VISION, cfg.replace(
+        n_layers=2, dtype="float32", block_pattern=("attn", "xattn")),
+        out[VISION], _swap_rows("image_embeds"))
+    done(VISION, t0)
+    return paths
+
+
+def _blocks_child(part):
+    """``python3 chip_smoke.py --blocks models|train``: one part of phase 10
+    in a process of its own (a fresh CUDA context: the models' graphs and
+    caches are gone before granite's 70 GB of training state), which fixes
+    cuBLAS's workspace before cuBLAS starts (deterministic algorithms for
+    granite's scan-vs-python check).  Prints its lines and then one JSON
+    line ``{"blocks": ...}`` for the parent."""
+    import os
+    import torch
+    import torch.distributed as dist
+    from repro_torch.kernels import _build
+    from repro_torch.launch import mesh as mesh_mod
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    t0 = time.perf_counter()
+    smi = _smi()
+    _build.load()
+    out = {"models": {}, "kernels": {}, "launches": {}}
+    if part == "models":
+        out["kernels"] = _blk_kernels()
+        out["launches"] = _blk_models(smi, out["models"])
+    else:
+        mesh_mod.start_group(DEVICE)
+        try:
+            g = out["models"][GRANITE] = {"train": {}}
+            out["launches"] = _blk_granite_train(g["train"], smi)
+            _blk_granite_trace(g["train"], smi)
+            _blk_granite_cpu_step(g["train"])
+            g["train"]["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        finally:
+            dist.destroy_process_group()
+        out["kernels"]["pod"] = _blk_big_kernels()
+    out["seconds"] = time.perf_counter() - t0
+    print(f"[blocks] phase 10 ({part}) took {out['seconds']:.1f} s, peak "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB | {smi}")
+    print(json.dumps({"blocks": out}))
+    return 0
+
+
+def _blocks(smi):
+    """Phase 10: its two parts, each in a child process
+    (``_blocks_child``); returns their results merged."""
+    merged = {"models": {}, "kernels": {}, "launches": {}, "seconds": {}}
+    import os
+    for part in ("models", "train"):
+        # granite's training state, (4, N) grads buffer and optimizer
+        # temporaries fragment the default allocator's segments (70 GB of
+        # the card); expandable segments map them as one range
+        env = dict(os.environ, PYTORCH_CUDA_ALLOC_CONF=(
+            "expandable_segments:True")) if part == "train" else None
+        proc = subprocess.run([sys.executable, str(Path(__file__).resolve()),
+                               "--blocks", part], capture_output=True,
+                              text=True, timeout=BLOCKS_TIMEOUT, env=env)
+        lines = proc.stdout.splitlines()
+        print("\n".join(l for l in lines if not l.startswith('{"blocks"')))
+        if proc.returncode != 0:
+            sys.stderr.write(proc.stderr[-20000:])
+            raise RuntimeError(f"phase 10 ({part}) failed (exit "
+                               f"{proc.returncode})")
+        res = json.loads(next(l for l in reversed(lines)
+                              if l.startswith('{"blocks"')))["blocks"]
+        for name, m in res["models"].items():
+            merged["models"].setdefault(name, {}).update(m)
+        merged["kernels"].update(res["kernels"])
+        merged["launches"].update(res["launches"])
+        merged["seconds"][part] = res["seconds"]
+    return merged
+
+
 def main(argv=()):
     _import_port()
     import torch
@@ -3460,6 +4533,12 @@ def main(argv=()):
 
     if "--pod" in argv:             # phase 9 alone, as _pod runs it
         return _pod_child()
+    if "--blocks" in argv:          # phase 10 alone, as _blocks runs it
+        parts = [a for a in argv if a in ("models", "train")]
+        if parts:
+            return _blocks_child(parts[0])
+        print(json.dumps({"blocks": _blocks(_smi())}))
+        return 0
     smi = _card()
     model = build(CNN_CONFIG)
     cnn_sizes = [p.numel() for p in tree.leaves(model.init(torch.Generator()))]
@@ -3500,11 +4579,27 @@ def main(argv=()):
     pod = _pod(smi)
     for name, n in pod["launches"].items():
         counts[name] += n
+    blocks = _blocks(smi)
+    for got in blocks["launches"].values():
+        for name, n in got.items():
+            counts[name] = counts.get(name, 0) + n
+    if "pod" not in blocks["kernels"]:
+        raise AssertionError("phase 10 did not time K1-K3 on granite's "
+                             "buffer")
     for entry in report:
-        entry["launches"] = counts[entry["name"]]
-        if entry["name"] in pod["kernels"]:
-            entry["pod"] = {**pod["kernels"][entry["name"]],
-                            "launches": pod["launches"].get(entry["name"], 0)}
+        name = entry["name"]
+        entry["launches"] = counts[name]
+        if name in pod["kernels"]:
+            entry["pod"] = {**pod["kernels"][name],
+                            "launches": pod["launches"].get(name, 0)}
+        if name in blocks["kernels"]["pod"]:
+            entry["granite_pod"] = blocks["kernels"]["pod"][name]
+        if name in blocks["kernels"]:
+            entry["blocks"] = blocks["kernels"][name]
+        by_path = {path: got[name] for path, got in blocks["launches"].items()
+                   if name in got}
+        if by_path:
+            entry["blocks_launches"] = by_path
     print(smi)
     print(json.dumps({"kernels": report}))
     print(json.dumps({"ok": True, "device": {

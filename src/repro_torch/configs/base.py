@@ -1,10 +1,8 @@
 """Model and federated configuration — the port's copy of
 ``repro/configs/base.py``.
 
-``ModelConfig`` keeps the fields the paper models and the dense
-transformer read, with the JAX package's defaults (the MoE, SSM, VLM and
-audio fields come with ROADMAP queue 1 item 13; JAX's ``remat`` is left
-out, as the port has no activation rematerialisation).  ``FedConfig``
+``ModelConfig`` keeps every field of the JAX one, with its defaults, but
+``remat`` (the port has no activation rematerialisation).  ``FedConfig``
 keeps every field of the JAX one, with the same defaults, so a config
 written for one package reads the same in the other; the options this
 slice does not run raise ``NotImplementedError`` in
@@ -22,7 +20,7 @@ from typing import Optional, Tuple
 @dataclass(frozen=True)
 class ModelConfig:
     name: str
-    arch_type: str                    # dense | cnn | mlp in the port so far
+    arch_type: str                    # dense|moe|ssm|hybrid|vlm|audio|cnn|mlp
     n_layers: int                     # blocks (dense) / conv blocks (cnn) /
                                       # dense layers (mlp)
     d_model: int                      # width / base channels / n_features
@@ -35,11 +33,29 @@ class ModelConfig:
     rope_theta: float = 1.0e4
     norm_eps: float = 1.0e-5
     tie_embeddings: bool = False
+    # --- MoE ---
+    n_experts: int = 0
+    top_k: int = 0
+    capacity_factor: float = 1.25
+    router_aux_weight: float = 0.01
+    # --- SSM / hybrid ---
+    ssm_state: int = 0
+    ssm_conv: int = 4
+    ssm_expand: int = 2
+    ssm_dt_rank: int = 0              # 0 -> ceil(d_model/16)
+    scan_chunk: int = 256             # chunked associative scan (memory cap)
     scan_unroll: bool = False         # accepted for parity with JAX's
                                       # configs and ignored: its two values
                                       # compute the same function, and the
                                       # port has one layer loop
+    ssm_scan_dtype: str = "float32"   # mamba scan state/coeff dtype
+    # --- block layout ---
     block_pattern: Tuple[str, ...] = ()   # empty -> derived from arch_type
+    # --- VLM ---
+    cross_attn_every: int = 0         # every Nth layer is 'xattn'
+    n_image_tokens: int = 0           # frontend-stub token count
+    # --- audio ---
+    n_codebooks: int = 0              # frontend stub sums codebook embeddings
     embed_inputs: bool = True         # False: the caller passes embeddings
     sliding_window: int = 0           # 0 = full attention
     attn_impl: str = "xla"            # xla (plain) | pallas (K9 on the card)
@@ -58,6 +74,14 @@ class ModelConfig:
         return -(-self.vocab_size // 128) * 128
 
     @property
+    def resolved_dt_rank(self) -> int:
+        return self.ssm_dt_rank or -(-self.d_model // 16)
+
+    @property
+    def d_inner(self) -> int:
+        return self.ssm_expand * self.d_model
+
+    @property
     def layers(self) -> Tuple[str, ...]:
         """Per-layer block kinds (derives the default pattern)."""
         if self.block_pattern:
@@ -66,29 +90,46 @@ class ModelConfig:
             return self.block_pattern
         if self.arch_type in ("dense", "audio"):
             return ("attn",) * self.n_layers
-        if self.arch_type in ("moe", "hybrid", "ssm", "vlm"):
-            raise NotImplementedError(
-                f"arch_type {self.arch_type!r} comes with ROADMAP queue 1 "
-                "item 13")
+        if self.arch_type == "moe":
+            return ("moe",) * self.n_layers
+        if self.arch_type == "hybrid":
+            return ("hybrid",) * self.n_layers
+        if self.arch_type == "ssm":
+            # xLSTM[7:1]: every 8th block sLSTM, rest mLSTM (arXiv:2405.04517)
+            return tuple("slstm" if (i % 8) == 7 else "mlstm"
+                         for i in range(self.n_layers))
+        if self.arch_type == "vlm":
+            every = self.cross_attn_every or 5
+            return tuple("xattn" if (i % every) == (every - 1) else "attn"
+                         for i in range(self.n_layers))
         raise ValueError(f"unknown arch_type {self.arch_type}")
 
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
 
     def reduced(self) -> "ModelConfig":
-        """Smoke-test variant: 2 layers, d_model <= 256 (JAX's, for the
-        fields the port has)."""
+        """Smoke-test variant: 2 layers, d_model <= 256, <= 4 experts
+        (JAX's)."""
         d_model = min(self.d_model, 256)
         n_heads = min(self.n_heads, 4)
-        return self.replace(
+        kw = dict(
             n_layers=2, d_model=d_model, n_heads=n_heads,
             n_kv_heads=max(1, min(self.n_kv_heads, 2)),
             head_dim=d_model // n_heads,
             d_ff=min(self.d_ff, 512) if self.d_ff else 0,
             vocab_size=min(self.vocab_size, 512),
+            n_image_tokens=min(self.n_image_tokens, 16),
             sliding_window=(min(self.sliding_window, 64)
                             if self.sliding_window else 0),
             block_pattern=(), dtype="float32")
+        if self.n_experts:
+            kw["n_experts"] = min(self.n_experts, 4)
+            kw["top_k"] = min(self.top_k, 2)
+            # no-drop capacity: keeps decode-vs-full comparisons exact
+            kw["capacity_factor"] = float(kw["n_experts"])
+        if self.arch_type == "ssm":
+            kw["block_pattern"] = ("mlstm", "slstm")   # one of each kind
+        return self.replace(**kw)
 
 
 @dataclass(frozen=True)

@@ -212,6 +212,11 @@ class _Graph:
             if g.device.type == "cuda" and all(g is not h
                                                for h in self.generators):
                 self.generators.append(g)
+        # the warm-up's freed blocks go back to the device: the capture
+        # allocates from a pool of its own (a full-width pod step's
+        # buffers would otherwise be held twice)
+        self.stream.synchronize()
+        torch.cuda.empty_cache()
         self.graph = torch.cuda.CUDAGraph()
         for g in self.generators:
             self.graph.register_generator_state(g)

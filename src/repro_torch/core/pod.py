@@ -154,7 +154,8 @@ def make_train_step(model_cfg, fed_cfg, train_cfg, *, robust=None,
                     agg_axes=None):
     """Returns ``train_step(state, batch) -> (state, metrics)``.
 
-    batch: {tokens (GB, S), targets (GB, S)}, GB % C == 0; with
+    batch: {tokens (GB, S) or embeds (GB, S, d), targets (GB, S),
+    [image_embeds (GB, T, d)]}, GB % C == 0; with
     ``agg_mesh`` (``robust='per_client'`` only) the rows of this rank's
     C/W clients, (GB/W, S).
 
@@ -221,6 +222,7 @@ def make_train_step(model_cfg, fed_cfg, train_cfg, *, robust=None,
                 grads = torch.autograd.grad(loss, req)
             for v, g in zip(views, grads):
                 v[c].copy_(g)
+            del grads           # before the next client's backward
             losses.append(loss.detach())
             accs.append(m["acc"].detach())
         return buf, torch.stack(losses), torch.stack(accs)
@@ -276,6 +278,7 @@ def make_train_step(model_cfg, fed_cfg, train_cfg, *, robust=None,
             buf, loss_c, acc_c = client_grads(state.params, batch)
             grads, bytes_up_pc, new_ef = aggregate(state.params, buf, w,
                                                    fed.team, fed.rng, fed.ef)
+            del buf             # (C, N) fp32: free it before the optimizer
             loss_c, acc_c = gather(loss_c), gather(acc_c)
         else:
             req, p = _leaf_inputs(state.params)

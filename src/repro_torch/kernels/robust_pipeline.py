@@ -192,15 +192,15 @@ def _median_cols(x, m, n):
                   + (x * pick_hi).sum(1, keepdim=True))      # (G, 1, n)
 
 
-def cosine_gate_partials_plain(x, mask):
+def cosine_gate_partials_plain(x, mask, *, chunk=PLAIN_CHUNK):
     G, C, N = x.shape
     m = mask.float()[:, :, None]
     n = m.sum(1, keepdim=True)
     dots = torch.zeros(G, C, device=x.device)
     sqn = torch.zeros(G, C, device=x.device)
     refsq = torch.zeros(G, 1, device=x.device)
-    for s in range(0, N, PLAIN_CHUNK):
-        xc = x[:, :, s:s + PLAIN_CHUNK].float()
+    for s in range(0, N, chunk):
+        xc = x[:, :, s:s + chunk].float()
         med = _median_cols(xc, m, n)
         dots += (xc * med).sum(-1)
         sqn += (xc * xc).sum(-1)
@@ -208,14 +208,15 @@ def cosine_gate_partials_plain(x, mask):
     return dots, sqn, refsq
 
 
-def gated_combine_plain(x, gated_mask, weights, *, mode, trim_frac=0.2):
+def gated_combine_plain(x, gated_mask, weights, *, mode, trim_frac=0.2,
+                        chunk=PLAIN_CHUNK):
     G, C, N = x.shape
     m = gated_mask.float()[:, :, None]
     w = weights.float()[:, :, None]
     n = m.sum(1, keepdim=True)
     out = torch.empty(G, N, device=x.device)
-    for s in range(0, N, PLAIN_CHUNK):
-        xc = x[:, :, s:s + PLAIN_CHUNK].float()
+    for s in range(0, N, chunk):
+        xc = x[:, :, s:s + chunk].float()
         if mode == "mean":
             r = (xc * w).sum(1)
         elif mode == "median":
@@ -227,15 +228,15 @@ def gated_combine_plain(x, gated_mask, weights, *, mode, trim_frac=0.2):
             r = (xc * keep).sum(1) / torch.clamp(n - 2.0 * t, min=1.0)[:, 0]
         else:
             raise ValueError(mode)
-        out[:, s:s + PLAIN_CHUNK] = r
+        out[:, s:s + chunk] = r
     return out
 
 
-def pairwise_gram_plain(x):
+def pairwise_gram_plain(x, *, chunk=PLAIN_CHUNK):
     G, C, N = x.shape
     gram = torch.zeros(G, C, C, device=x.device)
-    for s in range(0, N, PLAIN_CHUNK):
-        xc = x[:, :, s:s + PLAIN_CHUNK].float()
+    for s in range(0, N, chunk):
+        xc = x[:, :, s:s + chunk].float()
         gram += xc @ xc.transpose(1, 2)
     return gram
 

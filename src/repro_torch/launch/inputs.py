@@ -2,7 +2,10 @@
 the train-side part of ``repro/launch/inputs.py``.
 
 ``ShapeDtype`` is the counterpart of ``jax.ShapeDtypeStruct``: a shape
-tuple and a torch dtype.  ``batch_shardings`` gives the ``NamedSharding``
+tuple and a torch dtype.  The [audio] and [vlm] frontends are stubs, as in
+the JAX package: a batch carries frame embeddings (``embeds``, (B, S, d))
+in place of tokens, or patch embeddings (``image_embeds``, (B, T, d))
+beside them.  ``batch_shardings`` gives the ``NamedSharding``
 of each batch leaf over a mesh, which the pod driver's staging cuts each
 rank's rows with (``core/driver.py``).  The decode-side specs
 (``infer_batch_specs``, ``cache_specs_struct``) come with the dry-run,
@@ -51,6 +54,9 @@ def train_batch_specs(cfg: ModelConfig, shape_name: str):
         batch["tokens"] = ShapeDtype((gb, s), torch.int32)
     else:
         batch["embeds"] = ShapeDtype((gb, s, cfg.d_model), torch.bfloat16)
+    if cfg.arch_type == "vlm":
+        batch["image_embeds"] = ShapeDtype((gb, cfg.n_image_tokens,
+                                            cfg.d_model), torch.bfloat16)
     return batch
 
 

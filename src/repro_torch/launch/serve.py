@@ -13,6 +13,10 @@ dense full-cache loop as baselines.  On the card unless ``--device cpu``.
   ... --trace serve_trace.json --telemetry-jsonl serve.jsonl
                                       # telemetry: a row a decode step
 
+``--arch`` takes every name of ``configs.registry.ARCHS`` whose model
+reads tokens; the paged engines take stacks of ``attn`` and ``moe`` blocks
+(e.g. ``granite-moe-1b-a400m``), the dense loop every block kind.
+
 Engines:
   continuous  slot scheduler + paged KV + K8 (the default)
   fixed       the same steps, batch-until-drained admission
@@ -131,6 +135,9 @@ def main(argv=None):
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
+    if not cfg.embed_inputs:
+        ap.error(f"{cfg.name} reads frame embeddings (its frontend is a "
+                 "stub); the engines feed back the tokens they sample")
     model = build(cfg)
     gen = torch.Generator(dev).manual_seed(args.seed)
     params = transformer.cast_params(model.init(gen), cfg)

@@ -16,6 +16,10 @@ trains with fedavg) picks the aggregator.  Runs on the card unless
       --steps 50 --global-batch 16 --seq 256 --clients 4 \\
       [--robust per_client] [--ckpt-dir DIR]
 
+``--arch`` takes every name of ``configs.registry.ARCHS`` (e.g.
+``granite-moe-1b-a400m``: its MoE layers' aux loss enters the weighted
+loss; musicgen trains on frame embeddings, a VLM with patch embeddings).
+
 Prints a JSON row every 5 steps and the last, then ``done``.  ``main``
 returns ``(final_state, history)`` to a caller in the same process.
 """
@@ -50,24 +54,47 @@ def synthetic_lm_batches(cfg, tc, n_clients, seed, device):
     latent Markov mixture component (label-skew analogue for LM data).
     Returns ``sample(step)``: the step's batch, drawn from a generator
     seeded by (seed, step) alone, so a resumed run draws the batches of
-    an uninterrupted one."""
+    an uninterrupted one.
+
+    The frontend stubs (``launch/inputs.py``): a model that reads
+    embeddings (``embed_inputs=False``, musicgen) gets each input token's
+    row of a fixed random frame table in place of the token; a VLM gets
+    random patch embeddings (B, n_image_tokens, d) a step."""
+    gb, s, d = tc.global_batch, tc.seq_len, cfg.d_model
     pools = torch.stack([
         synthetic.make_lm_tokens(_gen(device, seed * 1000 + c), POOL,
-                                 tc.seq_len + 1, cfg.vocab_size, n_latent=2)
+                                 s + 1, cfg.vocab_size, n_latent=2)
         for c in range(n_clients)])                 # (C, POOL, S + 1)
-    bc = tc.global_batch // n_clients
+    bc = gb // n_clients
     rows = torch.arange(n_clients, device=device)[:, None]
+    frames = None if cfg.embed_inputs else torch.randn(
+        cfg.vocab_size, d, generator=_gen(device, seed + 2), device=device)
+    vlm = cfg.arch_type == "vlm"
 
     def sample(step):
         g = _gen(device, (seed + 1) * 1_000_003 + step)
         idx = torch.randint(0, POOL, (n_clients, bc), generator=g,
                             device=device)
-        seqs = pools[rows, idx].reshape(tc.global_batch, tc.seq_len + 1)
-        return {"tokens": seqs[:, :-1], "targets": seqs[:, 1:]}
+        seqs = pools[rows, idx].reshape(gb, s + 1)
+        batch = {"targets": seqs[:, 1:]}
+        if frames is None:
+            batch["tokens"] = seqs[:, :-1]
+        else:
+            batch["embeds"] = frames[seqs[:, :-1]]
+        if vlm:
+            batch["image_embeds"] = torch.randn(
+                gb, cfg.n_image_tokens, d, generator=g, device=device)
+        return batch
 
-    sample.specs = {k: inputs.ShapeDtype((tc.global_batch, tc.seq_len),
-                                         torch.int64)
-                    for k in ("tokens", "targets")}
+    spec = lambda *shape, dtype=torch.float32: inputs.ShapeDtype(shape,
+                                                                 dtype)
+    sample.specs = {"targets": spec(gb, s, dtype=torch.int64)}
+    if frames is None:
+        sample.specs["tokens"] = spec(gb, s, dtype=torch.int64)
+    else:
+        sample.specs["embeds"] = spec(gb, s, d)
+    if vlm:
+        sample.specs["image_embeds"] = spec(gb, cfg.n_image_tokens, d)
     return sample
 
 

@@ -1,5 +1,5 @@
-"""GQA self-attention and its KV caches (port of
-``repro/models/attention.py``).
+"""GQA self-attention (full / sliding-window), cross-attention and the KV
+caches (port of ``repro/models/attention.py``).
 
 Execution modes of ``attention_fwd``:
   * no cache (train / scoring): full-sequence causal attention, optional
@@ -7,14 +7,20 @@ Execution modes of ``attention_fwd``:
     score / softmax / value contraction to K9 (``kernels/flash_attention``),
     as the JAX package routes it to its Pallas kernel;
   * full cache: prefill-fill or decode against a (B, L, Hkv, dh) cache;
+  * ring cache (sliding window): prefill fills the last min(S, W) slots of
+    a (B, W, Hkv, dh) ring at ``pos mod W`` (a prefill starts at position
+    0, as in the JAX package), decode writes one slot and masks the slots
+    by the absolute position each holds;
+  * cross-attention: prefill projects ``kv_source`` (the image embeddings)
+    and stores it as the frozen ``ck`` / ``cv``, decode reuses them; no
+    rope, no causal mask;
   * paged pools (serving): prefill scatter, and decode append + attend
     through K8 (``attn_impl="pallas"``) or the dense gather reference.
-The ring cache and cross-attention come with ROADMAP queue 1 item 13.
 
 **In place.**  The JAX package returns new caches; here the K/V rows are
 written into the caller's cache tensors (which may be views of the
-transformer's stacked cache), a full cache's ``length`` is advanced in
-place, and the same dict comes back.  A pool at full minitron width is
+transformer's stacked cache), a full cache's ``length`` and a ring's
+``pos`` are advanced in place, and the same dict comes back.  A pool at full minitron width is
 0.4-1.6 GB, so it is never copied.
 
 **Dropped rows.**  The JAX scatters drop rows with ``mode="drop"``
@@ -36,14 +42,14 @@ from repro_torch.models.layers import apply_rope, dense_init
 NEG_INF = -1e30
 
 
-def init_attention(generator, cfg, lead=()):
+def init_attention(generator, cfg, lead=(), cross=False):
     d, hq, hkv = cfg.d_model, cfg.n_heads, cfg.n_kv_heads
     dh = cfg.resolved_head_dim
     p = {"wq": dense_init(generator, (d, hq * dh), lead=lead),
          "wk": dense_init(generator, (d, hkv * dh), lead=lead),
          "wv": dense_init(generator, (d, hkv * dh), lead=lead),
          "wo": dense_init(generator, (hq * dh, d), lead=lead)}
-    if cfg.qkv_bias:
+    if cfg.qkv_bias and not cross:
         for name, width in (("bq", hq), ("bk", hkv), ("bv", hkv)):
             p[name] = torch.zeros((*lead, width * dh),
                                   device=generator.device)
@@ -59,10 +65,11 @@ def _proj(params, name, x, heads, dh, dtype):
 
 def _sdpa(q, k, v, mask):
     """q: (B, S, Hkv, G, dh); k/v: (B, T, Hkv, dh); mask broadcastable to
-    (B, 1, 1, S, T) -> (B, S, Hkv, G, dh) fp32."""
+    (B, 1, 1, S, T), or None for no mask -> (B, S, Hkv, G, dh) fp32."""
     scale = q.shape[-1] ** -0.5
     scores = torch.einsum("bshgd,bthd->bhgst", q.float() * scale, k.float())
-    scores = torch.where(mask, scores, NEG_INF)
+    if mask is not None:
+        scores = torch.where(mask, scores, NEG_INF)
     probs = torch.softmax(scores, dim=-1)
     return torch.einsum("bhgst,bthd->bshgd", probs, v.float())
 
@@ -81,24 +88,23 @@ def causal_mask(s, t_offset=0, window=0, device=None):
 def attention_fwd(params, x, cfg, positions, *, window=0, cache=None,
                   kv_source=None, layer_idx=0, rope=None):
     """Returns (out, cache).  x: (B, S, d); ``rope``: the positions'
-    ``layers.rope_table``, if the caller computed it.  cache:
+    ``layers.rope_table``, if the caller computed it; ``kv_source``: (B, T,
+    d) for cross-attention.  cache:
       None                     -> full sequence, no cache returned
       {"k","v","length"}       -> full cache decode / prefill-fill
+      {"k","v","pos"} (ring)   -> sliding-window ring cache
       {"kp","vp","table",...}  -> paged pools (``init_paged_kv_cache``)
+      {"ck","cv"}              -> frozen cross-attention KV
     """
-    if kv_source is not None or (cache is not None and "ck" in cache):
-        raise NotImplementedError(
-            "cross-attention comes with ROADMAP queue 1 item 13")
-    if cache is not None and "pos" in cache:
-        raise NotImplementedError(
-            "the sliding-window ring cache comes with ROADMAP queue 1 item 13")
     dtype = x.dtype
     hq, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
     g = hq // hkv
     B, S, _ = x.shape
 
-    q = apply_rope(_proj(params, "q", x, hq, dh, dtype), positions,
-                   cfg.rope_theta, rope)
+    q = _proj(params, "q", x, hq, dh, dtype)
+    if kv_source is not None or (cache is not None and "ck" in cache):
+        return _cross_fwd(params, q, cache, kv_source, cfg)
+    q = apply_rope(q, positions, cfg.rope_theta, rope)
     k_new = apply_rope(_proj(params, "k", x, hkv, dh, dtype), positions,
                        cfg.rope_theta, rope)
     v_new = _proj(params, "v", x, hkv, dh, dtype)
@@ -116,6 +122,8 @@ def attention_fwd(params, x, cfg, positions, *, window=0, cache=None,
 
     if "table" in cache:
         return _paged_fwd(params, cache, q, k_new, v_new, cfg, window)
+    if "pos" in cache:
+        return _ring_fwd(params, cache, q, k_new, v_new, cfg, window)
 
     # ---- full cache: prefill-fill or decode ----
     k, v, length = cache["k"], cache["v"], cache["length"]
@@ -132,6 +140,74 @@ def attention_fwd(params, x, cfg, positions, *, window=0, cache=None,
     out = _sdpa(q.reshape(B, S, hkv, g, dh), k, v, mask[None, None, None])
     out = out.reshape(B, S, hq * dh).to(dtype) @ params["wo"].to(dtype)
     length.add_(S)
+    return out, cache
+
+
+def _cross_fwd(params, q, cache, kv_source, cfg):
+    """Cross-attention: with ``kv_source`` (prefill, or no cache) K / V are
+    its projections, stored into ``cache`` as ``ck`` / ``cv`` if there is
+    one; without it (decode) they are the cache's.  Every query sees every
+    key."""
+    dtype = q.dtype
+    hq, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    B, S = q.shape[:2]
+    if kv_source is None:
+        k, v = cache["ck"], cache["cv"]
+    else:
+        # JAX's ``kv_source @ w.astype(dtype)`` promotes: the weights
+        # rounded to the compute dtype, the product in the wider of the two
+        ct = torch.promote_types(kv_source.dtype, dtype)
+        kv = kv_source.to(ct)
+        k, v = ((kv @ params["w" + n].to(dtype).to(ct)).reshape(
+            *kv.shape[:2], hkv, dh) for n in ("k", "v"))
+        if cache is not None:
+            cache["ck"].copy_(k)
+            cache["cv"].copy_(v)
+    out = _sdpa(q.reshape(B, S, hkv, hq // hkv, dh), k, v, None)
+    out = out.reshape(B, S, hq * dh).to(dtype) @ params["wo"].to(dtype)
+    return out, cache
+
+
+def _ring_fwd(params, cache, q, k_new, v_new, cfg, window):
+    """The sliding-window ring cache, (B, W, Hkv, dh) and the absolute
+    position ``pos`` of the next token.
+
+    Prefill (S > 1) starts at position 0 (it raises otherwise): windowed
+    causal attention over the prompt, then its last min(S, W) keys and
+    values into slots ``p mod W``.  Decode (S == 1) writes slot ``pos mod
+    W`` and attends over the slots whose absolute position (the largest p
+    <= pos with p = j mod W) lies in the window."""
+    dtype = q.dtype
+    hq, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    g = hq // hkv
+    B, S = q.shape[:2]
+    k, v, pos = cache["k"], cache["v"], cache["pos"]
+    W = k.shape[1]
+    dev = q.device
+    if S > 1:
+        if int(pos) != 0:
+            raise ValueError("a ring-cache prefill starts at position 0")
+        mask = causal_mask(S, window=window, device=dev)
+        out = _sdpa(q.reshape(B, S, hkv, g, dh), k_new, v_new,
+                    mask[None, None, None])
+        take = min(S, W)
+        slots = torch.arange(S - take, S, device=dev) % W
+        k.index_copy_(1, slots, k_new[:, S - take:].to(k.dtype))
+        v.index_copy_(1, slots, v_new[:, S - take:].to(v.dtype))
+        pos.fill_(S)
+    else:
+        slot = (pos % W).reshape(1).long()
+        k.index_copy_(1, slot, k_new.to(k.dtype))
+        v.index_copy_(1, slot, v_new.to(v.dtype))
+        j = torch.arange(W, device=dev)
+        abs_pos = pos - (pos - j) % W
+        valid = (abs_pos >= 0) & (abs_pos <= pos)
+        if window:
+            valid &= abs_pos > pos - window
+        out = _sdpa(q.reshape(B, S, hkv, g, dh), k, v,
+                    valid[None, None, None, None, :])
+        pos.add_(1)
+    out = out.reshape(B, S, hq * dh).to(dtype) @ params["wo"].to(dtype)
     return out, cache
 
 
@@ -220,13 +296,13 @@ def _append(cache, dest, row, k, v, int8):
 
 def init_kv_cache(cfg, batch, max_len, *, ring=False, dtype=torch.bfloat16,
                   device=None):
-    if ring:
-        raise NotImplementedError(
-            "the sliding-window ring cache comes with ROADMAP queue 1 item 13")
+    """A full cache of ``max_len`` rows, or with ``ring`` a ring of
+    ``max_len`` slots (the caller passes the window)."""
     shape = (batch, max_len, cfg.n_kv_heads, cfg.resolved_head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device),
-            "length": torch.zeros((), dtype=torch.int32, device=device)}
+            "pos" if ring else "length":
+                torch.zeros((), dtype=torch.int32, device=device)}
 
 
 def init_paged_kv_cache(cfg, slots, num_pages, page_size, max_pages, *,

@@ -1,7 +1,5 @@
 """Parameter init helpers and primitive layers (port of
-``repro/models/layers.py``: what the paper models and the dense
-transformer need; ``group_norm`` and ``causal_depthwise_conv`` come with
-the ssm/xlstm blocks, ROADMAP queue 1 item 13).
+``repro/models/layers.py``).
 
 Init helpers take a ``lead`` shape: the transformer's (n_units,) layer
 stack is drawn in one stacked tensor, not stacked after the fact, so a
@@ -13,6 +11,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 def dense_init(generator: torch.Generator, shape, in_axis=0,
@@ -40,6 +40,16 @@ def rms_norm(x, scale, eps=1e-5):
 
 def init_rms_norm(d, device, lead=()):
     return {"scale": torch.ones((*lead, d), device=device)}
+
+
+def group_norm(x, scale, n_groups, eps=1e-5):
+    """Per-head group norm of the xLSTM cells.  x: (..., d)."""
+    *lead, d = x.shape
+    x32 = x.float().reshape(*lead, n_groups, d // n_groups)
+    mu = x32.mean(-1, keepdim=True)
+    var = x32.var(-1, unbiased=False, keepdim=True)
+    y = ((x32 - mu) * torch.rsqrt(var + eps)).reshape(*lead, d)
+    return (y * scale.float()).to(x.dtype)
 
 
 def rope_freqs(head_dim, theta, device=None):
@@ -80,3 +90,41 @@ def mlp_fwd(params, x, dtype):
     """SwiGLU: (silu(x Wg) * x Wu) Wo, in ``dtype``."""
     h = F.silu(x @ params["wg"].to(dtype)) * (x @ params["wu"].to(dtype))
     return h @ params["wo"].to(dtype)
+
+
+def _taps(window, kernel):
+    """sum_k window[:, k:k + S] * kernel[k] in fp32, k in order: the causal
+    depthwise conv of a (B, S + K - 1, C) window."""
+    K = kernel.shape[0]
+    S = window.shape[1] - K + 1
+    w, kern = window.float(), kernel.float()
+    y = w[:, 0:S] * kern[0]
+    for k in range(1, K):
+        y = y + w[:, k:k + S] * kern[k]
+    return y
+
+
+def causal_depthwise_conv(x, kernel, bias, state=None):
+    """Causal depthwise 1D conv.  x: (B, S, C); kernel: (K, C).
+
+    With ``state`` (B, K - 1, C), a one-step decode update: returns (y,
+    new_state) with S == 1.  Else the left-padded sequence conv and None."""
+    K = kernel.shape[0]
+    if state is not None:
+        window = torch.cat([state.to(x.dtype), x], dim=1)     # (B, K, C)
+        y = (_taps(window, kernel) + bias.float()).to(x.dtype)
+        return y, window[:, 1:]
+    pad = x.new_zeros((x.shape[0], K - 1, x.shape[2]))
+    y = _taps(torch.cat([pad, x], dim=1), kernel)
+    return (y + bias.float()).to(x.dtype), None
+
+
+def causal_conv_carried(x, kernel, bias, conv_state):
+    """The causal conv of a sequence x (B, S, C) seeded with the carried
+    left context ``conv_state`` (B, K - 1, C) in place of zeros (a prefill
+    after earlier steps) -> (conv out, the new conv state: the last K - 1
+    inputs)."""
+    K = kernel.shape[0]
+    ext = torch.cat([conv_state.to(x.dtype), x], dim=1)
+    y, _ = causal_depthwise_conv(ext, kernel, bias)
+    return y[:, K - 1:], ext[:, -(K - 1):]

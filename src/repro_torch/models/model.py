@@ -1,14 +1,18 @@
 """Model facade (port of ``repro/models/model.py``: the paper models and
-the dense decoder transformer).
+the decoder transformer of every assigned architecture).
 
 ``build(cfg)`` returns a ``Model`` with
   init(generator)               -> params (on the generator's device)
   loss(params, batch)           -> (loss, metrics)
   forward(params, batch)        -> logits (full sequence)
 and, for the transformer,
-  init_cache(batch, max_len)    -> full KV cache
+  init_cache(batch, max_len)    -> the cache of every block (``ring``:
+                                   sliding-window rings)
   prefill(params, batch, cache) -> (last-position logits, cache)
   decode(params, batch, cache, pos) -> (logits, cache)
+A batch holds ``tokens`` or ``embeds`` (musicgen's frontend stub), and
+``image_embeds`` for the cross-attention layers (prefill and the full
+sequence; decode reads their cache).
 """
 from __future__ import annotations
 
@@ -65,7 +69,9 @@ def _transformer_model(cfg) -> Model:
         # last-position logits only: nothing downstream reads the others
         hidden, cache, _ = transformer.forward(
             params, cfg, tokens=batch.get("tokens"),
-            embeds=batch.get("embeds"), cache=cache, collect_logits=False)
+            embeds=batch.get("embeds"),
+            image_embeds=batch.get("image_embeds"), cache=cache,
+            collect_logits=False)
         return transformer.lm_head(params, cfg, hidden[:, -1:]), cache
 
     def decode(params, batch, cache, pos):

@@ -1,0 +1,107 @@
+"""Top-k MoE FFN with sort-based capacity dispatch (port of
+``repro/models/moe.py``: GShard-style dropping).
+
+  * the router's softmax in fp32, its top-k in ``lax.top_k``'s order (a
+    stable descending sort: of equal probabilities the lower expert first),
+    the k weights renormalised, and the Switch load-balance loss;
+  * dispatch: a stable argsort of the (token, k) pairs by expert, each
+    pair's rank within its expert, capacity C = tokens * top_k *
+    capacity_factor / E rounded up to 8; a pair ranked past C goes to the
+    drop slot E * C;
+  * the expert SwiGLU as three batched matmuls over the dense (E, C, d)
+    buffer;
+  * the combine: each routed pair's weighted expert row, gathered back to
+    its (token, k) place by the inverse of the dispatch permutation, then
+    summed over the k choices.  JAX adds the rows into their tokens by a
+    scatter-add (``.at[tok].add``); on CUDA ``index_add_`` does that with
+    atomics in no fixed order (outside deterministic mode), so a replayed
+    step would not be bitwise its eager run.  The gather and the sum over
+    k are deterministic on every device; the sum's order differs from
+    JAX's, within rounding.
+
+It reads nothing back to the host: the capacity is a Python int of the
+static shapes, the pairs' tokens an ``arange`` repeated an int number of
+times, and no boolean mask indexes a tensor, so a forward through it can
+be captured as a CUDA graph.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.models.layers import dense_init
+
+
+def init_moe(generator, cfg, lead=()):
+    d, ff, e = cfg.d_model, cfg.d_ff, cfg.n_experts
+    return {"router": dense_init(generator, (d, e), lead=lead),
+            "wg": dense_init(generator, (e, d, ff), in_axis=1, lead=lead),
+            "wu": dense_init(generator, (e, d, ff), in_axis=1, lead=lead),
+            "wo": dense_init(generator, (e, ff, d), in_axis=1, lead=lead)}
+
+
+def _capacity(n_tokens, cfg):
+    c = int(n_tokens * cfg.top_k * cfg.capacity_factor / cfg.n_experts)
+    return max(8, -(-c // 8) * 8)
+
+
+def route(params, xf, cfg):
+    """The router on (N, d) tokens -> (probs (N, E) fp32, top_p (N, K)
+    renormalised, top_e (N, K) int64, aux loss)."""
+    E, K = cfg.n_experts, cfg.top_k
+    logits = (xf @ params["router"].to(xf.dtype)).float()
+    probs = torch.softmax(logits, dim=-1)
+    top_p, top_e = torch.sort(probs, dim=-1, descending=True, stable=True)
+    top_p, top_e = top_p[:, :K], top_e[:, :K]
+    top_p = top_p / top_p.sum(-1, keepdim=True).clamp_min(1e-9)
+    # Switch aux loss: E * sum_e fraction_routed_e * mean_prob_e
+    experts = torch.arange(E, device=xf.device)
+    frac = (top_e[..., None] == experts).float().sum(1).mean(0)
+    aux = E * torch.sum(frac * probs.mean(0)) * cfg.router_aux_weight
+    return probs, top_p, top_e, aux
+
+
+def dispatch(top_e, N, cfg):
+    """The sort-based dispatch of the (N * K) routed pairs -> (order, the
+    pairs' tokens in that order, keep, dest): ``order`` sorts the pairs by
+    expert (stable), ``dest`` is each sorted pair's row of the (E * C + 1)
+    buffer, E * C where it is dropped."""
+    E, K = cfg.n_experts, cfg.top_k
+    C = _capacity(N, cfg)
+    dev = top_e.device
+    flat_e = top_e.reshape(-1)
+    flat_tok = torch.arange(N, device=dev).repeat_interleave(K)
+    order = torch.argsort(flat_e, stable=True)
+    sorted_e = flat_e[order]
+    start = torch.searchsorted(sorted_e, torch.arange(E, device=dev))
+    rank = torch.arange(N * K, device=dev) - start[sorted_e]
+    keep = rank < C
+    dest = torch.where(keep, sorted_e * C + rank, E * C)
+    return order, flat_tok[order], keep, dest
+
+
+def moe_fwd(params, x, cfg):
+    """x: (B, S, d) -> (y, aux_loss)."""
+    dtype = x.dtype
+    B, S, d = x.shape
+    E = cfg.n_experts
+    N = B * S
+    xf = x.reshape(N, d)
+    _, top_p, top_e, aux = route(params, xf, cfg)
+    C = _capacity(N, cfg)
+    order, tok, keep, dest = dispatch(top_e, N, cfg)
+
+    buf = xf.new_zeros((E * C + 1, d))
+    buf[dest] = xf[tok]             # only the drop row takes duplicates
+    eb = buf[:E * C].reshape(E, C, d)
+
+    h = F.silu(torch.bmm(eb, params["wg"].to(dtype))) \
+        * torch.bmm(eb, params["wu"].to(dtype))
+    eo = torch.bmm(h, params["wo"].to(dtype)).reshape(E * C, d)
+    eo = torch.cat([eo, eo.new_zeros((1, d))], dim=0)
+
+    w = (top_p.reshape(-1)[order] * keep).to(dtype)
+    gathered = eo[dest] * w[:, None]                  # sorted pair order
+    inv = torch.argsort(order)                        # pair -> sorted place
+    out = gathered[inv].reshape(N, cfg.top_k, d).sum(1)
+    return out.reshape(B, S, d), aux

@@ -1,19 +1,28 @@
-"""Decoder-only transformer (port of ``repro/models/transformer.py``: the
-dense ``attn`` block; moe, hybrid, xattn and the xLSTM blocks come with
-ROADMAP queue 1 item 13).
+"""Composable decoder-only transformer covering every assigned
+architecture (port of ``repro/models/transformer.py``).
+
+Block kinds (``cfg.layers``):
+  attn    pre-norm self-attention + SwiGLU MLP           (dense archs)
+  moe     pre-norm self-attention + top-k MoE FFN        (granite, dbrx)
+  hybrid  pre-norm parallel attention | mamba + MLP      (hymba)
+  mlstm   matrix-memory xLSTM block                      (xlstm)
+  slstm   scalar-memory xLSTM block                      (xlstm)
+  xattn   pre-norm cross-attention (image) + MLP         (llama-3.2-vision)
 
 Parameters keep the JAX layout: each leaf of ``params["layers"]`` is
 stacked over the layer *units* (a unit is one repetition of
 ``layer_cycle``), (n_units, ...).  ``forward`` is JAX's ``scan_unroll``
 branch, the same function as its ``lax.scan``: a Python loop over the
-units, each unit's leaves indexed out of the stack (views, no copy).
+units, each unit's leaves indexed out of the stack (views, no copy).  The
+MoE layers' auxiliary losses are summed over the layers.
 
 Modes:
   full sequence : ``forward(cache=None)`` (scoring, the loss)
-  prefill       : ``forward(cache=...)`` fills a full or paged cache
+  prefill       : ``forward(cache=...)`` fills a full, ring, paged,
+                  cross-attention, mamba or xLSTM cache
   decode        : S = 1 against the cache
-Caches are updated in place (``models/attention.py``) and ``forward``
-returns the same cache object.
+Caches are updated in place (``models/attention.py``, ``ssm.py``,
+``xlstm.py``) and ``forward`` returns the same cache object.
 """
 from __future__ import annotations
 
@@ -21,11 +30,17 @@ import torch
 
 from repro_torch import tree
 from repro_torch.models import attention as attn_lib
-from repro_torch.models.layers import (dense_init, embed_init, init_mlp,
-                                       init_rms_norm, mlp_fwd, rms_norm,
-                                       rope_table)
-
-DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+from repro_torch.models import moe as moe_lib
+from repro_torch.models import ssm as ssm_lib
+from repro_torch.models import xlstm as xlstm_lib
+from repro_torch.models.layers import (DTYPES, dense_init, embed_init,
+                                       init_mlp, init_rms_norm, mlp_fwd,
+                                       rms_norm, rope_table)
+# leaves the forward reads in fp32 (never cast to the compute dtype)
+FP32_LEAVES = frozenset({"scale", "A_log", "dt_bias", "D", "conv_w",
+                         "conv_b", "dt_proj", "bi", "bf", "gn", "r", "b",
+                         "gate"})
+ATTENTION_KINDS = ("attn", "moe", "hybrid")
 
 
 def layer_cycle(cfg):
@@ -38,25 +53,50 @@ def layer_cycle(cfg):
     return pattern, 1
 
 
-def _check_kinds(cycle):
-    for kind in cycle:
-        if kind != "attn":
-            raise NotImplementedError(
-                f"block kind {kind!r} comes with ROADMAP queue 1 item 13")
+def _init_block(generator, kind, cfg, lead):
+    d, dev = cfg.d_model, generator.device
+    norm = lambda: init_rms_norm(d, dev, lead)
+    if kind == "attn":
+        return {"ln1": norm(),
+                "attn": attn_lib.init_attention(generator, cfg, lead),
+                "ln2": norm(),
+                "mlp": init_mlp(generator, d, cfg.d_ff, lead)}
+    if kind == "moe":
+        return {"ln1": norm(),
+                "attn": attn_lib.init_attention(generator, cfg, lead),
+                "ln2": norm(),
+                "moe": moe_lib.init_moe(generator, cfg, lead)}
+    if kind == "hybrid":
+        return {"ln1": norm(),
+                "attn": attn_lib.init_attention(generator, cfg, lead),
+                "mamba": ssm_lib.init_mamba(generator, cfg, lead=lead),
+                "lna": norm(), "lnm": norm(), "ln2": norm(),
+                "mlp": init_mlp(generator, d, cfg.d_ff, lead)}
+    if kind == "xattn":
+        return {"ln1": norm(),
+                "xattn": attn_lib.init_attention(generator, cfg, lead,
+                                                 cross=True),
+                "gate": torch.zeros(lead, device=dev),  # zero-init gate
+                "ln2": norm(),
+                "mlp": init_mlp(generator, d, cfg.d_ff, lead)}
+    if kind == "mlstm":
+        return {"ln1": norm(),
+                "mlstm": xlstm_lib.init_mlstm(generator, cfg, lead)}
+    if kind == "slstm":
+        return {"ln1": norm(),
+                "slstm": xlstm_lib.init_slstm(generator, cfg, lead)}
+    raise ValueError(kind)
 
 
 def init_transformer(generator, cfg):
     """Random init on the generator's device, every unit's leaves drawn
     stacked (n_units, ...)."""
     cycle, n_units = layer_cycle(cfg)
-    _check_kinds(cycle)
-    d, dev, lead = cfg.d_model, generator.device, (n_units,)
-    layers = {f"b{i}": {"ln1": init_rms_norm(d, dev, lead),
-                        "attn": attn_lib.init_attention(generator, cfg, lead),
-                        "ln2": init_rms_norm(d, dev, lead),
-                        "mlp": init_mlp(generator, d, cfg.d_ff, lead)}
-              for i in range(len(cycle))}
-    params = {"layers": layers, "ln_f": init_rms_norm(d, dev)}
+    d, lead = cfg.d_model, (n_units,)
+    layers = {f"b{i}": _init_block(generator, kind, cfg, lead)
+              for i, kind in enumerate(cycle)}
+    params = {"layers": layers,
+              "ln_f": init_rms_norm(d, generator.device)}
     if cfg.embed_inputs:
         params["embed"] = embed_init(generator, (cfg.padded_vocab, d))
     if not cfg.tie_embeddings or not cfg.embed_inputs:
@@ -66,39 +106,94 @@ def init_transformer(generator, cfg):
 
 def cast_params(params, cfg):
     """Every leaf the forward casts to the compute dtype (matmul weights,
-    biases, the embedding), cast once; the norm scales, read in fp32, stay.
-    The forward's ``.to(dtype)`` of a cast leaf is then the leaf itself, so
-    the result is the per-call cast's, bit for bit.  At fp32 nothing is
-    copied."""
+    biases, the embedding), cast once; the leaves it reads in fp32
+    (``FP32_LEAVES``: norm scales, the SSM's decay, step and conv, the
+    xLSTM gates' biases, the cross-attention gate) stay.  The forward's
+    ``.to(dtype)`` of a cast leaf is then the leaf itself, so the result is
+    the per-call cast's, bit for bit.  At fp32 nothing is copied."""
     dtype = DTYPES[cfg.dtype]
 
     def walk(t, key=None):
         if isinstance(t, dict):
             return {k: walk(v, k) for k, v in t.items()}
-        return t if key == "scale" else t.to(dtype)
+        return t if key in FP32_LEAVES else t.to(dtype)
 
     return walk(params)
 
 
-def _block_fwd(bp, kind, x, cfg, positions, cache, window, rope):
-    h, new_cache = attn_lib.attention_fwd(
-        bp["attn"], rms_norm(x, bp["ln1"]["scale"], cfg.norm_eps), cfg,
-        positions, window=window, cache=cache, rope=rope)
-    x = x + h
-    y = rms_norm(x, bp["ln2"]["scale"], cfg.norm_eps)
-    return x + mlp_fwd(bp["mlp"], y, x.dtype), new_cache
+def _block_fwd(bp, kind, x, cfg, positions, cache, image_embeds, window,
+               rope):
+    """One block -> (x, aux loss or None)."""
+    eps = cfg.norm_eps
+    if kind in ("attn", "moe"):
+        h, _ = attn_lib.attention_fwd(
+            bp["attn"], rms_norm(x, bp["ln1"]["scale"], eps), cfg,
+            positions, window=window, cache=cache, rope=rope)
+        x = x + h
+        y = rms_norm(x, bp["ln2"]["scale"], eps)
+        if kind == "moe":
+            m, aux = moe_lib.moe_fwd(bp["moe"], y, cfg)
+            return x + m, aux
+        return x + mlp_fwd(bp["mlp"], y, x.dtype), None
+    if kind == "hybrid":
+        y = rms_norm(x, bp["ln1"]["scale"], eps)
+        ha, _ = attn_lib.attention_fwd(
+            bp["attn"], y, cfg, positions, window=window,
+            cache=None if cache is None else cache["attn"], rope=rope)
+        hm, _ = ssm_lib.mamba_fwd(
+            bp["mamba"], y, cfg,
+            state=None if cache is None else cache["mamba"])
+        h = 0.5 * (rms_norm(ha, bp["lna"]["scale"], eps)
+                   + rms_norm(hm, bp["lnm"]["scale"], eps))
+        x = x + h
+        y = rms_norm(x, bp["ln2"]["scale"], eps)
+        return x + mlp_fwd(bp["mlp"], y, x.dtype), None
+    if kind == "xattn":
+        h, _ = attn_lib.attention_fwd(
+            bp["xattn"], rms_norm(x, bp["ln1"]["scale"], eps), cfg,
+            positions, cache=cache, kv_source=image_embeds)
+        x = x + torch.tanh(bp["gate"]).to(x.dtype) * h
+        y = rms_norm(x, bp["ln2"]["scale"], eps)
+        return x + mlp_fwd(bp["mlp"], y, x.dtype), None
+    if kind in ("mlstm", "slstm"):
+        fwd = xlstm_lib.mlstm_fwd if kind == "mlstm" else xlstm_lib.slstm_fwd
+        h, _ = fwd(bp[kind], rms_norm(x, bp["ln1"]["scale"], eps), cfg,
+                   state=cache)
+        return x + h, None
+    raise ValueError(kind)
 
 
 def init_cache(cfg, batch, max_len, *, ring=False, dtype=torch.bfloat16,
                device=None):
-    """Stacked (n_units-leading) full KV cache."""
+    """Stacked (n_units-leading) cache of every block kind; a ring cache
+    holds W = min(max_len, window) slots."""
     cycle, n_units = layer_cycle(cfg)
-    _check_kinds(cycle)
-    one = attn_lib.init_kv_cache(cfg, batch, max_len, ring=ring, dtype=dtype,
-                                 device=device)
+    W = min(max_len, cfg.sliding_window) if (ring and cfg.sliding_window) \
+        else max_len
+
+    def one(kind):
+        kv = lambda: attn_lib.init_kv_cache(cfg, batch, W, ring=ring,
+                                            dtype=dtype, device=device)
+        if kind in ("attn", "moe"):
+            return kv()
+        if kind == "hybrid":
+            return {"attn": kv(),
+                    "mamba": ssm_lib.init_mamba_state(cfg, batch, dtype,
+                                                      device)}
+        if kind == "xattn":
+            shape = (batch, cfg.n_image_tokens, cfg.n_kv_heads,
+                     cfg.resolved_head_dim)
+            return {"ck": torch.zeros(shape, dtype=dtype, device=device),
+                    "cv": torch.zeros(shape, dtype=dtype, device=device)}
+        if kind == "mlstm":
+            return xlstm_lib.init_mlstm_state(cfg, batch, dtype, device)
+        if kind == "slstm":
+            return xlstm_lib.init_slstm_state(cfg, batch, device)
+        raise ValueError(kind)
+
     return {f"b{i}": tree.map(lambda x: x.expand(n_units, *x.shape).clone(),
-                              one)
-            for i in range(len(cycle))}
+                              one(kind))
+            for i, kind in enumerate(cycle)}
 
 
 def forward(params, cfg, *, tokens=None, embeds=None, image_embeds=None,
@@ -106,27 +201,27 @@ def forward(params, cfg, *, tokens=None, embeds=None, image_embeds=None,
     """Returns (logits or hidden, cache, aux_loss).
 
     tokens: (B, S) integers, or embeds: (B, S, d) when cfg.embed_inputs is
-    False.  The embedding rows are gathered, then cast (the same values as
-    JAX's cast-then-gather)."""
-    if image_embeds is not None:
-        raise NotImplementedError(
-            "image embeddings (vlm) come with ROADMAP queue 1 item 13")
+    False; image_embeds: (B, T, d) for the cross-attention layers (prefill
+    and the full sequence; decode reads their cache).  The embedding rows
+    are gathered, then cast (the same values as JAX's cast-then-gather)."""
     cycle, n_units = layer_cycle(cfg)
-    _check_kinds(cycle)
     dtype = DTYPES[cfg.dtype]
     x = (params["embed"][tokens] if embeds is None else embeds).to(dtype)
     B, S, _ = x.shape
     if positions is None:
         positions = torch.arange(S, device=x.device)[None, :]
-    rope = rope_table(positions, cfg.resolved_head_dim, cfg.rope_theta)
+    rope = (rope_table(positions, cfg.resolved_head_dim, cfg.rope_theta)
+            if any(k in ATTENTION_KINDS for k in cycle) else None)
+    aux = torch.zeros((), device=x.device)
     for u in range(n_units):
         for i, kind in enumerate(cycle):
             bp = tree.map(lambda l: l[u], params["layers"][f"b{i}"])
             c = (None if cache is None
                  else tree.map(lambda l: l[u], cache[f"b{i}"]))
-            x, _ = _block_fwd(bp, kind, x, cfg, positions, c,
+            x, a = _block_fwd(bp, kind, x, cfg, positions, c, image_embeds,
                               cfg.sliding_window, rope)
-    aux = torch.zeros((), device=x.device)
+            if a is not None:
+                aux = aux + a
     x = rms_norm(x, params["ln_f"]["scale"], cfg.norm_eps)
     if not collect_logits:
         return x, cache, aux
@@ -159,8 +254,9 @@ def cross_entropy(logits, targets, mask=None):
 
 
 def loss_fn(params, cfg, batch):
-    """batch: {tokens | embeds, targets, [mask]} -> (loss, metrics); forward
-    only.  cfg.loss_chunk > 0 runs the LM head and the CE a sequence chunk
+    """batch: {tokens | embeds, targets, [image_embeds], [mask]} -> (loss,
+    metrics), the loss with the MoE layers' aux loss added.
+    cfg.loss_chunk > 0 runs the LM head and the CE a sequence chunk
     at a time, never holding (B, S, vocab) logits."""
     hidden, _, aux = forward(params, cfg, tokens=batch.get("tokens"),
                              embeds=batch.get("embeds"),

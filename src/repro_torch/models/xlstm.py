@@ -1,0 +1,254 @@
+"""xLSTM blocks: mLSTM (matrix memory) and sLSTM (scalar memory)
+[arXiv:2405.04517] (port of ``repro/models/xlstm.py``).
+
+  * mLSTM runs in *chunkwise-parallel* form: attention-like matmuls inside
+    a chunk of ``cfg.scan_chunk`` steps and a recurrent carry (C_hat,
+    n_hat, m) across chunks; the exponential gates are stabilised in log
+    space by m, which starts at -1e30 (not -inf: -inf - -inf is NaN).
+  * sLSTM keeps its sequential h-recurrence: a loop over time, vectorised
+    over batch and heads.
+Decode is one recurrent step for both.  The loops' trip counts are Python
+ints of the static shapes and states are written in place, so a forward
+is capture-safe.  ``jax.nn.gelu`` is the tanh approximation, and
+``jax.nn.log_sigmoid`` is -softplus(-x) with softplus = logaddexp(x, 0);
+both are written so here.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.models.layers import (causal_conv_carried,
+                                       causal_depthwise_conv, dense_init,
+                                       group_norm)
+
+M_INIT = -1e30          # the stabiliser's initial value
+
+
+def _log_sigmoid(x):
+    return -torch.logaddexp(-x, torch.zeros_like(x))
+
+
+# ======================================================================
+# mLSTM
+# ======================================================================
+def init_mlstm(generator, cfg, lead=()):
+    d = cfg.d_model
+    di = 2 * d                           # xLSTM pre-up-projection factor 2
+    H = cfg.n_heads
+    dev = generator.device
+    full = lambda n, v: torch.full((*lead, n), v, device=dev)
+    return {
+        "up": dense_init(generator, (d, 2 * di), lead=lead),
+        "conv_w": dense_init(generator, (cfg.ssm_conv, di), lead=lead),
+        "conv_b": full(di, 0.0),
+        "wq": dense_init(generator, (di, di), lead=lead),
+        "wk": dense_init(generator, (di, di), lead=lead),
+        "wv": dense_init(generator, (di, di), lead=lead),
+        "wi": dense_init(generator, (di, H), lead=lead),
+        "bi": full(H, 0.0),
+        "wf": dense_init(generator, (di, H), lead=lead),
+        "bf": full(H, 3.0),              # forget-gate bias init high
+        "gn": full(di, 1.0),
+        "down": dense_init(generator, (di, d), lead=lead),
+    }
+
+
+def _mlstm_inputs(params, xm, H, dtype):
+    di = params["wq"].shape[0]
+    dh = di // H
+    lead = xm.shape[:-1]
+    q = (xm @ params["wq"].to(dtype)).reshape(*lead, H, dh)
+    k = (xm @ params["wk"].to(dtype)).reshape(*lead, H, dh)
+    v = (xm @ params["wv"].to(dtype)).reshape(*lead, H, dh)
+    li = (xm @ params["wi"].to(dtype)).float() + params["bi"]
+    lf = _log_sigmoid((xm @ params["wf"].to(dtype)).float() + params["bf"])
+    # jnp.sqrt(dh) in fp32, cast to the compute dtype (a device fill)
+    root = torch.full((), dh ** 0.5, device=xm.device).to(dtype)
+    return q, k / root, v, li, lf
+
+
+def mlstm_fwd(params, x, cfg, state=None):
+    """x: (B, S, d); state {"C", "n", "m", "conv"}: S == 1 is one recurrent
+    step, S > 1 a prefill; both write ``state`` in place.  Returns (y,
+    state or None)."""
+    dtype = x.dtype
+    H = cfg.n_heads
+    xm, z = (x @ params["up"].to(dtype)).chunk(2, dim=-1)
+
+    if state is not None and x.shape[1] == 1:   # ---- one recurrent step
+        xc, conv_state = causal_depthwise_conv(
+            xm, params["conv_w"], params["conv_b"], state["conv"])
+        xc = F.silu(xc)
+        q, k, v, li, lf = _mlstm_inputs(params, xc[:, 0], H, dtype)
+        q32, k32, v32 = q.float(), k.float(), v.float()
+        m_new = torch.maximum(lf + state["m"], li)            # (B, H)
+        fp = torch.exp(lf + state["m"] - m_new)[..., None]
+        ip = torch.exp(li - m_new)[..., None]
+        C = fp[..., None] * state["C"] \
+            + ip[..., None] * (k32[..., None] * v32[..., None, :])
+        n = fp * state["n"] + ip * k32
+        num = torch.einsum("bhkv,bhk->bhv", C, q32)
+        den = torch.maximum(torch.einsum("bhk,bhk->bh", n, q32).abs(),
+                            torch.exp(-m_new))[..., None]
+        h = (num / den).reshape(x.shape[0], 1, -1).to(dtype)
+        h = group_norm(h, params["gn"], H)
+        out = (h * F.silu(z)) @ params["down"].to(dtype)
+        for key, val in (("C", C), ("n", n), ("m", m_new),
+                         ("conv", conv_state)):
+            state[key].copy_(val)
+        return out, state
+
+    # ---- chunkwise-parallel form (train, or prefill when state given)
+    B, S, _ = x.shape
+    if state is None:
+        xc, conv_tail = causal_depthwise_conv(xm, params["conv_w"],
+                                              params["conv_b"])
+    else:
+        xc, conv_tail = causal_conv_carried(xm, params["conv_w"],
+                                            params["conv_b"], state["conv"])
+    xc = F.silu(xc)
+    q, k, v, li, lf = _mlstm_inputs(params, xc, H, dtype)  # (B,S,H,dh) (B,S,H)
+    dh = q.shape[-1]
+    L = min(cfg.scan_chunk, S)
+    n_chunks = -(-S // L)
+    pad = n_chunks * L - S
+    if pad:         # padded steps must not contribute: input gate -1e30
+        li = torch.cat([li, li.new_full((B, pad, H), -1e30)], dim=1)
+        lf = F.pad(lf, (0, 0, 0, pad))
+        q, k, v = (F.pad(t, (0, 0, 0, 0, 0, pad)) for t in (q, k, v))
+
+    if state is not None:
+        C_prev, n_prev, m_prev = state["C"], state["n"], state["m"]
+    else:
+        C_prev = x.new_zeros((B, H, dh, dh), dtype=torch.float32)
+        n_prev = x.new_zeros((B, H, dh), dtype=torch.float32)
+        m_prev = x.new_full((B, H), M_INIT, dtype=torch.float32)
+    tri = torch.ones((L, L), dtype=torch.bool, device=x.device).tril()
+    hs = []
+    for c in range(n_chunks):
+        sl = slice(c * L, (c + 1) * L)
+        q32, k32, v32 = q[:, sl].float(), k[:, sl].float(), v[:, sl].float()
+        li_, lf_ = li[:, sl], lf[:, sl]
+        b = torch.cumsum(lf_, dim=1)          # (B, L, H) log decay in chunk
+        g = torch.cummax(li_ - b, dim=1).values
+        u = torch.maximum(m_prev[:, None], g)  # m_t = b_t + u_t
+        wlog = (li_ - b)[:, None, :, :] - u[:, :, None, :]   # (B, T, S, H)
+        w = torch.exp(torch.where(tri[None, :, :, None], wlog, -torch.inf))
+        scores = torch.einsum("bthd,bshd->btsh", q32, k32)
+        h_intra = torch.einsum("btsh,bshd->bthd", scores * w, v32)
+        n_intra = torch.einsum("btsh,bshd->bthd", w, k32)
+        c_int = torch.exp(m_prev[:, None] - u)                # (B, L, H)
+        h_inter = torch.einsum("bthd,bhde->bthe", q32, C_prev) \
+            * c_int[..., None]
+        n_t = n_intra + n_prev[:, None] * c_int[..., None]
+        m_t = b + u
+        den = torch.maximum(torch.einsum("bthd,bthd->bth", n_t, q32).abs(),
+                            torch.exp(-m_t))[..., None]
+        hs.append((h_intra + h_inter) / den)                  # (B, L, H, dh)
+        # the carry at the chunk's end: C_hat = C e^{-m}, m_new = bL + uL
+        uL, bL = u[:, -1], b[:, -1]
+        wC = torch.exp((li_ - b) - uL[:, None])               # (B, L, H)
+        decay = torch.exp(m_prev - uL)
+        C_prev = decay[..., None, None] * C_prev + torch.einsum(
+            "bshd,bshe->bhde", wC[..., None] * k32, v32)
+        n_prev = decay[..., None] * n_prev + torch.einsum(
+            "bsh,bshd->bhd", wC, k32)
+        m_prev = bL + uL
+    h = torch.cat(hs, dim=1).reshape(B, n_chunks * L, H * dh)[:, :S]
+    h = group_norm(h.to(dtype), params["gn"], H)
+    out = (h * F.silu(z)) @ params["down"].to(dtype)
+    if state is not None:
+        for key, val in (("C", C_prev), ("n", n_prev), ("m", m_prev),
+                         ("conv", conv_tail)):
+            state[key].copy_(val)
+        return out, state
+    return out, None
+
+
+def init_mlstm_state(cfg, batch, dtype=torch.float32, device=None):
+    H, di = cfg.n_heads, 2 * cfg.d_model
+    dh = di // H
+    return {"C": torch.zeros((batch, H, dh, dh), device=device),
+            "n": torch.zeros((batch, H, dh), device=device),
+            "m": torch.full((batch, H), M_INIT, device=device),
+            "conv": torch.zeros((batch, cfg.ssm_conv - 1, di), dtype=dtype,
+                                device=device)}
+
+
+# ======================================================================
+# sLSTM
+# ======================================================================
+def init_slstm(generator, cfg, lead=()):
+    d, H = cfg.d_model, cfg.n_heads
+    dh = d // H
+    dev = generator.device
+    dff = -(-int(d * 4 / 3) // 128) * 128   # 128-aligned
+    bias = torch.cat([torch.zeros(d), torch.full((d,), 3.0),
+                      torch.zeros(2 * d)]).to(dev)
+    return {
+        "w": dense_init(generator, (d, 4 * d), lead=lead),   # i,f,z,o from x
+        "r": dense_init(generator, (H, dh, 4 * dh), lead=lead),
+        "b": bias.expand(*lead, 4 * d).clone(),
+        "gn": torch.ones((*lead, d), device=dev),
+        "up_g": dense_init(generator, (d, dff), lead=lead),
+        "up_u": dense_init(generator, (d, dff), lead=lead),
+        "down": dense_init(generator, (dff, d), lead=lead),
+    }
+
+
+def _slstm_step(params, carry, gx, H):
+    """gx: (B, 4d) pre-activations from x as [i|f|z|o] blocks of d; carry
+    (c, n, m, h), each (B, H, dh)."""
+    c, n, m, h = carry
+    B = gx.shape[0]
+    dh = h.shape[-1]
+    rec = torch.einsum("bhd,hde->bhe", h, params["r"])   # (B, H, 4dh)
+    g = gx.reshape(B, 4, H, dh) \
+        + rec.reshape(B, H, 4, dh).movedim(2, 1) \
+        + params["b"].reshape(4, H, dh)
+    gi, gf, gz, go = g[:, 0], g[:, 1], g[:, 2], g[:, 3]
+    lf = _log_sigmoid(gf)
+    m_new = torch.maximum(lf + m, gi)
+    ip = torch.exp(gi - m_new)
+    fp = torch.exp(lf + m - m_new)
+    c_new = fp * c + ip * torch.tanh(gz)
+    n_new = fp * n + ip
+    h_new = torch.sigmoid(go) * c_new / n_new.clamp_min(1.0)
+    return c_new, n_new, m_new, h_new
+
+
+def slstm_fwd(params, x, cfg, state=None):
+    """x: (B, S, d); state {"c", "n", "m", "h"} is advanced in place.
+    Returns (y, state or None)."""
+    dtype = x.dtype
+    B, S, d = x.shape
+    H = cfg.n_heads
+    dh = d // H
+    gx = (x @ params["w"].to(dtype)).float()            # (B, S, 4d)
+    if state is not None:
+        carry = (state["c"], state["n"], state["m"], state["h"])
+    else:
+        zero = x.new_zeros((B, H, dh), dtype=torch.float32)
+        carry = (zero, zero, x.new_full((B, H, dh), M_INIT,
+                                        dtype=torch.float32), zero)
+    hs = []
+    for t in range(S):
+        carry = _slstm_step(params, carry, gx[:, t], H)
+        hs.append(carry[3])
+    hseq = torch.stack(hs, dim=1).reshape(B, S, d)
+    if state is not None:
+        for key, val in zip(("c", "n", "m", "h"), carry):
+            state[key].copy_(val)
+    y = group_norm(hseq.to(dtype), params["gn"], H)
+    # post-up-projection (factor 4/3, GLU)
+    u = F.gelu(y @ params["up_g"].to(dtype), approximate="tanh") \
+        * (y @ params["up_u"].to(dtype))
+    return u @ params["down"].to(dtype), state
+
+
+def init_slstm_state(cfg, batch, device=None):
+    H, dh = cfg.n_heads, cfg.d_model // cfg.n_heads
+    z = lambda: torch.zeros((batch, H, dh), device=device)
+    return {"c": z(), "n": z(), "m": torch.full((batch, H, dh), M_INIT,
+                                                device=device), "h": z()}

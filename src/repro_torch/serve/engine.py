@@ -11,6 +11,11 @@ JAX engine's ``jax.device_get``), attributes tokens to requests and admits
 from the pending queue while the ``HostLedger`` says a slot and pages are
 free.
 
+Paged serving takes stacks of ``attn`` and ``moe`` blocks, as the JAX
+engine does.  A MoE layer routes every slot's row, the inactive slots' too,
+and they take expert capacity as in the JAX engine; its dispatch reads
+nothing to the host, so both steps capture with it.
+
 Cache layout: the pools (``kp``/``vp`` and the int8 ``ks``/``vs``) are
 stacked over the transformer's layer units, (n_units, N + 1, page, Hkv,
 dh) with the drop page last (``models/attention.py``).  The scheduler
@@ -71,9 +76,10 @@ def init_paged_cache(cfg, scfg: ServeConfig, device=None):
     """Stacked page pools for the layer units (pools only; the scheduler
     context is put in per call by ``_with_ctx``)."""
     cycle, n_units = transformer.layer_cycle(cfg)
-    if any(k != "attn" for k in cycle):
-        raise NotImplementedError(
-            f"paged serving of {cycle} comes with ROADMAP queue 1 item 13")
+    if any(k not in ("attn", "moe") for k in cycle):
+        raise ValueError(
+            "paged serving supports homogeneous attn/moe stacks, got "
+            f"{cycle}")
     one = attn_lib.init_paged_kv_cache(
         cfg, 1, scfg.total_pages, scfg.page_size, 1, int8=scfg.kv_int8,
         dtype=torch.float32, device=device)

@@ -27,7 +27,13 @@ def all_reduce_sum(t, mesh):
 
 
 def all_gather_rows(x, mesh):
-    """Every rank's (r, ...) ``x``, rank-major: (W * r, ...)."""
+    """Every rank's (r, ...) ``x``, rank-major: (W * r, ...).  At W = 1 the
+    gather runs in place on ``x`` (contiguous), so no second copy of an
+    (N,) aggregate exists."""
+    if mesh.size == 1:
+        x = x.contiguous()
+        dist.all_gather_into_tensor(x, x, group=mesh.group)
+        return x
     parts = [torch.empty_like(x) for _ in range(mesh.size)]
     dist.all_gather(parts, x.contiguous(), group=mesh.group)
     return torch.cat(parts)

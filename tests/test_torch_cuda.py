@@ -1171,3 +1171,40 @@ def test_pod_step_on_card_matches_cpu(card, fed_kw):
     assert counts[pass1] == 2
     if fed_kw["aggregator"] == "krum":
         assert counts["pairwise_gram"] == 2
+
+
+@pytest.mark.parametrize("kernel", ["pass1", "mean", "trimmed", "median",
+                                    "gram"])
+def test_kernels_past_2_to_32_elements(card, kernel):
+    """K1, K2 (three modes) and K3 on a (1, 4, 2^30 + 4,099) fp32 buffer:
+    4.3e9 elements, so rows 2 and 3 start past 2^31 and the last row's
+    tail lies past 2^32 (granite's per-client grads at C = 4 are 5.5e9).
+    Zeros but the last 4,096 columns of each row:
+    the kernels over the whole buffer against their plain versions on
+    those columns (the zeros add exact zeros), and K2's other columns 0.
+    A row offset kept in 32 bits would read the wrong rows' tails."""
+    n, tail = (1 << 30) + 4099, 4096
+    if torch.cuda.get_device_properties(card).total_memory < 40e9:
+        pytest.skip("needs a card with 40 GB")
+    x = torch.zeros(1, 4, n, device=card)
+    g = torch.Generator(device=card).manual_seed(0)
+    x[..., -tail:] = torch.randn(1, 4, tail, generator=g, device=card)
+    assert 2 * n > 1 << 31 and 4 * n - tail > 1 << 32
+    small = x[..., -tail:].contiguous()
+    m = torch.ones(1, 4, device=card)
+    w = torch.tensor([[0.1, 0.2, 0.3, 0.4]], device=card)
+    if kernel == "pass1":
+        for o, r in zip(rp.cosine_gate_partials(x, m),
+                        rp.cosine_gate_partials_plain(small, m)):
+            _close_rel(o, r)
+    elif kernel == "gram":
+        _close_rel(rp.pairwise_gram(x), rp.pairwise_gram_plain(small))
+    else:
+        out = rp.gated_combine(x, m, w, mode=kernel)
+        ref = rp.gated_combine_plain(small, m, w, mode=kernel)
+        assert float(out[:, :-tail].abs().max()) == 0.0
+        if kernel == "median":
+            assert torch.equal(out[:, -tail:], ref)
+        else:
+            torch.testing.assert_close(out[:, -tail:], ref, rtol=1e-5,
+                                       atol=1e-6)

@@ -2,7 +2,8 @@
 same numpy inputs and JAX's own params (through ``interop``): the layers,
 every ported ``attention_fwd`` branch, ``transformer.forward`` and
 ``loss_fn`` at ``minitron-4b.reduced()`` and ``tiny-lm.reduced()``, the
-model facade's prefill / decode, and the configs and registry.  A
+model facade's prefill / decode, and the configs and registry (the other
+block kinds: ``tests/test_torch_blocks.py``).  A
 head_dim = 128 config at S = 128 with ``attn_impl="pallas"`` makes JAX run
 its flash-attention Pallas kernel (in interpret mode) and the port K9's
 plain version.
@@ -88,8 +89,21 @@ def test_configs_equal_jax_field_by_field(name):
                                   "hymba-1.5b", "llama-3.2-vision-90b",
                                   "musicgen-large", "dbrx-132b"])
 def test_unported_archs_raise_naming_item_13(name):
-    with pytest.raises(NotImplementedError, match="item 13"):
-        registry.get_config(name)
+    """These names raised until their block kinds were ported: each now
+    resolves to JAX's config and its reduced model builds and runs."""
+    cfg = registry.get_config(name)
+    assert cfg is registry.ARCHS[name]
+    assert cfg.name == jregistry.get_config(name).name
+    rc = cfg.reduced()
+    model = build(rc)
+    params = model.init(torch.Generator().manual_seed(0))
+    batch = ({"tokens": torch.zeros(1, 3, dtype=torch.int64)}
+             if rc.embed_inputs else {"embeds": torch.zeros(1, 3, rc.d_model)})
+    if rc.arch_type == "vlm":
+        batch["image_embeds"] = torch.zeros(1, rc.n_image_tokens, rc.d_model)
+    logits = model.forward(params, batch)
+    assert tuple(logits.shape) == (1, 3, rc.padded_vocab)
+    assert torch.isfinite(logits).all()
 
 
 def test_init_has_jax_structure_and_shapes(arch):
@@ -271,16 +285,30 @@ def test_attention_paged_decode_matches_jax(mini, impl, int8):
 
 
 def test_unported_attention_branches_raise(mini):
+    """The branches that raised until they were ported: cross-attention
+    returns its cache with ``ck`` / ``cv`` filled, the ring cache has the
+    window's size, and a ``moe`` forward is finite (their parity with JAX
+    is ``tests/test_torch_blocks.py``'s)."""
     _, tc, _, _ = mini
     jc, _, tp = _attn_params(mini[0])
-    x = torch.zeros(1, 1, tc.d_model)
-    with pytest.raises(NotImplementedError, match="item 13"):
-        attention.attention_fwd(tp, x, tc, torch.zeros(1, 1), kv_source=x)
-    with pytest.raises(NotImplementedError, match="item 13"):
-        attention.init_kv_cache(tc, 1, 4, ring=True)
-    with pytest.raises(NotImplementedError, match="item 13"):
-        transformer.forward({}, tc.replace(arch_type="moe"),
-                            tokens=torch.zeros(1, 1, dtype=torch.int64))
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn(1, 2, tc.d_model, generator=g)
+    img = torch.randn(1, 5, tc.d_model, generator=g)
+    shape = (1, 5, tc.n_kv_heads, tc.resolved_head_dim)
+    cache = {"ck": torch.zeros(shape), "cv": torch.zeros(shape)}
+    out, same = attention.attention_fwd(tp, x, tc, torch.zeros(1, 2),
+                                        cache=cache, kv_source=img)
+    assert same is cache and torch.isfinite(out).all()
+    assert float(cache["ck"].abs().min(dim=-1).values.max()) > 0
+    ring = attention.init_kv_cache(tc, 1, 4, ring=True)
+    assert tuple(ring["k"].shape) == (1, 4, tc.n_kv_heads,
+                                      tc.resolved_head_dim)
+    assert int(ring["pos"]) == 0 and "length" not in ring
+    moe_cfg = registry.get_config("granite-moe-1b-a400m").reduced()
+    params = transformer.init_transformer(g, moe_cfg)
+    logits, _, aux = transformer.forward(
+        params, moe_cfg, tokens=torch.zeros(1, 4, dtype=torch.int64))
+    assert torch.isfinite(logits).all() and float(aux) > 0
 
 
 # ------------------------------------------------------------ transformer --
