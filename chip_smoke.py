@@ -290,6 +290,33 @@ Phases, one line each (a failure raises, so the exit code is not 0):
               after the reset that precedes it (``blocks_launches``: {path:
               n}); K8's and K9's entries carry the new shapes as
               ``blocks``, K1-K3's the granite buffer as ``granite_pod``.
+              granite's replayed step is timed and traced from the fedavg
+              run's final state.
+  11. tp      the pod step on a placed state (``pod.place_state``: params
+              and AdamW moments as DTensors by a ``sharding/specs.py``
+              layout) at mesh (1, 1), NCCL at world size 1, in a child
+              process (``python3 chip_smoke.py --tp`` runs it alone).
+              tiny-lm at full width (C = 4, 16 x 256 tokens, AdamW): step
+              1 under ``param_specs`` with ``robust=None`` and with
+              per_client fedavg and trimmed_mean (K1 and its K2 mode once
+              each; the launches join the kernels line as
+              ``tp_launches``) against the same step on plain tensors,
+              the params within TP_REL of the largest param change
+              (bitwise or not, printed); ZeRO-1 (``param_specs_tp``
+              compute in bf16, ``param_specs`` master): step-1 loss within
+              ZERO1_LOSS_ATOL of the fp32 step's, grad_norm within
+              ZERO1_GN_REL of that step's (relative), the loss falling over
+              TP_STEPS steps, grad_norm finite; scan bitwise python on both
+              layouts under deterministic algorithms (TP_PARITY); the
+              placed step's wall (median of 10), busy, idle, launches,
+              tokens/s and peak under both drivers, for both layouts and
+              for the same step on plain tensors (what placing costs on
+              the host).
+              Every step 1 runs under deterministic algorithms.
+              granite-moe-1b at full depth, ``robust=None``: step 1 under
+              ``param_specs_moe_ff`` against plain tensors, ZeRO-1 under
+              ``param_specs_zero1_moe`` / ``param_specs_moe_ff`` against
+              the fp32 step, TP_GRANITE_STEPS steps of each timed, peak.
 The last three lines are the nvidia-smi line, the kernels JSON and the
 result JSON.  ``python3 chip_smoke.py --kernels`` runs phases 1, 2, 2b and
 2c alone and ends with the nvidia-smi line and the kernels JSON (launches
@@ -303,6 +330,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import subprocess
 import sys
 import time
@@ -524,6 +552,22 @@ K8_BLOCKS = {GRANITE: (16, 8, 64), DBRX: (48, 8, 128),
 K9_BLOCKS = {HYMBA: HYMBA_SEQ, DBRX: CUT_SEQ, VISION: CUT_SEQ,
              MUSICGEN: XL_SEQ}
 BLOCKS_TIMEOUT = 900            # seconds for the phase's child process
+
+# phase 11: the pod step on a placed state (sharding/specs.py's layouts as
+# DTensors, NCCL at world size 1, mesh (1, 1)).  tiny-lm at full width
+# (POD_ARCH, POD_C, POD_GB x POD_SEQ, AdamW): step 1 of each placed path
+# against the same step on plain tensors, the params within TP_REL of the
+# largest param change; ZeRO-1's step-1 loss within ZERO1_LOSS_ATOL (the
+# reference test's tolerance) of the fp32 step's, its loss falling over
+# TP_STEPS steps; scan vs python over TP_PARITY (steps, chunk).  granite at
+# full depth, TP_GRANITE_STEPS steps under each MoE layout
+TP_REL = 1e-6
+ZERO1_LOSS_ATOL = 0.05
+ZERO1_GN_REL = 1e-2             # ZeRO-1's step-1 grad_norm against fp32's
+TP_STEPS = 6
+TP_PARITY = (4, 2)
+TP_GRANITE_STEPS = 3
+TP_TIMEOUT = 900                # seconds for the phase's child process
 
 
 def bound(bytes_moved, ops, ops_per_s=FP32_OPS_PER_S):
@@ -3763,9 +3807,11 @@ def _blk_granite_train(out, smi):
         st, rows = _blk_train("--steps", str(steps), "--aggregator", agg,
                               "--chunk-rounds", str(GRANITE_CHUNK))
         secs = time.perf_counter() - t0
+        got = paths[f"{GRANITE} trained ({agg})"] = _blk_counts()
+        if agg == "fedavg":         # the replayed step, from this state
+            _blk_granite_trace(out, smi, st)
         del st
         _blk_free()
-        got = paths[f"{GRANITE} trained ({agg})"] = _blk_counts()
         want = ["cosine_gate_partials",
                 {"trimmed_mean": "gated_combine[trimmed]"}.get(
                     agg, "gated_combine[mean]")]
@@ -3825,12 +3871,14 @@ def _blk_granite_train(out, smi):
     return paths
 
 
-def _blk_granite_trace(out, smi):
+def _blk_granite_trace(out, smi, state):
     """granite's replayed pod step timed and traced
-    (``profile_round.measure`` under the scan driver): the median of 10
-    steady steps (the replayed step's time and tokens/s), one traced step's
-    device busy time, idle share, launches from the host and its largest
-    kernels by device time."""
+    (``profile_round.measure`` under the scan driver), continuing from
+    ``state``, the fedavg run's final state (no second state is built): the
+    median of 10 steady steps (the replayed step's time and tokens/s), one
+    traced step's device busy time, idle share, launches from the host and
+    its largest kernels by device time.  Run after the fedavg run's
+    counters are read (measure's replays launch K1 and K2 too)."""
     import torch
     from repro_torch.configs.base import FedConfig, TrainConfig
     from repro_torch.configs.registry import get_config
@@ -3838,23 +3886,17 @@ def _blk_granite_trace(out, smi):
     from repro_torch.launch import profile_round as pr
     from repro_torch.launch import train
     from repro_torch.launch.mesh import make_host_mesh
-    from repro_torch.models import transformer
-    from repro_torch.optim import optimizers
     cfg = get_config(GRANITE)
     fed = FedConfig(n_clients=POD_C)
     tc = TrainConfig(global_batch=POD_GB, seq_len=POD_SEQ, total_steps=30,
                      warmup_steps=1)
     dev = torch.device(DEVICE)
     mesh = make_host_mesh()
-    opt_init, _ = optimizers.make_optimizer(tc)
-    state = pod.init_pod_state(transformer.init_transformer(_gen(0), cfg),
-                               opt_init, POD_C, fed, _gen(1), mesh=mesh)
     step = pod.make_train_step(cfg, fed, tc, robust="per_client",
                                agg_mesh=mesh)
     m = pr.measure(lambda st, xs: step(st, xs[1]), state,
                    train.synthetic_lm_batches(cfg, tc, POD_C, 0, dev),
                    driver="scan", device=dev)
-    del state
     top = sorted(m["by_kernel"].items(), key=lambda kv: -kv[1][0])[:8]
     out["replayed_step_ms"] = m["median_ms"]
     out["replayed_tokens_per_s"] = POD_GB * POD_SEQ / m["median_ms"] * 1e3
@@ -4477,7 +4519,6 @@ def _blocks_child(part):
         try:
             g = out["models"][GRANITE] = {"train": {}}
             out["launches"] = _blk_granite_train(g["train"], smi)
-            _blk_granite_trace(g["train"], smi)
             _blk_granite_cpu_step(g["train"])
             g["train"]["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
         finally:
@@ -4520,6 +4561,343 @@ def _blocks(smi):
     return merged
 
 
+# --------------------------------------------------------------- phase 11 --
+def _tp_cfgs(arch=POD_ARCH, **fed_kw):
+    from repro_torch.configs.base import FedConfig, TrainConfig
+    from repro_torch.configs.registry import get_config
+    return (get_config(arch), FedConfig(n_clients=POD_C, **fed_kw),
+            TrainConfig(global_batch=POD_GB, seq_len=POD_SEQ,
+                        total_steps=10, warmup_steps=1))
+
+
+def _tp_layout(mesh, name):
+    """A ``NamedSharding`` tree maker over a whole state (or a params
+    tree) by the ``sharding/specs.py`` function ``name``."""
+    from repro_torch.sharding import specs
+    fn = getattr(specs, name)
+    return lambda t: specs.named(mesh, fn(t, mesh=mesh))
+
+
+def _tp_state(cfg, fed, tc, mesh, layout=None, agg=False):
+    """A fresh pod state from seed 0, placed by ``layout`` (a specs
+    function's name) or plain."""
+    import torch
+    from repro_torch.core import pod
+    from repro_torch.models import transformer
+    from repro_torch.optim import optimizers
+    opt_init, _ = optimizers.make_optimizer(tc)
+    return pod.init_pod_state(
+        transformer.init_transformer(_gen(0), cfg), opt_init, POD_C, fed,
+        torch.Generator(device=DEVICE).manual_seed(1),
+        mesh=mesh if agg else None,
+        shardings=_tp_layout(mesh, layout) if layout else None)
+
+
+def _tp_batch(cfg, tc, step_i=0):
+    import torch
+    from repro_torch.launch import train
+    return train.synthetic_lm_batches(cfg, tc, POD_C, 0,
+                                      torch.device(DEVICE))(step_i)
+
+
+def _tp_params_host(state):
+    from repro_torch import tree
+    from repro_torch.sharding import dtensor
+    return [x.detach().float() for x in tree.leaves(
+        dtensor.whole(state.params))]
+
+
+def _tp_hold(label, placed, plain, init):
+    """Step-1 params of the placed path against the plain one: within
+    TP_REL of the largest param change; returns (max abs diff, largest
+    change, bitwise)."""
+    diff = max(float((a - b).abs().max()) for a, b in zip(placed, plain))
+    change = max(float((b - c).abs().max()) for b, c in zip(plain, init))
+    bitwise = all(bool((a == b).all()) for a, b in zip(placed, plain))
+    print(f"[tp] {label}: step-1 params max |placed - plain| {diff:.3e}, "
+          f"largest param change {change:.3e}, bitwise {bitwise}")
+    if not diff <= TP_REL * change:
+        raise AssertionError(f"[tp] {label}: step-1 params differ by "
+                             f"{diff:.3e} > {TP_REL} x {change:.3e}")
+    return {"max_abs_diff": diff, "largest_change": change,
+            "bitwise": bitwise}
+
+
+def _tp_step1(*args, **kw):
+    """``_tp_step1_run`` under deterministic algorithms: the MoE gathers'
+    backward adds with atomics otherwise, so two runs of one step differ
+    in the last bits."""
+    import torch
+    torch.use_deterministic_algorithms(True)
+    try:
+        return _tp_step1_run(*args, **kw)
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+
+def _tp_step1_run(label, cfg, fed, tc, mesh, robust, layout, zero1=None):
+    """Step 1 on a state placed by ``layout`` against the same step on
+    plain tensors (``zero1``: the ZeRO-1 step, held to the fp32 step's
+    loss instead).  Returns its record."""
+    from repro_torch.core import pod
+    batch = _tp_batch(cfg, tc)
+    st = _tp_state(cfg, fed, tc, mesh, agg=bool(robust))
+    init = _tp_params_host(st)
+    step = pod.make_train_step(cfg, fed, tc, robust=robust,
+                               agg_mesh=mesh if robust else None)
+    st, m_plain = step(st, batch)
+    plain = _tp_params_host(st)
+    del st, step
+    _blk_free()
+    st = _tp_state(cfg, fed, tc, mesh, layout, agg=bool(robust))
+    kw = {}
+    if zero1 is not None:
+        kw["zero1_shardings"] = tuple(_tp_layout(mesh, f)(st.params)
+                                      for f in zero1)
+    step = pod.make_train_step(cfg, fed, tc, robust=robust,
+                               agg_mesh=mesh if robust else None, **kw)
+    _blk_reset()
+    st, m = step(st, batch)
+    rec = {"launches": _blk_counts(),
+           "loss": float(m["loss"]), "plain_loss": float(m_plain["loss"]),
+           "grad_norm": float(m["grad_norm"]),
+           "plain_grad_norm": float(m_plain["grad_norm"])}
+    if zero1 is None:
+        rec.update(_tp_hold(label, _tp_params_host(st), plain, init))
+    else:
+        gap = abs(rec["loss"] - rec["plain_loss"])
+        gn_gap = abs(rec["grad_norm"] / rec["plain_grad_norm"] - 1)
+        print(f"[tp] {label}: step-1 loss {rec['loss']:.5f} against the "
+              f"fp32 step's {rec['plain_loss']:.5f} (|d| {gap:.2e}), "
+              f"grad_norm {rec['grad_norm']:.4f} against "
+              f"{rec['plain_grad_norm']:.4f} (rel {gn_gap:.2e})")
+        if not (gap < ZERO1_LOSS_ATOL and gn_gap < ZERO1_GN_REL):
+            raise AssertionError(f"[tp] {label}: loss gap {gap} or grad_norm "
+                                 f"{rec['grad_norm']} against "
+                                 f"{rec['plain_grad_norm']}")
+    del st, step, plain, init
+    _blk_free()
+    return rec
+
+
+def _tp_run(cfg, fed, tc, mesh, layout, steps, driver, chunk=2,
+            zero1=None):
+    """``steps`` placed steps through ``pod.run`` -> (whole state, rows)."""
+    from repro_torch.core import pod
+    from repro_torch.launch import inputs, train
+    from repro_torch.sharding import dtensor
+    import torch
+    st = _tp_state(cfg, fed, tc, mesh, layout)
+    kw = {}
+    if zero1 is not None:
+        kw["zero1_shardings"] = tuple(_tp_layout(mesh, f)(st.params)
+                                      for f in zero1)
+    step = pod.make_train_step(cfg, fed, tc, **kw)
+    sampler = train.synthetic_lm_batches(cfg, tc, POD_C, 0,
+                                         torch.device(DEVICE))
+    st, rows = pod.run(st, step, sampler, steps, driver=driver,
+                       chunk_rounds=chunk,
+                       batch_sharding=inputs.batch_shardings(sampler.specs,
+                                                             mesh))
+    return _host_state(dtensor.whole(st)), rows
+
+
+def _tp_timing(label, cfg, fed, tc, mesh, layout, smi, zero1=None):
+    """The placed step's wall under both drivers
+    (``profile_round.measure``: the median of 10 steady steps, one host
+    read each; scan: also a chunk of 10 replayed), one traced step's busy
+    time and idle share, trained tokens/s, and the peak."""
+    import torch
+    from repro_torch.core import pod
+    from repro_torch.launch import inputs, train
+    from repro_torch.launch import profile_round as pr
+    out = {}
+    sampler = train.synthetic_lm_batches(cfg, tc, POD_C, 0,
+                                         torch.device(DEVICE))
+    bsh = inputs.batch_shardings(sampler.specs, mesh)
+
+    def local(t):
+        return {k: bsh[k].local(v) for k, v in sampler(t).items()}
+
+    for drv in ("python", "scan"):
+        torch.cuda.reset_peak_memory_stats()
+        st = _tp_state(cfg, fed, tc, mesh, layout)
+        kw = {}
+        if zero1 is not None:
+            kw["zero1_shardings"] = tuple(_tp_layout(mesh, f)(st.params)
+                                          for f in zero1)
+        step = pod.make_train_step(cfg, fed, tc, **kw)
+        m = pr.measure(lambda s, xs: step(s, xs[1]), st, local, driver=drv,
+                       device=torch.device(DEVICE))
+        wall = m["chunk_round_ms"] if drv == "scan" else m["median_ms"]
+        out[drv] = {"step_ms": m["median_ms"],
+                    "chunk_step_ms": m.get("chunk_round_ms"),
+                    "busy_ms": m["busy_ms"], "traced_ms": m["traced_ms"],
+                    "idle": m["idle"], "host_launches": m["host_launches"],
+                    "tokens_per_s": POD_GB * POD_SEQ / wall * 1e3,
+                    "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+        print(f"[timing] {label} driver={drv}: {m['median_ms']:.2f} ms "
+              f"median of {len(m['walls'])} (one host read each)"
+              + (f", {m['chunk_round_ms']:.2f} ms a step over a replayed "
+                 f"chunk of {pr.ROUNDS}" if drv == "scan" else "")
+              + f"; traced step busy {m['busy_ms']:.2f} of "
+              f"{m['traced_ms']:.2f} ms (idle {m['idle']:.3f}), "
+              f"{m['host_launches']} launches from the host; "
+              f"{out[drv]['tokens_per_s']:.0f} tokens/s, peak "
+              f"{out[drv]['peak_gb']:.2f} GB | {smi}")
+        del st, step, m
+        _blk_free()
+    return out
+
+
+def _tp_parity(label, cfg, fed, tc, mesh, layout, zero1=None):
+    """scan bitwise python on the placed step (deterministic
+    algorithms)."""
+    import torch
+    steps, chunk = TP_PARITY
+    torch.use_deterministic_algorithms(True)
+    try:
+        runs = {drv: _tp_run(cfg, fed, tc, mesh, layout, steps, drv, chunk,
+                             zero1) for drv in ("python", "scan")}
+    finally:
+        torch.use_deterministic_algorithms(False)
+    _same_state(f"[parity] {label} scan vs python", runs["scan"][0],
+                runs["python"][0])
+    _same_rows(f"[parity] {label} scan vs python", runs["scan"][1],
+               runs["python"][1])
+    print(f"[parity] {label}: {steps} placed steps, chunks of {chunk}, "
+          f"deterministic algorithms: scan vs python bitwise (params, AdamW "
+          f"state, fed state, every history key)")
+    _blk_free()
+
+
+def _tp_tiny(smi, out):
+    """Phase 11 on tiny-lm at full width; returns {path: launches}."""
+    import torch
+    from repro_torch.launch.mesh import make_host_mesh
+    mesh = make_host_mesh()
+    paths = {}
+    cfg, fed, tc = _tp_cfgs()
+    out["baseline"] = _tp_step1("tiny-lm robust=None, param_specs", cfg,
+                                fed, tc, mesh, None, "param_specs")
+    for agg in ("fedavg", "trimmed_mean"):
+        cfg, fed, tc = _tp_cfgs(aggregator=agg)
+        rec = out[f"per_client_{agg}"] = _tp_step1(
+            f"tiny-lm per_client {agg}, param_specs", cfg, fed, tc, mesh,
+            "per_client", "param_specs")
+        paths[f"tiny-lm placed per_client {agg}"] = rec["launches"]
+        want = ["cosine_gate_partials",
+                "gated_combine[trimmed]" if agg == "trimmed_mean"
+                else "gated_combine[mean]"]
+        for k in want:
+            if rec["launches"].get(k) != 1:
+                raise AssertionError(f"[tp] per_client {agg}: {k} launched "
+                                     f"{rec['launches'].get(k, 0)} times "
+                                     "in a step")
+    cfg, fed, tc = _tp_cfgs()
+    zero1 = ("param_specs_tp", "param_specs")
+    out["zero1"] = _tp_step1("tiny-lm ZeRO-1 (param_specs_tp / "
+                             "param_specs)", cfg, fed, tc, mesh, None,
+                             "param_specs", zero1)
+    _, rows = _tp_run(cfg, fed, tc, mesh, "param_specs", TP_STEPS,
+                      "python", zero1=zero1)
+    losses = [float(r["loss"]) for r in rows]
+    if not (losses[-1] < losses[0] and all(
+            math.isfinite(float(r["grad_norm"])) for r in rows)):
+        raise AssertionError(f"[tp] ZeRO-1: the loss did not fall or a "
+                             f"grad_norm is not finite: {rows}")
+    out["zero1"]["losses"] = losses
+    print(f"[tp] tiny-lm ZeRO-1: {TP_STEPS} steps, loss {losses[0]:.4f} "
+          f"-> {losses[-1]:.4f}")
+    _tp_parity("tiny-lm param_specs", cfg, fed, tc, mesh, "param_specs")
+    _tp_parity("tiny-lm ZeRO-1", cfg, fed, tc, mesh, "param_specs", zero1)
+    out["timing"] = {
+        "plain": _tp_timing("tiny-lm plain step (unplaced)", cfg, fed, tc,
+                            mesh, None, smi),
+        "param_specs": _tp_timing("tiny-lm placed step (param_specs)", cfg,
+                                  fed, tc, mesh, "param_specs", smi),
+        "zero1": _tp_timing("tiny-lm placed step (ZeRO-1)", cfg, fed, tc,
+                            mesh, "param_specs", smi, zero1)}
+    t = out["timing"]
+    print("[timing] tiny-lm plain vs placed, one run: per-step loop "
+          f"{t['plain']['python']['step_ms']:.2f} vs "
+          f"{t['param_specs']['python']['step_ms']:.2f} ms, replayed "
+          f"{t['plain']['scan']['chunk_step_ms']:.2f} vs "
+          f"{t['param_specs']['scan']['chunk_step_ms']:.2f} ms | {smi}")
+    return paths
+
+
+def _tp_granite(smi, out):
+    """Phase 11 on granite at full depth under the MoE layouts."""
+    import torch
+    from repro_torch.launch.mesh import make_host_mesh
+    mesh = make_host_mesh()
+    cfg, fed, tc = _tp_cfgs(GRANITE)
+    out["moe_ff"] = _tp_step1("granite robust=None, param_specs_moe_ff",
+                              cfg, fed, tc, mesh, None,
+                              "param_specs_moe_ff")
+    out["zero1_moe"] = _tp_step1(
+        "granite ZeRO-1 (param_specs_zero1_moe / param_specs_moe_ff)", cfg,
+        fed, tc, mesh, None, "param_specs_moe_ff",
+        ("param_specs_zero1_moe", "param_specs_moe_ff"))
+    for name, zero1 in (("moe_ff", None), ("zero1_moe", (
+            "param_specs_zero1_moe", "param_specs_moe_ff"))):
+        torch.cuda.reset_peak_memory_stats()
+        _, rows = _tp_run(cfg, fed, tc, mesh, "param_specs_moe_ff",
+                          TP_GRANITE_STEPS, "python", zero1=zero1)
+        walls = sorted(float(r["wall_ms"]) for r in rows[1:])
+        rec = out[name]
+        rec["step_ms"] = walls[len(walls) // 2]
+        rec["tokens_per_s"] = POD_GB * POD_SEQ / rec["step_ms"] * 1e3
+        rec["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        rec["losses"] = [float(r["loss"]) for r in rows]
+        print(f"[timing] granite placed step ({name}), the per-step loop: "
+              f"{rec['step_ms']:.2f} ms, {rec['tokens_per_s']:.0f} tokens/s,"
+              f" peak {rec['peak_gb']:.2f} GB, loss {rec['losses']} | {smi}")
+        _blk_free()
+
+
+def _tp_child():
+    """``python3 chip_smoke.py --tp``: phase 11 alone, in a process that
+    fixes cuBLAS's workspace before cuBLAS starts.  Prints its lines and
+    then one JSON line ``{"tp": ...}`` for the parent."""
+    import os
+    import torch
+    import torch.distributed as dist
+    from repro_torch.kernels import _build
+    from repro_torch.launch import mesh as mesh_mod
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    t0 = time.perf_counter()
+    smi = _smi()
+    _build.load()
+    mesh_mod.start_group(DEVICE)
+    out = {"tiny": {}, "granite": {}}
+    try:
+        out["launches"] = _tp_tiny(smi, out["tiny"])
+        _tp_granite(smi, out["granite"])
+    finally:
+        dist.destroy_process_group()
+    out["seconds"] = time.perf_counter() - t0
+    print(f"[tp] phase 11 took {out['seconds']:.1f} s, peak "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB | {smi}")
+    print(json.dumps({"tp": out}))
+    return 0
+
+
+def _tp(smi):
+    """Phase 11 in a child process (``_tp_child``); returns its result."""
+    proc = subprocess.run([sys.executable, str(Path(__file__).resolve()),
+                           "--tp"], capture_output=True, text=True,
+                          timeout=TP_TIMEOUT)
+    lines = proc.stdout.splitlines()
+    print("\n".join(l for l in lines if not l.startswith('{"tp"')))
+    if proc.returncode != 0:
+        sys.stderr.write(proc.stderr[-20000:])
+        raise RuntimeError(f"phase 11 failed (exit {proc.returncode})")
+    return json.loads(next(l for l in reversed(lines)
+                           if l.startswith('{"tp"')))["tp"]
+
+
 def main(argv=()):
     _import_port()
     import torch
@@ -4533,6 +4911,8 @@ def main(argv=()):
 
     if "--pod" in argv:             # phase 9 alone, as _pod runs it
         return _pod_child()
+    if "--tp" in argv:              # phase 11 alone, as _tp runs it
+        return _tp_child()
     if "--blocks" in argv:          # phase 10 alone, as _blocks runs it
         parts = [a for a in argv if a in ("models", "train")]
         if parts:
@@ -4586,6 +4966,10 @@ def main(argv=()):
     if "pod" not in blocks["kernels"]:
         raise AssertionError("phase 10 did not time K1-K3 on granite's "
                              "buffer")
+    tp = _tp(smi)
+    for got in tp["launches"].values():
+        for name, n in got.items():
+            counts[name] = counts.get(name, 0) + n
     for entry in report:
         name = entry["name"]
         entry["launches"] = counts[name]
@@ -4600,6 +4984,10 @@ def main(argv=()):
                    if name in got}
         if by_path:
             entry["blocks_launches"] = by_path
+        by_path = {path: got[name] for path, got in tp["launches"].items()
+                   if name in got}
+        if by_path:
+            entry["tp_launches"] = by_path
     print(smi)
     print(json.dumps({"kernels": report}))
     print(json.dumps({"ok": True, "device": {

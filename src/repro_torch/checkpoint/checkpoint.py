@@ -13,6 +13,12 @@ checkpoint written by either package restores in the other.
     ``get_state()`` bytes (``"dtype": "generator"``) and restored into the
     generator of ``like`` with ``set_state``.
   * ``None`` is an empty subtree, as in JAX: it has no file.
+  * A DTensor leaf (a placed pod state, ``core/pod.py``) is saved gathered
+    whole, in the same format: every rank gathers, the default group's
+    rank 0 writes, and the ranks meet at a barrier.  ``restore`` places a
+    leaf by its ``NamedSharding`` in ``sharding_tree`` (as the JAX
+    package's ``device_put``s it), so a checkpoint saved on one mesh
+    restores on another.
 """
 from __future__ import annotations
 
@@ -22,8 +28,10 @@ from typing import Any, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch import tree
+from repro_torch.sharding import dtensor
 
 
 def _named_leaves(t, prefix=""):
@@ -47,7 +55,7 @@ def _to_numpy(leaf):
     if isinstance(leaf, torch.Generator):
         return leaf.get_state().numpy().copy(), "generator"
     if isinstance(leaf, torch.Tensor):
-        t = leaf.detach().cpu()
+        t = dtensor.plain(leaf).detach().cpu()
         if t.dtype == torch.bfloat16:
             return t.view(torch.int16).numpy().view("V2"), "bfloat16"
         arr = t.numpy()
@@ -57,16 +65,24 @@ def _to_numpy(leaf):
 
 
 def save(path: str, t: Any, step: Optional[int] = None):
+    leaves = _named_leaves(t)
+    placed = any(isinstance(l, torch.Tensor) and dtensor.is_dtensor(l)
+                 for _, l in leaves)
+    arrays = [(name,) + _to_numpy(leaf) for name, leaf in leaves]
+    if placed and dist.is_initialized() and dist.get_rank() != 0:
+        dist.barrier()
+        return
     os.makedirs(path, exist_ok=True)
     manifest = {"step": step, "leaves": []}
-    for i, (name, leaf) in enumerate(_named_leaves(t)):
-        arr, dtype = _to_numpy(leaf)
+    for i, (name, arr, dtype) in enumerate(arrays):
         fn = f"leaf_{i:05d}.npy"
         np.save(os.path.join(path, fn), arr)
         manifest["leaves"].append({"name": name, "file": fn, "dtype": dtype,
                                    "shape": list(arr.shape)})
     with open(os.path.join(path, "manifest.json"), "w") as f:
         json.dump(manifest, f, indent=1)
+    if placed and dist.is_initialized():
+        dist.barrier()
 
 
 def _from_numpy(arr, m, like):
@@ -85,13 +101,18 @@ def _from_numpy(arr, m, like):
         raise ValueError(f"leaf {m['name']!r}: shape {list(t.shape)} != the "
                          f"manifest's {m['shape']}")
     if isinstance(like, torch.Tensor):
-        return t.to(like.device)
+        dev = like.device_mesh.device_type if dtensor.is_dtensor(like) \
+            else like.device
+        return t.to(dev)
     return t
 
 
-def restore(path: str, like: Any):
+def restore(path: str, like: Any, sharding_tree: Any = None):
     """Restore into the structure of ``like``: each leaf on the device of
-    ``like``'s leaf, a generator leaf into ``like``'s generator."""
+    ``like``'s leaf, a generator leaf into ``like``'s generator.  Where
+    ``like``'s leaf is a DTensor (a placed state) the leaf is placed by its
+    ``NamedSharding`` in ``sharding_tree`` (a tree like ``like``, which a
+    placed ``like`` needs); the others stay plain."""
     with open(os.path.join(path, "manifest.json")) as f:
         manifest = json.load(f)
     flat_like = [leaf for _, leaf in _named_leaves(like)]
@@ -99,8 +120,20 @@ def restore(path: str, like: Any):
         raise ValueError(
             f"checkpoint has {len(manifest['leaves'])} leaves, "
             f"expected {len(flat_like)}")
-    it = iter([_from_numpy(np.load(os.path.join(path, m["file"])), m, l)
-               for m, l in zip(manifest["leaves"], flat_like)])
+    shs = (dtensor.sharding_leaves(sharding_tree)
+           if sharding_tree is not None else [None] * len(flat_like))
+    if len(shs) != len(flat_like):
+        raise ValueError(f"{len(shs)} shardings for {len(flat_like)} leaves")
+    out = []
+    for m, l, sh in zip(manifest["leaves"], flat_like, shs):
+        x = _from_numpy(np.load(os.path.join(path, m["file"])), m, l)
+        if isinstance(l, torch.Tensor) and dtensor.is_dtensor(l):
+            if sh is None:
+                raise ValueError(f"leaf {m['name']!r} is placed in ``like``:"
+                                 " restore it by a ``sharding_tree``")
+            x = dtensor.to_layout(x, sh)
+        out.append(x)
+    it = iter(out)
     return tree.unflatten(like, [None if l is None else next(it)
                                  for l in tree.leaves(like)])
 
@@ -117,8 +150,9 @@ def save_step(root: str, step: int, t: Any):
     save(os.path.join(root, f"step_{step:08d}"), t, step)
 
 
-def restore_latest(root: str, like: Any):
+def restore_latest(root: str, like: Any, sharding_tree: Any = None):
     step = latest_step(root)
     if step is None:
         return None, None
-    return restore(os.path.join(root, f"step_{step:08d}"), like), step
+    return restore(os.path.join(root, f"step_{step:08d}"), like,
+                   sharding_tree), step

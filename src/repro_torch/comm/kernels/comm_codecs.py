@@ -246,7 +246,8 @@ def fused_dequant_pipeline_sharded(parts, weights, mask, *, counted, reduce,
 def fused_dequant_aggregate_sharded(enc, layout, weights, mask, cfg, mesh, *,
                                     like, axes=None):
     """Mesh-sharded fused-dequant aggregation: the port of
-    ``repro/comm/kernels/comm_codecs.py:fused_dequant_aggregate_sharded``.
+    ``repro/comm/kernels/comm_codecs.py:fused_dequant_aggregate_sharded``,
+    over the ``axes`` ranks as ``aggregation.aggregate_sharded`` (W below).
 
     ``enc`` is the int8 record of this rank's clients (``codecs.QuantLeaf``
     of (C/W, N) codes and (C/W, NQ) scales over ``layout``), ``like`` the
@@ -261,27 +262,28 @@ def fused_dequant_aggregate_sharded(enc, layout, weights, mask, cfg, mesh, *,
     from repro_torch.core.aggregation import shard_axes
     from repro_torch.sharding import collectives, specs
 
-    axes = shard_axes(mesh, axes)
+    sub = mesh.over(shard_axes(mesh, axes))
     qblk = layout.qblk
-    _, flags = specs.client_flat_specs(layout.sizes, mesh, axes, align=qblk)
-    cols = collectives.ColumnShards(layout.sizes, flags, mesh)
+    _, flags = specs.client_flat_specs(layout.sizes, sub, sub.axis_names,
+                                       align=qblk)
+    cols = collectives.ColumnShards(layout.sizes, flags, sub)
     scols = collectives.ColumnShards(
-        [-(-n // qblk) for n in layout.sizes], flags, mesh)
-    q_sh, q_rep = cols.to_columns(enc.q, mesh)
-    s_sh, s_rep = scols.to_columns(enc.s, mesh)
-    own = mesh.index(axes) == 0
+        [-(-n // qblk) for n in layout.sizes], flags, sub)
+    q_sh, q_rep = cols.to_columns(enc.q)
+    s_sh, s_rep = scols.to_columns(enc.s)
+    own = sub.rank == 0
     parts = [((q[None], s[None], layout.part(n)), c)
              for q, s, n, c in ((q_sh, s_sh, cols.sh_sizes, True),
                                 (q_rep, s_rep, cols.rep_sizes, own)) if n]
     outs = fused_dequant_pipeline_sharded(
         [p for p, _ in parts], weights[None], mask[None],
         counted=[c for _, c in parts],
-        reduce=lambda t: collectives.all_reduce_sum(t, mesh),
+        reduce=lambda t: collectives.all_reduce_sum(t, sub),
         aggregator=cfg.aggregator, trim_frac=cfg.trim_frac,
         cosine_thresh=cfg.cosine_outlier_thresh, krum_f=cfg.krum_f)
     outs = [o[0] for o in outs]
     empty = q_sh.new_empty(0, dtype=torch.float32)
     out_sh = outs.pop(0) if cols.sh_sizes else empty
-    out = cols.gather(out_sh, outs[0] if outs else empty, mesh)
+    out = cols.gather(out_sh, outs[0] if outs else empty)
     return tree.map(lambda o, l: o.to(l.dtype), tree.row_views(out, like),
                     like)

@@ -255,17 +255,61 @@ def aggregate(updates, weights, mask, cfg):
 
 def shard_axes(mesh, axes):
     """The mesh axes the aggregation shards over (default: every axis but
-    "pod"); they must span the mesh's group, whose collectives the
-    aggregation calls."""
-    from repro_torch.sharding import specs
+    "pod"), as a tuple."""
     if axes is None:
         axes = tuple(a for a in mesh.axis_names if a != "pod")
-    axes = tuple(axes)
-    if specs._axis_size(mesh, axes) != mesh.size:
-        raise NotImplementedError(
-            f"axes {axes} do not span the mesh {mesh.shape}: a sub-group "
-            "of the ranks is ROADMAP queue 1 item g'")
-    return axes
+    return tuple(axes)
+
+
+def aggregate_tp(split, whole, weights, mask, cfg, mesh):
+    """The Eq.-11 aggregate of per-client grads taken on a tensor-parallel
+    copy of the params (the pod step's per-client path on a placed state).
+    Each rank holds the rows of its data index's C/D clients (client order
+    is data index major) in two (C/D, n) fp32 matrices: ``split``, this
+    rank's pieces of the leaves split over "model" (they differ across the
+    model ranks), and ``whole``, the leaves whole over "model" (the same
+    on every model rank).  Over the data axes one all_to_all each turns
+    them into (C, n/D) column shards (``collectives.ColumnShards``; a
+    remainder of fewer than D columns stays whole); each rank streams its
+    shards through K1 and K2 (K3), and only the (C,) cosine partials and
+    Krum's (C, C) Gram cross ranks, by one all-reduce each over the mesh,
+    where the whole leaves count on the first model rank only.  Nothing
+    else crosses the model axis.  Returns the aggregated rows of both
+    matrices, (n,) each, whole over the data axes.  Equal to ``aggregate``
+    of the whole (C, N) matrix up to the order of the cross-rank sums."""
+    from repro_torch.kernels import robust_pipeline as rp
+    from repro_torch.sharding import collectives, dtensor, specs
+
+    dp = tuple(a for a in mesh.axis_names if a in dtensor.DP_AXES)
+    data = mesh.over(dp)
+    model = tuple(a for a in mesh.axis_names if a not in dp)
+    first_model = not model or mesh.index(model) == 0
+    mats, parts = [], []
+    for x, counted in ((split, True), (whole, first_model)):
+        n = x.shape[1]
+        if not n:
+            continue
+        sizes = [s for s in (n - n % data.size, n % data.size) if s]
+        _, flags = specs.client_flat_specs(sizes, data, data.axis_names)
+        cols = collectives.ColumnShards(sizes, flags, data)
+        sh, rep = cols.to_columns(x)
+        mats.append((cols, sh.shape[1], rep.shape[1]))
+        parts += [(sh[None], counted), (rep[None], counted and data.rank == 0)]
+    parts = [(x, c) for x, c in parts if x.shape[-1]]
+    outs = rp.fused_pipeline_sharded(
+        [x for x, _ in parts], weights[None], mask[None],
+        counted=[c for _, c in parts],
+        reduce=lambda t: collectives.all_reduce_sum(t, mesh),
+        **rp._pipeline_args(cfg))
+    outs = iter(o[0] for o in outs)
+    res = []
+    for cols, n_sh, n_rep in mats:
+        out_sh = next(outs) if n_sh else split.new_empty(0)
+        out_rep = next(outs) if n_rep else split.new_empty(0)
+        res.append(cols.gather(out_sh, out_rep))
+    empty = split.new_empty(0)
+    return (res.pop(0) if split.shape[1] else empty,
+            res.pop(0) if whole.shape[1] else empty)
 
 
 def aggregate_sharded(updates, weights, mask, cfg, mesh, axes=None, *,
@@ -273,43 +317,48 @@ def aggregate_sharded(updates, weights, mask, cfg, mesh, axes=None, *,
     """Mesh-sharded Eq.-11 aggregation: the port of
     ``repro/core/aggregation.py:aggregate_sharded``.
 
-    ``updates`` holds the rows of this rank's clients, C/W of the mesh's
-    C (rank r has clients r C/W to (r + 1) C/W - 1): a tree of (C/W, ...)
-    leaves, or with ``like`` (the params tree) one (C/W, N) buffer whose
-    columns are ``like``'s leaves in order (the pod step's grads, streamed
-    in place).  ``weights`` and ``mask`` are the whole (C,) columns.  Each
-    leaf's flattened axis shards over the ``axes`` ranks where its size
-    divides their count (``specs.client_flat_specs``): one all_to_all
-    turns the rows into (C, n/W) column shards, every rank streams only
-    its shard through K1 and K2 (K3), only the (C,) cosine partials and
-    Krum's (C, C) Gram cross ranks (one all-reduce each), and the (N,)
-    result is all-gathered.  Leaves that do not split stay whole on every
-    rank and count once, on the first.  Returns the aggregate, shaped like
-    ``like`` (default: ``updates`` without its client axis), each leaf in
-    its dtype.  Equal to ``aggregate`` up to the order of the cross-rank
-    sums; at W = 1, with every leaf split, bitwise."""
+    The ``axes`` ranks (``Mesh.over``: the W ranks that share this rank's
+    coordinates on the axes not named; all of them by default) shard the
+    flat axis among themselves; the ranks at the other coordinates do the
+    same work on the same rows, as the reference's ``shard_map`` replicates
+    over the axes it does not name.  ``updates`` holds the rows of this
+    rank's clients, C/W of the C (rank r of the W has clients r C/W to
+    (r + 1) C/W - 1): a tree of (C/W, ...) leaves, or with ``like`` (the
+    params tree) one (C/W, N) buffer whose columns are ``like``'s leaves in
+    order (the pod step's grads, streamed in place).  ``weights`` and
+    ``mask`` are the whole (C,) columns.  Each leaf's flattened axis shards
+    over the W ranks where its size divides W
+    (``specs.client_flat_specs``): one all_to_all turns the rows into (C,
+    n/W) column shards, every rank streams only its shard through K1 and
+    K2 (K3), only the (C,) cosine partials and Krum's (C, C) Gram cross
+    ranks (one all-reduce each), and the (N,) result is all-gathered.
+    Leaves that do not split stay whole on every rank and count once, on
+    the first.  Returns the aggregate, shaped like ``like`` (default:
+    ``updates`` without its client axis), each leaf in its dtype.  Equal to
+    ``aggregate`` up to the order of the cross-rank sums; at W = 1, with
+    every leaf split, bitwise."""
     from repro_torch.kernels import robust_pipeline as rp
     from repro_torch.sharding import collectives, specs
 
-    axes = shard_axes(mesh, axes)
+    sub = mesh.over(shard_axes(mesh, axes))
     if like is None:
         like = tree.map(lambda l: l[0], updates)
         updates = tree.flatten_rows(updates)
     sizes = [l.numel() for l in tree.leaves(like)]
-    _, flags = specs.client_flat_specs(sizes, mesh, axes)
-    cols = collectives.ColumnShards(sizes, flags, mesh)
-    sh, rep = cols.to_columns(updates.float(), mesh)
-    own = mesh.index(axes) == 0
+    _, flags = specs.client_flat_specs(sizes, sub, sub.axis_names)
+    cols = collectives.ColumnShards(sizes, flags, sub)
+    sh, rep = cols.to_columns(updates.float())
+    own = sub.rank == 0
     parts = [(x[None], c) for x, c in ((sh, True), (rep, own))
              if x.shape[1]]
     outs = rp.fused_pipeline_sharded(
         [x for x, _ in parts], weights[None], mask[None],
         counted=[c for _, c in parts],
-        reduce=lambda t: collectives.all_reduce_sum(t, mesh),
+        reduce=lambda t: collectives.all_reduce_sum(t, sub),
         **rp._pipeline_args(cfg))
     outs = [o[0] for o in outs]
     out_sh = outs.pop(0) if sh.shape[1] else sh.new_empty(0)
-    out = cols.gather(out_sh, outs[0] if outs else sh.new_empty(0), mesh)
+    out = cols.gather(out_sh, outs[0] if outs else sh.new_empty(0))
     return tree.map(lambda o, l: o.to(l.dtype), tree.row_views(out, like),
                     like)
 

@@ -146,6 +146,14 @@ class _Rows:
         return rows
 
 
+def _local(x):
+    """A DTensor's local shard (a view of its storage); other leaves as
+    they are."""
+    from repro_torch.sharding import dtensor
+    return x.to_local() if isinstance(x, torch.Tensor) and \
+        dtensor.is_dtensor(x) else x
+
+
 def copy_into(static, new):
     """Copies the tensors of the state ``new`` into the state ``static`` of
     the same structure, in place (a leaf the step updated in place is
@@ -159,6 +167,8 @@ def copy_into(static, new):
     for i, (s, n) in enumerate(zip(s_leaves, n_leaves)):
         if n is s:
             continue
+        # a placed state (DTensors): the copy writes the local shard
+        s, n = _local(s), _local(n)
         if not (isinstance(s, torch.Tensor) and isinstance(n, torch.Tensor)):
             raise ValueError(f"state leaf {i} ({type(s).__name__}) is not a "
                              "tensor and changed in a step: the driver "

@@ -18,16 +18,33 @@ the port of ``repro/core/pod.py``.
     trust are O(C) tensors in the state, then an optimizer step
     (``optim/optimizers.py``).
 
-With ``agg_mesh`` (``launch/mesh.py``, W ranks) the per-client path is
-data parallel: rank r holds the rows of its C/W clients (the batch's rows
-staged by ``batch_sharding``), takes their grads, and the aggregation runs
-mesh-sharded (``aggregation.aggregate_sharded`` /
-``comm_codecs.fused_dequant_aggregate_sharded``): one all_to_all a step
-turns the rows into column shards, each rank streams only its shard
-through the kernels, the partials are all-reduced and the (N,) aggregate
-all-gathered; the per-client losses and accuracies are all-gathered for
-fitness.  Params and optimizer state stay whole on every rank.  ZeRO-1
-(``zero1_shardings``) is ROADMAP queue 1 item g'.
+The state may be placed on a (data, model) mesh (``launch/mesh.py``) by
+any ``sharding/specs.py`` layout (``place_state``): its params and
+optimizer leaves are then DTensors (``sharding/dtensor.py``), the O(C)
+federation state plain tensors, the same on every rank.
+
+  * ``robust=None`` on a placed state: the batch is split over the data
+    axes and the weighted backward runs on the DTensors, which insert the
+    collectives GSPMD inserts (the FSDP legs' all-gathers over "data" and
+    the grads' reduce-scatters, TP's partial sums over "model");
+  * ZeRO-1 (``zero1_shardings``): the same on a bf16 compute copy in a
+    layout whole over "data", the grads reduce-scattered into the master
+    layout in fp32;
+  * ``robust='per_client'`` with ``agg_mesh`` (W ranks, data x model):
+    data index i takes the grads of its C/data clients (the batch's rows
+    staged by ``batch_sharding``) on a copy of the params that is TP over
+    "model" and whole over "data" (an FSDP leg's reduce-scatter over "data"
+    would sum the grads of different clients); each rank keeps its pieces
+    of them as the copy holds them over "model".  The dense aggregation
+    (``aggregation.aggregate_tp``) shards those columns over "data" by one
+    all_to_all, each rank streams only its shard through the kernels, the
+    partials are all-reduced, and the result is all-gathered over "data"
+    and placed as the params are: no grads cross "model".  With a codec
+    (or ``fused_agg=False``, or ``agg_axes``) one all_to_all over "model"
+    first joins each rank's C/W clients' rows whole (the codec's blocks lie
+    on whole leaves), and ``comm_codecs.fused_dequant_aggregate_sharded``
+    / ``aggregation.aggregate_sharded`` run on them; the per-client
+    losses and accuracies are all-gathered over the data axes for fitness.
 
 Multi-round training runs through ``run`` on the chunked driver
 (``core/driver.py``): on the card the step (autograd, aggregation,
@@ -52,6 +69,7 @@ from repro_torch.core import aggregation, fitness, selection, slots
 from repro_torch.core import driver as scan_driver
 from repro_torch.models import transformer
 from repro_torch.optim import optimizers
+from repro_torch.sharding import collectives, dtensor, specs
 
 
 class PodFedState(NamedTuple):
@@ -73,18 +91,22 @@ class PodState(NamedTuple):
     step: torch.Tensor            # 0-d int32
 
 
-def init_pod_state(params, opt_init, C, fed_cfg, rng, *, mesh=None):
+def init_pod_state(params, opt_init, C, fed_cfg, rng, *, mesh=None,
+                   shardings=None):
     """``rng``: the state's ``torch.Generator``.  With a compressing codec
     and error feedback the state holds the residual rows of this rank's
     clients (C/W of them with a ``mesh``, in the grads buffer's column
-    order)."""
+    order).  ``shardings``: a function of the state giving a
+    ``NamedSharding`` tree over it (e.g. ``lambda st: specs.named(mesh,
+    specs.param_specs(st, mesh=mesh))``): the state comes back placed by
+    it (``place_state``)."""
     dev = tree.leaves(params)[0].device
     ef = None
     if fed_cfg.compress != "none" and fed_cfg.error_feedback:
         rows = C // (mesh.size if mesh is not None else 1)
         ef = torch.zeros(rows, sum(p.numel() for p in tree.leaves(params)),
                          device=dev)
-    return PodState(
+    state = PodState(
         params=params,
         opt_state=opt_init(params),
         fed=PodFedState(
@@ -99,6 +121,9 @@ def init_pod_state(params, opt_init, C, fed_cfg, rng, *, mesh=None):
             cum_selected=torch.zeros(C, device=dev),
             ef=ef),
         step=torch.zeros((), dtype=torch.int32, device=dev))
+    if shardings is None:
+        return state
+    return place_state(state, shardings(state))
 
 
 def _full(like, value, shape=()):
@@ -120,13 +145,10 @@ def per_client_metrics(params, cfg, batch, C):
     loss_tok = torch.zeros(GB, device=hidden.device)
     acc_tok = torch.zeros(GB, device=hidden.device)
     for i in range(n):
-        tc = targets[:, i * chunk:(i + 1) * chunk]
-        logits = transformer.lm_head(
-            params, cfg, hidden[:, i * chunk:(i + 1) * chunk]).float()
-        logz = torch.logsumexp(logits, dim=-1)
-        gold = torch.gather(logits, -1, tc[..., None].long())[..., 0]
-        correct = (logits.argmax(-1) == tc).float()
-        loss_tok = loss_tok + (logz - gold).sum(1)
+        ll, correct = transformer.token_ce(transformer.lm_head(
+            params, cfg, hidden[:, i * chunk:(i + 1) * chunk]),
+            targets[:, i * chunk:(i + 1) * chunk])
+        loss_tok = loss_tok + ll.sum(1)
         acc_tok = acc_tok + correct.sum(1)
     denom = _full(hidden, float(n * chunk))
     loss_c = loss_tok.reshape(C, GB // C).mean(1) / denom
@@ -149,31 +171,68 @@ def _leaf_inputs(params):
     return req, tree.unflatten(params, req)
 
 
+def place_state(state, shardings):
+    """``state`` with its params and optimizer leaves as DTensors placed by
+    ``shardings``, a ``NamedSharding`` tree over the whole state (e.g.
+    ``specs.named(mesh, specs.param_specs(state, mesh=mesh))``, as the
+    JAX CLI places its state); the 0-d counters and the O(C) federation
+    state stay plain tensors, the same on every rank."""
+    return state._replace(
+        params=dtensor.place(state.params, shardings.params),
+        opt_state=dtensor.place(state.opt_state, shardings.opt_state))
+
+
+def _dp_axes(mesh):
+    return tuple(a for a in mesh.axis_names if a in dtensor.DP_AXES)
+
+
+def _batch_dtensor(batch, device_mesh):
+    """This rank's rows of the batch (cut over the data axes by
+    ``batch_shardings``) as DTensors of the whole batch, split over those
+    axes."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    pl = [Shard(0) if n in dtensor.DP_AXES else Replicate()
+          for n in device_mesh.mesh_dim_names]
+    return {k: (v if v is None or dtensor.is_dtensor(v) else
+                DTensor.from_local(v, device_mesh, pl, run_check=False))
+            for k, v in batch.items()}
+
+
 def make_train_step(model_cfg, fed_cfg, train_cfg, *, robust=None,
                     eval_frac=4, zero1_shardings=None, agg_mesh=None,
                     agg_axes=None):
     """Returns ``train_step(state, batch) -> (state, metrics)``.
 
     batch: {tokens (GB, S) or embeds (GB, S, d), targets (GB, S),
-    [image_embeds (GB, T, d)]}, GB % C == 0; with
-    ``agg_mesh`` (``robust='per_client'`` only) the rows of this rank's
-    C/W clients, (GB/W, S).
+    [image_embeds (GB, T, d)]}, GB % C == 0.  The state may be placed
+    (``place_state``); then, and with ``agg_mesh``, the batch is this
+    rank's rows over the data axes (``launch.inputs.batch_shardings``).
 
-    ``agg_mesh`` / ``agg_axes``: shard the robust aggregation's flattened
-    param axis over these mesh axes (default: every axis but "pod") via
-    ``aggregation.aggregate_sharded`` (module docstring).  The JAX
-    package ignores ``agg_mesh`` off the per-client path; so does this
-    one, and its batch is then the whole one."""
-    if zero1_shardings is not None:
-        raise NotImplementedError(
-            "ZeRO-1 (bf16 compute copies, reduce-scattered fp32 master "
-            "state) is ROADMAP queue 1 item g'")
+    The paths (the module docstring): ``robust=None`` is one weighted
+    backward, on DTensors where the state is placed (FSDP x TP; DTensor
+    inserts the collectives).  ``zero1_shardings`` = (compute, master)
+    ``NamedSharding`` trees over the params: ZeRO-1, the forward and
+    backward on a bf16 compute copy in the ``compute`` layout (whole over
+    "data"), the grads cast to fp32 and brought to the ``master`` layout,
+    the post-update evaluation on the bf16 copy of the new params.
+    ``robust='per_client'`` with ``agg_mesh`` (and ``agg_axes``, default
+    every axis but "pod"): each data index takes the grads of its C/data
+    clients on a copy of the params in the ``param_specs_tp`` layout (TP
+    over "model", whole over "data"), and the aggregation runs over the
+    mesh (``aggregation.aggregate_tp``; with a codec, ``fused_agg=False``
+    or ``agg_axes``, on whole rows).  The JAX package ignores
+    ``agg_mesh`` off the per-client path; so does this one."""
     C = fed_cfg.n_clients
     mesh = agg_mesh if robust == "per_client" else None
     W = mesh.size if mesh is not None else 1
     if C % W:
         raise ValueError(f"{C} clients do not split over {W} ranks")
-    C_local = C // W
+    dp = _dp_axes(mesh) if mesh is not None else ()
+    n_dp = specs._axis_size(mesh, dp) if dp else 1
+    C_local = C // n_dp               # the clients of this data index
+    model_mesh = (mesh.over(tuple(a for a in mesh.axis_names if a not in dp))
+                  if mesh is not None else None)
     opt_init, opt_update = optimizers.make_optimizer(train_cfg)
     codec = codecs.make_codec(fed_cfg)
     if codec is not None and robust != "per_client":
@@ -183,54 +242,164 @@ def make_train_step(model_cfg, fed_cfg, train_cfg, *, robust=None,
             "no per-client update ever crosses a client->server boundary")
     if robust not in (None, "per_client"):
         raise ValueError(robust)
+    if zero1_shardings is not None and robust is not None:
+        raise ValueError("ZeRO-1 is a path of robust=None")
     if fed_cfg.agg_blk is not None:
         raise NotImplementedError(
             "agg_blk is the TPU kernels' VMEM block size; the CUDA kernels "
             "fix their own tiles")
     fuse = dq.should_fuse(codec, fed_cfg)
+    # dense fused aggregation over the whole mesh: on the TP pieces as the
+    # ranks hold them (``aggregation.aggregate_tp``); else on whole rows
+    tp_agg = codec is None and fed_cfg.fused_agg and agg_axes is None
     layouts = {}                # leaf sizes -> codecs.WireLayout
+    tp_sh = {}                  # the per-client compute layout, once
     gather = (lambda v: v) if mesh is None else (
-        lambda v: _all_gather(v, mesh))
+        lambda v: collectives.all_gather_rows(v, mesh.over(dp)))
 
-    def eval_slice(batch):
+    def eval_slice(batch, n_clients):
         """Held-out-ish slice: the last 1/eval_frac of each client's
         rows."""
         def cut(x):
             if x is None or x.dim() < 2:
                 return x
-            bc = x.shape[0] // C_local
+            bc = x.shape[0] // n_clients
             e = max(1, bc // eval_frac)
-            xc = x.reshape(C_local, bc, *x.shape[1:])[:, -e:]
-            return xc.reshape(C_local * e, *x.shape[1:])
+            xc = x.reshape(n_clients, bc, *x.shape[1:])[:, -e:]
+            return xc.reshape(n_clients * e, *x.shape[1:])
 
         return {k: cut(v) for k, v in batch.items() if v is not None}
 
+    def compute_copy(params):
+        """The params the forward runs on: ZeRO-1's bf16 copy in the
+        compute layout; the per-client path's TP copy (``tp_copy``); else
+        the params themselves."""
+        if zero1_shardings is not None:
+            return tree.unflatten(params, [
+                dtensor.to_layout(p.to(torch.bfloat16), sh)
+                for p, sh in zip(tree.leaves(params), dtensor.sharding_leaves(
+                    zero1_shardings[0]))])
+        if robust == "per_client":
+            return tp_copy(params)
+        return params
+
+    def tp_copy(params):
+        """The per-client path's compute copy: plain params as they are;
+        placed params in the ``param_specs_tp`` layout, whole over the data
+        axes, as DTensors on the model axis's sub-mesh (plain tensors where
+        that axis is 1 wide)."""
+        if not dtensor.is_dtensor(tree.leaves(params)[0]):
+            return params
+        from torch.distributed.tensor import DTensor
+        if not tp_sh:
+            tp_sh["t"] = specs.named(mesh, specs.param_specs_tp(params,
+                                                                mesh=mesh))
+        model = [a for a in mesh.axis_names if a not in dp]
+        sub = mesh.device_mesh[model[0]] if specs._axis_size(
+            mesh, tuple(model)) > 1 else None
+        mi = mesh.axis_names.index(model[0]) if model else None
+
+        def one(p, sh):
+            loc = dtensor.to_layout(p, sh)
+            if sub is None:
+                return loc.to_local()
+            return DTensor.from_local(loc.to_local(), sub,
+                                      [loc.placements[mi]], run_check=False)
+
+        return tree.unflatten(params, [
+            one(p, sh) for p, sh in zip(tree.leaves(params),
+                                        dtensor.sharding_leaves(tp_sh["t"]))])
+
     def client_grads(params, batch):
-        """Each local client's grads, by its own backward pass, written into
-        the rows of one contiguous (C/W, N) fp32 buffer; with its (C/W,)
-        losses and accuracies."""
-        n = sum(p.numel() for p in tree.leaves(params))
-        buf = torch.empty(C_local, n, device=tree.leaves(params)[0].device)
-        views = tree.leaves(tree.row_views(buf, params))
-        req, p = _leaf_inputs(params)
+        """Each of this data index's C/data clients' grads, by its own
+        backward pass on the compute copy, written as fp32 rows into two
+        contiguous buffers: ``split`` (C/data, n), this rank's pieces of
+        the leaves the copy splits over "model", and ``whole`` (C/data,
+        n'), the leaves whole over "model", each in leaf order.  Returns
+        them, the copy's leaves, which leaves are split, and the
+        (C/data,) losses and accuracies."""
+        cp = compute_copy(params)
+        leaves = tree.leaves(cp)
+        loc = [dtensor.local(q) for q in leaves]
+        split = [dtensor.model_split(q) is not None for q in leaves]
+        dev = _device(params)
+        bufs = [torch.empty(C_local, sum(x.numel() for x, f in zip(loc, split)
+                                         if f is want), device=dev)
+                for want in (True, False)]
+        views, off = [], [0, 0]
+        for x, f in zip(loc, split):
+            b = 0 if f else 1
+            views.append(bufs[b][:, off[b]:off[b] + x.numel()])
+            off[b] += x.numel()
+        req, p = _leaf_inputs(cp)
         bc = batch["targets"].shape[0] // C_local
         losses, accs = [], []
         for c in range(C_local):
-            with torch.enable_grad():
+            with torch.enable_grad(), dtensor.mixing(
+                    dtensor.is_dtensor(leaves[0])):
                 loss, m = transformer.loss_fn(p, model_cfg,
                                               _rows_of(batch, c, bc))
                 grads = torch.autograd.grad(loss, req)
-            for v, g in zip(views, grads):
-                v[c].copy_(g)
+            for v, g, q in zip(views, grads, leaves):
+                # this rank's piece, placed as its leaf (a partial sum over
+                # "model" reduced)
+                v[c].copy_(dtensor.local(dtensor.redistribute(
+                    g, q.device_mesh, q.placements)
+                    if dtensor.is_dtensor(g) else g).reshape(-1))
             del grads           # before the next client's backward
-            losses.append(loss.detach())
-            accs.append(m["acc"].detach())
-        return buf, torch.stack(losses), torch.stack(accs)
+            losses.append(dtensor.plain(loss).detach())
+            accs.append(dtensor.plain(m["acc"]).detach())
+        return (bufs[0], bufs[1], leaves, split, torch.stack(losses),
+                torch.stack(accs))
 
-    def aggregate(params, buf, w, team, rng, ef):
-        """The Eq.-11 aggregate of the clients' grads (a tree like params),
-        the uplink bytes a client (None without a codec) and the new EF
-        residual rows."""
+    def whole_rows(bufs, leaves, split):
+        """The whole rows of this rank's C/W clients (the model rank's
+        block of its data index's clients), (C/W, N) in leaf order, from
+        ``client_grads``' buffers: the split leaves' pieces exchanged over
+        "model" by one all_to_all and joined on their split dim.  Where no
+        leaf is split the whole buffer's rows, with no copy."""
+        sb, wb = bufs
+        M = model_mesh.size if model_mesh is not None else 1
+        r = C_local // M
+        lo = (model_mesh.rank if model_mesh is not None else 0) * r
+        if not any(split):
+            return wb[lo:lo + r]
+        recv = collectives.all_to_all(sb.reshape(M, r, -1), model_mesh)
+        cols, off = [], [0, 0]
+        for q, f in zip(leaves, split):
+            x = dtensor.local(q)
+            n = x.numel()
+            if f:
+                piece = recv[:, :, off[0]:off[0] + n].reshape(M, r, *x.shape)
+                cols.append(torch.cat(piece.unbind(0),
+                                      1 + dtensor.model_split(q))
+                            .reshape(r, -1))
+            else:
+                cols.append(wb[lo:lo + r, off[1]:off[1] + n])
+            off[0 if f else 1] += n
+        return torch.cat(cols, 1)
+
+    def from_tp(params, outs, leaves, split):
+        """The aggregated rows of ``aggregation.aggregate_tp`` (whole over
+        the data axes, this rank's pieces over "model") as a tree placed as
+        the params are (the data split a local slice, no communication)."""
+        res, off = [], [0, 0]
+        for p, q, f in zip(tree.leaves(params), leaves, split):
+            b = 0 if f else 1
+            x = dtensor.local(q)
+            o = outs[b][off[b]:off[b] + x.numel()].view(x.shape).to(p.dtype)
+            off[b] += x.numel()
+            res.append(dtensor.from_model_piece(o, q, p))
+        return tree.unflatten(params, res)
+
+    def aggregate(params, bufs, leaves, split, w, team, rng, ef):
+        """The Eq.-11 aggregate of the clients' grads (a tree placed like
+        params), the uplink bytes a client (None without a codec) and the
+        new EF residual rows."""
+        if mesh is not None and tp_agg:
+            outs = aggregation.aggregate_tp(*bufs, w, team, fed_cfg, mesh)
+            return from_tp(params, outs, leaves, split), None, ef
+        buf = whole_rows(bufs, leaves, split)
         enc, new_ef, bytes_up_pc = None, ef, None
         if codec is not None:
             sizes = tuple(p.numel() for p in tree.leaves(params))
@@ -256,12 +425,44 @@ def make_train_step(model_cfg, fed_cfg, train_cfg, *, robust=None,
                 buf, w, team, fed_cfg, mesh, agg_axes, like=params)
         else:
             if mesh is not None:        # the reference needs every row
-                buf = _all_gather(buf, mesh)
+                buf = collectives.all_gather_rows(buf, mesh)
             # one leaf: the kernels stream the buffer in place
             out = aggregation.aggregate({"u": buf}, w, team, fed_cfg)["u"]
             grads = tree.map(lambda o, p: o.to(p.dtype),
                              tree.row_views(out, params), params)
-        return grads, bytes_up_pc, new_ef
+        # the whole aggregate, placed as the params are (no communication)
+        return dtensor.placed_like(grads, params), bytes_up_pc, new_ef
+
+    def weighted_grads(params, batch, w):
+        """One weighted backward: (grads placed as ``params``, loss_c,
+        acc_c).  On a placed state or under ZeRO-1 the batch and the
+        forward are DTensors."""
+        cp = compute_copy(params)
+        placed = dtensor.is_dtensor(tree.leaves(cp)[0])
+        if placed:
+            batch = _batch_dtensor(batch, tree.leaves(cp)[0].device_mesh)
+        req, p = _leaf_inputs(cp)
+        with torch.enable_grad(), dtensor.mixing(placed):
+            loss_c, acc_c, aux = per_client_metrics(p, model_cfg, batch, C)
+            total = torch.sum(w * loss_c) + aux
+            grads = torch.autograd.grad(total, req)
+        if zero1_shardings is not None:
+            # the grads in fp32, brought to the master layout
+            _, master_sh = zero1_shardings
+            grads = [dtensor.to_layout(g.float(), sh) for g, sh in zip(
+                grads, dtensor.sharding_leaves(master_sh))]
+        grads = [_like(g, q) for g, q in zip(grads, tree.leaves(params))]
+        return (tree.unflatten(params, grads), dtensor.plain(loss_c).detach(),
+                dtensor.plain(acc_c).detach(), batch)
+
+    def eval_metrics(new_params, batch):
+        """LL/LA after the update, on the copy the step computes on."""
+        ep = compute_copy(new_params)
+        placed = dtensor.is_dtensor(tree.leaves(ep)[0])
+        with torch.no_grad(), dtensor.mixing(placed):
+            ll_c, la_c, _ = per_client_metrics(
+                ep, model_cfg, eval_slice(batch, C_local), C_local)
+        return dtensor.plain(ll_c), dtensor.plain(la_c)
 
     def train_step(state: PodState, batch):
         fed = state.fed
@@ -275,34 +476,31 @@ def make_train_step(model_cfg, fed_cfg, train_cfg, *, robust=None,
         w = w / torch.clamp(w.sum(), min=1e-12)
 
         if robust == "per_client":
-            buf, loss_c, acc_c = client_grads(state.params, batch)
-            grads, bytes_up_pc, new_ef = aggregate(state.params, buf, w,
-                                                   fed.team, fed.rng, fed.ef)
-            del buf             # (C, N) fp32: free it before the optimizer
+            *bufs, leaves, split, loss_c, acc_c = client_grads(
+                state.params, batch)
+            grads, bytes_up_pc, new_ef = aggregate(
+                state.params, bufs, leaves, split, w, fed.team, fed.rng,
+                fed.ef)
+            del bufs            # (C, N) fp32: free it before the optimizer
             loss_c, acc_c = gather(loss_c), gather(acc_c)
         else:
-            req, p = _leaf_inputs(state.params)
-            with torch.enable_grad():
-                loss_c, acc_c, aux = per_client_metrics(p, model_cfg, batch,
-                                                        C)
-                total = torch.sum(w * loss_c) + aux
-                grads = tree.unflatten(state.params,
-                                       list(torch.autograd.grad(total, req)))
-            loss_c, acc_c = loss_c.detach(), acc_c.detach()
+            grads, loss_c, acc_c, batch = weighted_grads(state.params, batch,
+                                                         w)
 
-        if train_cfg.grad_clip:
-            grads, gnorm = optimizers.clip_by_global_norm(
-                grads, train_cfg.grad_clip)
-        else:
-            gnorm = optimizers.global_norm(grads)
-
-        updates, new_opt = opt_update(grads, state.opt_state, state.params)
-        new_params = optimizers.apply_updates(state.params, updates)
+        placed = dtensor.is_dtensor(tree.leaves(state.params)[0])
+        with dtensor.mixing(placed):
+            if train_cfg.grad_clip:
+                grads, gnorm = optimizers.clip_by_global_norm(
+                    grads, train_cfg.grad_clip)
+            else:
+                gnorm = optimizers.global_norm(grads)
+            updates, new_opt = opt_update(grads, state.opt_state,
+                                          state.params)
+            new_params = optimizers.apply_updates(state.params, updates)
+        gnorm = dtensor.plain(gnorm)
 
         # ---- fitness: GL/GA pre-update (have it), LL/LA post-update -------
-        with torch.no_grad():
-            ll_c, la_c, _ = per_client_metrics(new_params, model_cfg,
-                                               eval_slice(batch), C_local)
+        ll_c, la_c = eval_metrics(new_params, batch)
         ll_c, la_c = gather(ll_c), gather(la_c)
         # LM "accuracy" for Eq. (1): the bounded (0, 1] proxy exp(-loss)
         # blended with token accuracy
@@ -353,9 +551,17 @@ def make_train_step(model_cfg, fed_cfg, train_cfg, *, robust=None,
     return train_step
 
 
-def _all_gather(v, mesh):
-    from repro_torch.sharding import collectives
-    return collectives.all_gather_rows(v, mesh)
+def _device(params):
+    """The device the params' leaves live on."""
+    return tree.leaves(params)[0].device
+
+
+def _like(g, p):
+    """A grad placed as its param: redistributed to a DTensor param's
+    placements, gathered whole for a plain param."""
+    if dtensor.is_dtensor(p):
+        return dtensor.redistribute(g, p.device_mesh, p.placements)
+    return dtensor.plain(g)
 
 
 def _host(v):

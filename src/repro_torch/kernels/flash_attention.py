@@ -14,10 +14,10 @@ value and the rescale exp(-1e30 - m) = 0 wipes them, so the tiles change
 only the order of the fp32 sums.  Unlike the TPU kernel, any S >= 1 (a
 ragged last tile is masked) and any head dim up to 256 are taken.
 
-Forward only, as the reference's Pallas path: under grad, with an input
-that requires grad, both devices raise rather than return an output that
-drops the attention's gradient (a backward kernel is ROADMAP queue 1
-item g'; the pod path trains with the plain attention).
+Forward only, as the reference's Pallas kernel is (``jax.grad`` through
+it raises): under grad, with an input that requires grad, both devices
+raise rather than return an output that drops the attention's gradient;
+the pod path trains with the plain attention.
 
 Dispatch: a CUDA tensor launches the kernel or the wrapper raises; a CPU
 tensor runs ``flash_attention_fwd_plain``.  ``flash_attention_fwd.launches``
@@ -124,9 +124,9 @@ def flash_attention_fwd(q, k, v, *, causal=True, window=0):
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         raise RuntimeError(
             "flash_attention_fwd (K9) is forward only: it has no backward "
-            "kernel, so its output would drop the gradient of q, k and v; "
-            "the backward is ROADMAP queue 1 item g'.  Call it "
-            "under torch.no_grad() or on inputs that do not require grad.")
+            "kernel (the reference's is forward only too), so its output "
+            "would drop the gradient of q, k and v.  Call it under "
+            "torch.no_grad() or on inputs that do not require grad.")
     if q.device.type == "cpu":
         return flash_attention_fwd_plain(q, k, v, causal=causal,
                                          window=window)

@@ -6,10 +6,12 @@ tuple and a torch dtype.  The [audio] and [vlm] frontends are stubs, as in
 the JAX package: a batch carries frame embeddings (``embeds``, (B, S, d))
 in place of tokens, or patch embeddings (``image_embeds``, (B, T, d))
 beside them.  ``batch_shardings`` gives the ``NamedSharding``
-of each batch leaf over a mesh, which the pod driver's staging cuts each
-rank's rows with (``core/driver.py``).  The decode-side specs
-(``infer_batch_specs``, ``cache_specs_struct``) come with the dry-run,
-ROADMAP queue 1 item g'.
+of each batch leaf over a mesh (its data axes; a "model" axis holds the
+rows whole), which the pod driver's staging cuts each rank's rows with
+(``core/driver.py``).  ``infer_batch_specs`` and ``cache_specs_struct``
+are the serving side's stand-ins: the prefill / decode batch and the
+stacked cache as shapes (the cache built on the ``meta`` device, which
+allocates nothing).
 """
 from __future__ import annotations
 
@@ -58,6 +60,38 @@ def train_batch_specs(cfg: ModelConfig, shape_name: str):
         batch["image_embeds"] = ShapeDtype((gb, cfg.n_image_tokens,
                                             cfg.d_model), torch.bfloat16)
     return batch
+
+
+def infer_batch_specs(cfg: ModelConfig, shape_name: str, *, decode=False):
+    """The serving batch of an input shape: tokens (or frame embeddings)
+    of the whole prompt, or of one step with ``decode``; a VLM's patch
+    embeddings with the prompt."""
+    shape = INPUT_SHAPES[shape_name]
+    gb = shape.global_batch
+    s = 1 if decode else shape.seq_len
+    batch = {}
+    if cfg.embed_inputs:
+        batch["tokens"] = ShapeDtype((gb, s), torch.int32)
+    else:
+        batch["embeds"] = ShapeDtype((gb, s, cfg.d_model), torch.bfloat16)
+    if cfg.arch_type == "vlm" and not decode:
+        batch["image_embeds"] = ShapeDtype((gb, cfg.n_image_tokens,
+                                            cfg.d_model), torch.bfloat16)
+    return batch
+
+
+def cache_specs_struct(cfg: ModelConfig, shape_name: str):
+    """The stacked cache of an input shape (``transformer.init_cache``, a
+    ring cache for long_500k's sliding window) as ``ShapeDtype`` leaves."""
+    from repro_torch import tree
+    from repro_torch.models import transformer
+
+    shape = INPUT_SHAPES[shape_name]
+    ring = bool(cfg.sliding_window) and shape_name == "long_500k"
+    cache = transformer.init_cache(cfg, shape.global_batch, shape.seq_len,
+                                   ring=ring, dtype=torch.bfloat16,
+                                   device="meta")
+    return tree.map(lambda x: ShapeDtype(tuple(x.shape), x.dtype), cache)
 
 
 def batch_shardings(batch, mesh):

@@ -3,9 +3,14 @@
 
 A ``Mesh`` lays the ranks of a process group out on a grid with JAX's axis
 names ("data", "model"), row-major as ``jax.make_mesh`` lays out devices:
-rank = data index * model + model index.  Only the data axis may be wider
-than 1: tensor parallelism (a "model" axis) is ROADMAP queue 1 item g',
-and so is ``make_production_mesh``, the TPU pod's 16 x 16 layout.
+rank = data index * model + model index.  Beside it stands the same grid
+as a ``torch.distributed`` ``DeviceMesh`` (dim names "data", "model"), on
+which the pod step places its state as DTensors (``sharding/dtensor.py``),
+and one sub-group a axis: ``Mesh.over(axes)`` is the mesh of the ranks that
+share this rank's coordinates on the axes not named, whose collectives
+(``sharding/collectives.py``) the aggregation over a part of the mesh
+calls.  ``make_production_mesh`` (the TPU pod's 16 x 16 layout) is not
+ported here.
 
 Nothing tells a program here of a cluster.  Where no group exists,
 ``host_mesh`` starts one of world size 1 itself, on a ``FileStore`` in a
@@ -29,11 +34,16 @@ class Mesh(NamedTuple):
     axis_names: Tuple[str, ...]
     shape: Tuple[int, ...]
     group: object                 # the process group (None: the default)
-    rank: int
+    rank: int                     # this rank's index in ``group``
+    device_mesh: object = None    # the DeviceMesh of the grid (or None)
+    groups: Tuple[object, ...] = ()     # one sub-group an axis
 
     @property
     def size(self):
-        return self.shape[0] * self.shape[1]
+        n = 1
+        for s in self.shape:
+            n *= s
+        return n
 
     def coords(self):
         """This rank's index along each axis."""
@@ -52,6 +62,25 @@ class Mesh(NamedTuple):
         for a in axes:
             i = i * self.shape[self.axis_names.index(a)] + c[a]
         return i
+
+    def over(self, axes):
+        """The mesh of the ranks that share this rank's coordinates on the
+        axes not in ``axes``: its group is that sub-group, its rank this
+        rank's index over ``axes``.  ``axes`` spanning the mesh (in its
+        order) give the mesh itself."""
+        axes = tuple(axes if isinstance(axes, tuple) else (axes,))
+        if axes == self.axis_names:
+            return self
+        extent = lambda a: self.shape[self.axis_names.index(a)]
+        if all(extent(a) == 1 for a in self.axis_names if a not in axes):
+            group = self.group          # the other axes are 1 wide
+        elif len(axes) == 1:
+            group = self.groups[self.axis_names.index(axes[0])]
+        else:
+            raise ValueError(f"axes {axes}: a sub-group is one axis of the "
+                             f"mesh {self.axis_names} or all of them")
+        return Mesh(axes, tuple(extent(a) for a in axes), group,
+                    self.index(axes))
 
 
 def start_group(device, world_size=1, rank=0, store_dir=None):
@@ -75,19 +104,29 @@ def start_group(device, world_size=1, rank=0, store_dir=None):
 
 def make_host_mesh(data: int = 1, model: int = 1, *, group=None):
     """A ("data", "model") mesh over the ranks of ``group`` (default: the
-    default group, which must exist).  ``data`` is clamped to the group's
-    size as JAX clamps it to the device count; the mesh must then span the
-    group."""
-    if model > 1:
-        raise NotImplementedError(
-            "a model axis (tensor parallelism) is ROADMAP queue 1 item g'")
+    default group, which must exist), with its ``DeviceMesh`` and one
+    sub-group an axis.  ``data`` and ``model`` are clamped as JAX clamps
+    them to the device count (``model = max(1, min(model, n // data))``);
+    the mesh must then span the group."""
     n = dist.get_world_size(group)
     data = min(data, n)
+    model = max(1, min(model, n // data))
     if data * model != n:
         raise ValueError(f"a {data} x {model} mesh does not span the "
                          f"{n} ranks of the group")
-    return Mesh(("data", "model"), (data, model), group,
-                dist.get_rank(group))
+    if group is not None and model > 1:
+        raise ValueError("a model axis needs the default group")
+    rank = dist.get_rank(group)
+    device_mesh, groups = None, ()
+    if group is None:
+        from torch.distributed.device_mesh import DeviceMesh
+        dev = "cuda" if dist.get_backend() == "nccl" else "cpu"
+        device_mesh = DeviceMesh(dev, torch.arange(n).reshape(data, model),
+                                 mesh_dim_names=("data", "model"))
+        groups = (device_mesh.get_group("data"),
+                  device_mesh.get_group("model"))
+    return Mesh(("data", "model"), (data, model), group, rank, device_mesh,
+                groups)
 
 
 @contextlib.contextmanager

@@ -3,10 +3,13 @@
 
 Runs the PodEngine (``core/pod.py``): FedFiTS client groups on the rows of
 each global batch, one training step a round.  With the default tiny-lm
-config this trains a ~64M-parameter decoder on synthetic non-IID LM data;
+config this trains a ~64M-parameter decoder on synthetic non-IID LM data.
+The state is placed over the (``--data-axis``, ``--model-axis``) mesh of
+the process group by ``sharding.specs.param_specs`` (FSDP x TP; world size
+1 unless the launcher started a wider one, ``launch.mesh.start_group``);
+on a mesh of one rank it stays plain.
 ``--robust per_client`` takes each client's grads and aggregates them
-through the Eq.-11 kernels, sharded over the mesh of the process group
-(world size 1 unless the launcher started a wider one); ``--compress
+through the Eq.-11 kernels, sharded over that mesh; ``--compress
 int8`` sends them through the int8 codec with error feedback and the
 fused-dequant kernels; ``--aggregator`` (not a flag of the JAX CLI, which
 trains with fedavg) picks the aggregator.  Runs on the card unless
@@ -21,7 +24,8 @@ trains with fedavg) picks the aggregator.  Runs on the card unless
 loss; musicgen trains on frame embeddings, a VLM with patch embeddings).
 
 Prints a JSON row every 5 steps and the last, then ``done``.  ``main``
-returns ``(final_state, history)`` to a caller in the same process.
+returns ``(final_state, history)`` to a caller in the same process, the
+state gathered whole.
 """
 from __future__ import annotations
 
@@ -41,6 +45,8 @@ from repro_torch.launch import inputs
 from repro_torch.launch.mesh import host_mesh
 from repro_torch.models import transformer
 from repro_torch.optim import optimizers
+from repro_torch.sharding import dtensor
+from repro_torch.sharding import specs as sh
 
 POOL = 64           # sequences in each client's pool
 
@@ -250,14 +256,23 @@ def _train(args, cfg, fed, tc, dev, mesh):
     agg_mesh = mesh if args.robust else None
     params = transformer.init_transformer(_gen(dev, tc.seed), cfg)
     opt_init, _ = optimizers.make_optimizer(tc)
+    # the state placed over data x model by param_specs (FSDP x TP), as
+    # the JAX CLI places it.  On one rank placing moves nothing and costs
+    # DTensor's host dispatch on every op of an eager step (2.5x the plain
+    # per-step loop on the H100), so the state stays plain there
+    state_sh = ((lambda st: sh.named(mesh, sh.param_specs(st, mesh=mesh)))
+                if mesh.size > 1 else None)
     state = pod.init_pod_state(params, opt_init, fed.n_clients, fed,
-                               _gen(dev, tc.seed + 1), mesh=agg_mesh)
+                               _gen(dev, tc.seed + 1), mesh=agg_mesh,
+                               shardings=state_sh)
+    del params
     step_fn = pod.make_train_step(cfg, fed, tc, robust=args.robust,
                                   agg_mesh=agg_mesh)
 
     start = 0
     if args.ckpt_dir:
-        restored, at = ckpt.restore_latest(args.ckpt_dir, state)
+        restored, at = ckpt.restore_latest(
+            args.ckpt_dir, state, state_sh(state) if state_sh else None)
         if restored is not None:
             state, start = restored, at
             print(f"restored checkpoint at step {at}")
@@ -274,9 +289,8 @@ def _train(args, cfg, fed, tc, dev, mesh):
                   f"chunk end at/after each due step")
 
     sampler = synthetic_lm_batches(cfg, tc, fed.n_clients, tc.seed, dev)
-    # each rank stages only its clients' rows (the per-client path)
-    batch_sh = (inputs.batch_shardings(sampler.specs, agg_mesh)
-                if agg_mesh is not None else None)
+    # each rank stages only its data index's rows
+    batch_sh = inputs.batch_shardings(sampler.specs, mesh)
     t0 = time.time()
 
     def on_chunk(st, rows):
@@ -304,7 +318,9 @@ def _train(args, cfg, fed, tc, dev, mesh):
     else:
         out = pod.run(state, step_fn, sampler, args.steps - start, **kw)
     print("done")
-    return out
+    # whole tensors, usable after the process group is gone
+    state, history = out
+    return dtensor.whole(state), history
 
 
 if __name__ == "__main__":

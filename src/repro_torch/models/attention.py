@@ -38,6 +38,7 @@ from repro_torch.kernels import flash_attention_ops
 from repro_torch.kernels.paged_decode import paged_flash_decode
 from repro_torch.kernels.paged_decode_ref import paged_decode_ref
 from repro_torch.models.layers import apply_rope, dense_init
+from repro_torch.sharding import dtensor
 
 NEG_INF = -1e30
 
@@ -65,7 +66,14 @@ def _proj(params, name, x, heads, dh, dtype):
 
 def _sdpa(q, k, v, mask):
     """q: (B, S, Hkv, G, dh); k/v: (B, T, Hkv, dh); mask broadcastable to
-    (B, 1, 1, S, T), or None for no mask -> (B, S, Hkv, G, dh) fp32."""
+    (B, 1, 1, S, T), or None for no mask -> (B, S, Hkv, G, dh) fp32.  On
+    DTensors it runs on each rank's rows and heads (the einsums flatten a
+    split head dim, which DTensor has no rule for; ROADMAP §3)."""
+    return dtensor.local_op(_sdpa_local, q, k, v, mask, rows=3,
+                            heads=(2, 2, 2))
+
+
+def _sdpa_local(q, k, v, mask):
     scale = q.shape[-1] ** -0.5
     scores = torch.einsum("bshgd,bthd->bhgst", q.float() * scale, k.float())
     if mask is not None:

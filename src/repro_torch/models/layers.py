@@ -15,6 +15,17 @@ import torch.nn.functional as F
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
+class _ShapeOnly:
+    """A stand-in for the init's generator: every leaf is made on the
+    ``meta`` device and nothing is drawn, so an init on it allocates
+    nothing and gives the shapes and dtypes of a full-width model (the
+    counterpart of ``jax.eval_shape`` of the init)."""
+    device = torch.device("meta")
+
+
+SHAPE_ONLY = _ShapeOnly()
+
+
 def dense_init(generator: torch.Generator, shape, in_axis=0,
                dtype=torch.float32, lead=()):
     """Truncated-normal fan-in init (LeCun-style): a standard normal cut at
@@ -22,12 +33,16 @@ def dense_init(generator: torch.Generator, shape, in_axis=0,
     fan_in = int(np.prod([shape[i] for i in np.atleast_1d(in_axis)]))
     std = 1.0 / np.sqrt(max(fan_in, 1))
     w = torch.empty((*lead, *shape), dtype=dtype, device=generator.device)
+    if w.is_meta:
+        return w
     torch.nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=generator)
     return w.mul_(std)
 
 
 def embed_init(generator: torch.Generator, shape, dtype=torch.float32):
     w = torch.empty(shape, dtype=dtype, device=generator.device)
+    if w.is_meta:
+        return w
     return w.normal_(generator=generator).mul_(0.02)
 
 

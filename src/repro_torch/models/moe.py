@@ -9,7 +9,7 @@
     capacity_factor / E rounded up to 8; a pair ranked past C goes to the
     drop slot E * C;
   * the expert SwiGLU as three batched matmuls over the dense (E, C, d)
-    buffer;
+    buffer (on a placed state, each data rank's block of the C slots);
   * the combine: each routed pair's weighted expert row, gathered back to
     its (token, k) place by the inverse of the dispatch permutation, then
     summed over the k choices.  JAX adds the rows into their tokens by a
@@ -30,6 +30,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.layers import dense_init
+from repro_torch.sharding import dtensor
 
 
 def init_moe(generator, cfg, lead=()):
@@ -84,24 +85,44 @@ def moe_fwd(params, x, cfg):
     """x: (B, S, d) -> (y, aux_loss)."""
     dtype = x.dtype
     B, S, d = x.shape
-    E = cfg.n_experts
     N = B * S
     xf = x.reshape(N, d)
     _, top_p, top_e, aux = route(params, xf, cfg)
+    # the sort-based dispatch and the combine's gathers have no DTensor
+    # sharding strategy: on DTensors they run on the gathered tokens, so
+    # every rank routes the whole batch as the reference does (ROADMAP §3).
+    # The expert matmuls are data parallel: each data rank takes its block
+    # of every expert's capacity slots, with the expert weights gathered
+    # over the data axes (FSDP) and split over "model" as placed
+    eb, order, keep, dest = dtensor.local_op(
+        lambda xs, te: _dispatch_rows(xs, te, N, cfg), xf, top_e)
+    eb = dtensor.over_data(eb, 1)
+    wg, wu, wo = (dtensor.over_data(params[k].to(dtype))
+                  for k in ("wg", "wu", "wo"))
+    h = F.silu(torch.bmm(eb, wg)) * torch.bmm(eb, wu)
+    eo = torch.bmm(h, wo)
+    out = dtensor.local_op(
+        lambda *a: _combine(*a, N, cfg), eo, top_p, order, keep, dest)
+    return out.reshape(B, S, d), aux
+
+
+def _dispatch_rows(xf, top_e, N, cfg):
+    """The (E, C, d) expert buffer of the routed tokens and the dispatch
+    (``dispatch``'s order, keep, dest)."""
+    E, d = cfg.n_experts, xf.shape[1]
     C = _capacity(N, cfg)
     order, tok, keep, dest = dispatch(top_e, N, cfg)
-
     buf = xf.new_zeros((E * C + 1, d))
     buf[dest] = xf[tok]             # only the drop row takes duplicates
-    eb = buf[:E * C].reshape(E, C, d)
+    return buf[:E * C].reshape(E, C, d), order, keep, dest
 
-    h = F.silu(torch.bmm(eb, params["wg"].to(dtype))) \
-        * torch.bmm(eb, params["wu"].to(dtype))
-    eo = torch.bmm(h, params["wo"].to(dtype)).reshape(E * C, d)
-    eo = torch.cat([eo, eo.new_zeros((1, d))], dim=0)
 
-    w = (top_p.reshape(-1)[order] * keep).to(dtype)
+def _combine(eo, top_p, order, keep, dest, N, cfg):
+    """Each routed pair's weighted (E, C, d) expert row gathered back to its
+    (token, k) place, summed over k -> (N, d)."""
+    d = eo.shape[-1]
+    eo = torch.cat([eo.reshape(-1, d), eo.new_zeros((1, d))], dim=0)
+    w = (top_p.reshape(-1)[order] * keep).to(eo.dtype)
     gathered = eo[dest] * w[:, None]                  # sorted pair order
     inv = torch.argsort(order)                        # pair -> sorted place
-    out = gathered[inv].reshape(N, cfg.top_k, d).sum(1)
-    return out.reshape(B, S, d), aux
+    return gathered[inv].reshape(N, cfg.top_k, d).sum(1)

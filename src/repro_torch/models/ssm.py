@@ -20,6 +20,7 @@ import torch.nn.functional as F
 
 from repro_torch.models.layers import (DTYPES, causal_conv_carried,
                                        causal_depthwise_conv, dense_init)
+from repro_torch.sharding import dtensor
 
 
 def init_mamba(generator, cfg, d_model=None, lead=()):
@@ -96,13 +97,41 @@ def associative_scan(elems):
     return [_interleave(e, o) for e, o in zip(even, odd)]
 
 
+def _scan_seq(params, xc, h0, cfg, dtype):
+    """The selective scan of a full sequence xc (B, S, di) from the carried
+    state h0 (None: zeros) -> (y (B, S, di) fp32 with the skip term, the
+    last state)."""
+    B, S, di = xc.shape
+    chunk = min(cfg.scan_chunk, S)
+    n_chunks = -(-S // chunk)
+    pad = n_chunks * chunk - S
+    xc_p = F.pad(xc, (0, 0, 0, pad))
+    smask = (torch.arange(n_chunks * chunk, device=xc.device) < S).float()
+
+    sd = DTYPES[cfg.ssm_scan_dtype]
+    h = (h0.to(sd) if h0 is not None
+         else torch.zeros((B, di, cfg.ssm_state), dtype=sd,
+                          device=xc.device))
+    ys = []
+    for c in range(n_chunks):
+        xck = xc_p[:, c * chunk:(c + 1) * chunk]
+        mk = smask[c * chunk:(c + 1) * chunk].reshape(1, chunk, 1)
+        a, b, Cm = _ssm_coeffs(params, xck, cfg, dtype, step_mask=mk)
+        # the carried state as step 0's contribution: h_t = a_t h_{t-1} + b_t
+        b = torch.cat([b[:, :1] + a[:, :1] * h[:, None], b[:, 1:]], dim=1)
+        _, hh = associative_scan([a, b])
+        ys.append(torch.einsum("bcds,bcs->bcd", hh.float(), Cm))
+        h = hh[:, -1]
+    y = torch.cat(ys, dim=1)[:, :S]
+    return y + params["D"] * xc.float(), h
+
+
 def mamba_fwd(params, x, cfg, state=None):
     """x: (B, S, d).  state {"h": (B, di, st), "conv": (B, K - 1, di)}:
     S == 1 is a one-step decode, S > 1 a prefill from the carried state;
     both write the new state into ``state`` in place.  Returns (y, state or
     None)."""
     dtype = x.dtype
-    di = params["A_log"].shape[0]
     xin, z = (x @ params["in_proj"].to(dtype)).chunk(2, dim=-1)
 
     if state is not None and x.shape[1] == 1:      # ---- one-step decode
@@ -120,7 +149,6 @@ def mamba_fwd(params, x, cfg, state=None):
         return out, state
 
     # ---- full sequence (train, or prefill when state is given)
-    B, S, _ = x.shape
     if state is not None:
         xc, conv_tail = causal_conv_carried(xin, params["conv_w"],
                                             params["conv_b"], state["conv"])
@@ -128,28 +156,14 @@ def mamba_fwd(params, x, cfg, state=None):
         xc, _ = causal_depthwise_conv(xin, params["conv_w"],
                                       params["conv_b"])
     xc = F.silu(xc)
-    chunk = min(cfg.scan_chunk, S)
-    n_chunks = -(-S // chunk)
-    pad = n_chunks * chunk - S
-    xc_p = F.pad(xc, (0, 0, 0, pad))
-    smask = (torch.arange(n_chunks * chunk, device=x.device) < S).float()
-
-    sd = DTYPES[cfg.ssm_scan_dtype]
-    h = (state["h"].to(sd) if state is not None
-         else torch.zeros((B, di, cfg.ssm_state), dtype=sd,
-                          device=x.device))
-    ys = []
-    for c in range(n_chunks):
-        xck = xc_p[:, c * chunk:(c + 1) * chunk]
-        mk = smask[c * chunk:(c + 1) * chunk].reshape(1, chunk, 1)
-        a, b, Cm = _ssm_coeffs(params, xck, cfg, dtype, step_mask=mk)
-        # the carried state as step 0's contribution: h_t = a_t h_{t-1} + b_t
-        b = torch.cat([b[:, :1] + a[:, :1] * h[:, None], b[:, 1:]], dim=1)
-        _, hh = associative_scan([a, b])
-        ys.append(torch.einsum("bcds,bcs->bcd", hh.float(), Cm))
-        h = hh[:, -1]
-    y = torch.cat(ys, dim=1)[:, :S]
-    y = y + params["D"] * xc.float()
+    h0 = state["h"] if state is not None else None
+    keys = ("x_proj", "dt_proj", "dt_bias", "A_log", "D")
+    # on DTensors the chunked scan runs on each rank's rows with its
+    # channels and weights gathered (ROADMAP §3)
+    y, h = dtensor.local_op(
+        lambda xc_, h0_, *w: _scan_seq(dict(zip(keys, w)), xc_, h0_, cfg,
+                                       dtype),
+        xc, h0, *(params[k] for k in keys), rows=2)
     y = y.to(dtype) * F.silu(z)
     out = y @ params["out_proj"].to(dtype)
     if state is not None:

@@ -29,6 +29,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch import tree
+from repro_torch.sharding import dtensor
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
@@ -206,7 +207,10 @@ def forward(params, cfg, *, tokens=None, embeds=None, image_embeds=None,
     are gathered, then cast (the same values as JAX's cast-then-gather)."""
     cycle, n_units = layer_cycle(cfg)
     dtype = DTYPES[cfg.dtype]
-    x = (params["embed"][tokens] if embeds is None else embeds).to(dtype)
+    # the embedding's gather (and its backward's index_put) on each rank's
+    # rows, the table gathered, on DTensors (ROADMAP §3)
+    x = (dtensor.local_op(lambda t, e: e[t], tokens, params["embed"], rows=1)
+         if embeds is None else embeds).to(dtype)
     B, S, _ = x.shape
     if positions is None:
         positions = torch.arange(S, device=x.device)[None, :]
@@ -240,13 +244,22 @@ def lm_head(params, cfg, x):
     return logits
 
 
+def token_ce(logits, targets):
+    """Per-token (logz - gold, correct) in fp32.  On DTensors the vocab
+    dim is gathered around the gather and the argmax (no sharding
+    strategy over a vocab-sharded dim); the batch rows keep their split."""
+    def ce(lg, tg):
+        lg = lg.float()
+        logz = torch.logsumexp(lg, dim=-1)
+        gold = torch.gather(lg, -1, tg[..., None].long())[..., 0]
+        return logz - gold, (lg.argmax(-1) == tg).float()
+
+    return dtensor.local_op(ce, logits, targets, rows=2)
+
+
 def cross_entropy(logits, targets, mask=None):
     """Mean CE over valid tokens and the accuracy, in fp32."""
-    logits = logits.float()
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, targets[..., None].long())[..., 0]
-    ll = logz - gold
-    correct = (logits.argmax(-1) == targets).float()
+    ll, correct = token_ce(logits, targets)
     if mask is None:
         mask = torch.ones_like(ll)
     denom = mask.sum().clamp_min(1.0)
@@ -270,14 +283,12 @@ def loss_fn(params, cfg, batch):
         zero = torch.zeros((), device=hidden.device)
         ls, accs, ms = zero, zero, zero
         for c0 in range(0, S, chunk):
-            logits = lm_head(params, cfg, hidden[:, c0:c0 + chunk]).float()
             tc = targets[:, c0:c0 + chunk]
             mc = (mask[:, c0:c0 + chunk] if mask is not None
                   else torch.ones_like(tc, dtype=torch.float32))
-            logz = torch.logsumexp(logits, dim=-1)
-            gold = torch.gather(logits, -1, tc[..., None].long())[..., 0]
-            correct = (logits.argmax(-1) == tc).float()
-            ls = ls + ((logz - gold) * mc).sum()
+            ll, correct = token_ce(
+                lm_head(params, cfg, hidden[:, c0:c0 + chunk]), tc)
+            ls = ls + (ll * mc).sum()
             accs = accs + (correct * mc).sum()
             ms = ms + mc.sum()
         loss = ls / ms.clamp_min(1.0)

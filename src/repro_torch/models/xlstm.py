@@ -21,6 +21,7 @@ import torch.nn.functional as F
 from repro_torch.models.layers import (causal_conv_carried,
                                        causal_depthwise_conv, dense_init,
                                        group_norm)
+from repro_torch.sharding import dtensor
 
 M_INIT = -1e30          # the stabiliser's initial value
 
@@ -68,6 +69,52 @@ def _mlstm_inputs(params, xm, H, dtype):
     return q, k / root, v, li, lf
 
 
+def _mlstm_chunkwise(q, k, v, li, lf, C_prev, n_prev, m_prev, L):
+    """The chunkwise-parallel mLSTM over (B, S, H, dh) q, k, v and (B, S,
+    H) gates from the carry (C, n, m) -> (h (B, S, H dh) fp32, C, n, m)."""
+    B, S, H, dh = q.shape
+    n_chunks = -(-S // L)
+    pad = n_chunks * L - S
+    if pad:         # padded steps must not contribute: input gate -1e30
+        li = torch.cat([li, li.new_full((B, pad, H), -1e30)], dim=1)
+        lf = F.pad(lf, (0, 0, 0, pad))
+        q, k, v = (F.pad(t, (0, 0, 0, 0, 0, pad)) for t in (q, k, v))
+
+    tri = torch.ones((L, L), dtype=torch.bool, device=q.device).tril()
+    hs = []
+    for c in range(n_chunks):
+        sl = slice(c * L, (c + 1) * L)
+        q32, k32, v32 = q[:, sl].float(), k[:, sl].float(), v[:, sl].float()
+        li_, lf_ = li[:, sl], lf[:, sl]
+        b = torch.cumsum(lf_, dim=1)          # (B, L, H) log decay in chunk
+        g = torch.cummax(li_ - b, dim=1).values
+        u = torch.maximum(m_prev[:, None], g)  # m_t = b_t + u_t
+        wlog = (li_ - b)[:, None, :, :] - u[:, :, None, :]   # (B, T, S, H)
+        w = torch.exp(torch.where(tri[None, :, :, None], wlog, -torch.inf))
+        scores = torch.einsum("bthd,bshd->btsh", q32, k32)
+        h_intra = torch.einsum("btsh,bshd->bthd", scores * w, v32)
+        n_intra = torch.einsum("btsh,bshd->bthd", w, k32)
+        c_int = torch.exp(m_prev[:, None] - u)                # (B, L, H)
+        h_inter = torch.einsum("bthd,bhde->bthe", q32, C_prev) \
+            * c_int[..., None]
+        n_t = n_intra + n_prev[:, None] * c_int[..., None]
+        m_t = b + u
+        den = torch.maximum(torch.einsum("bthd,bthd->bth", n_t, q32).abs(),
+                            torch.exp(-m_t))[..., None]
+        hs.append((h_intra + h_inter) / den)                  # (B, L, H, dh)
+        # the carry at the chunk's end: C_hat = C e^{-m}, m_new = bL + uL
+        uL, bL = u[:, -1], b[:, -1]
+        wC = torch.exp((li_ - b) - uL[:, None])               # (B, L, H)
+        decay = torch.exp(m_prev - uL)
+        C_prev = decay[..., None, None] * C_prev + torch.einsum(
+            "bshd,bshe->bhde", wC[..., None] * k32, v32)
+        n_prev = decay[..., None] * n_prev + torch.einsum(
+            "bsh,bshd->bhd", wC, k32)
+        m_prev = bL + uL
+    h = torch.cat(hs, dim=1).reshape(B, n_chunks * L, H * dh)[:, :S]
+    return h, C_prev, n_prev, m_prev
+
+
 def mlstm_fwd(params, x, cfg, state=None):
     """x: (B, S, d); state {"C", "n", "m", "conv"}: S == 1 is one recurrent
     step, S > 1 a prefill; both write ``state`` in place.  Returns (y,
@@ -110,52 +157,16 @@ def mlstm_fwd(params, x, cfg, state=None):
     xc = F.silu(xc)
     q, k, v, li, lf = _mlstm_inputs(params, xc, H, dtype)  # (B,S,H,dh) (B,S,H)
     dh = q.shape[-1]
-    L = min(cfg.scan_chunk, S)
-    n_chunks = -(-S // L)
-    pad = n_chunks * L - S
-    if pad:         # padded steps must not contribute: input gate -1e30
-        li = torch.cat([li, li.new_full((B, pad, H), -1e30)], dim=1)
-        lf = F.pad(lf, (0, 0, 0, pad))
-        q, k, v = (F.pad(t, (0, 0, 0, 0, 0, pad)) for t in (q, k, v))
-
     if state is not None:
         C_prev, n_prev, m_prev = state["C"], state["n"], state["m"]
     else:
         C_prev = x.new_zeros((B, H, dh, dh), dtype=torch.float32)
         n_prev = x.new_zeros((B, H, dh), dtype=torch.float32)
         m_prev = x.new_full((B, H), M_INIT, dtype=torch.float32)
-    tri = torch.ones((L, L), dtype=torch.bool, device=x.device).tril()
-    hs = []
-    for c in range(n_chunks):
-        sl = slice(c * L, (c + 1) * L)
-        q32, k32, v32 = q[:, sl].float(), k[:, sl].float(), v[:, sl].float()
-        li_, lf_ = li[:, sl], lf[:, sl]
-        b = torch.cumsum(lf_, dim=1)          # (B, L, H) log decay in chunk
-        g = torch.cummax(li_ - b, dim=1).values
-        u = torch.maximum(m_prev[:, None], g)  # m_t = b_t + u_t
-        wlog = (li_ - b)[:, None, :, :] - u[:, :, None, :]   # (B, T, S, H)
-        w = torch.exp(torch.where(tri[None, :, :, None], wlog, -torch.inf))
-        scores = torch.einsum("bthd,bshd->btsh", q32, k32)
-        h_intra = torch.einsum("btsh,bshd->bthd", scores * w, v32)
-        n_intra = torch.einsum("btsh,bshd->bthd", w, k32)
-        c_int = torch.exp(m_prev[:, None] - u)                # (B, L, H)
-        h_inter = torch.einsum("bthd,bhde->bthe", q32, C_prev) \
-            * c_int[..., None]
-        n_t = n_intra + n_prev[:, None] * c_int[..., None]
-        m_t = b + u
-        den = torch.maximum(torch.einsum("bthd,bthd->bth", n_t, q32).abs(),
-                            torch.exp(-m_t))[..., None]
-        hs.append((h_intra + h_inter) / den)                  # (B, L, H, dh)
-        # the carry at the chunk's end: C_hat = C e^{-m}, m_new = bL + uL
-        uL, bL = u[:, -1], b[:, -1]
-        wC = torch.exp((li_ - b) - uL[:, None])               # (B, L, H)
-        decay = torch.exp(m_prev - uL)
-        C_prev = decay[..., None, None] * C_prev + torch.einsum(
-            "bshd,bshe->bhde", wC[..., None] * k32, v32)
-        n_prev = decay[..., None] * n_prev + torch.einsum(
-            "bsh,bshd->bhd", wC, k32)
-        m_prev = bL + uL
-    h = torch.cat(hs, dim=1).reshape(B, n_chunks * L, H * dh)[:, :S]
+    # row-local; on DTensors the heads are gathered around it (ROADMAP §3)
+    h, C_prev, n_prev, m_prev = dtensor.local_op(
+        lambda *a: _mlstm_chunkwise(*a, min(cfg.scan_chunk, S)),
+        q, k, v, li, lf, C_prev, n_prev, m_prev, rows=8)
     h = group_norm(h.to(dtype), params["gn"], H)
     out = (h * F.silu(z)) @ params["down"].to(dtype)
     if state is not None:
@@ -218,11 +229,22 @@ def _slstm_step(params, carry, gx, H):
     return c_new, n_new, m_new, h_new
 
 
+def _slstm_scan(gx, carry, r, b, H):
+    """The sLSTM recurrence over (B, S, 4d) pre-activations from the carry
+    -> (h (B, S, d), c, n, m, h)."""
+    B, S, d4 = gx.shape
+    hs = []
+    for t in range(S):
+        carry = _slstm_step({"r": r, "b": b}, carry, gx[:, t], H)
+        hs.append(carry[3])
+    return (torch.stack(hs, dim=1).reshape(B, S, d4 // 4),) + tuple(carry)
+
+
 def slstm_fwd(params, x, cfg, state=None):
     """x: (B, S, d); state {"c", "n", "m", "h"} is advanced in place.
     Returns (y, state or None)."""
     dtype = x.dtype
-    B, S, d = x.shape
+    B, _, d = x.shape
     H = cfg.n_heads
     dh = d // H
     gx = (x @ params["w"].to(dtype)).float()            # (B, S, 4d)
@@ -232,11 +254,11 @@ def slstm_fwd(params, x, cfg, state=None):
         zero = x.new_zeros((B, H, dh), dtype=torch.float32)
         carry = (zero, zero, x.new_full((B, H, dh), M_INIT,
                                         dtype=torch.float32), zero)
-    hs = []
-    for t in range(S):
-        carry = _slstm_step(params, carry, gx[:, t], H)
-        hs.append(carry[3])
-    hseq = torch.stack(hs, dim=1).reshape(B, S, d)
+    # row-local; on DTensors the recurrence runs on gathered heads and
+    # weights (ROADMAP §3)
+    hseq, *carry = dtensor.local_op(
+        lambda g, c, n, m, h, r, b: _slstm_scan(g, (c, n, m, h), r, b, H),
+        gx, *carry, params["r"], params["b"], rows=5)
     if state is not None:
         for key, val in zip(("c", "n", "m", "h"), carry):
             state[key].copy_(val)

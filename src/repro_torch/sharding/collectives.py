@@ -13,6 +13,11 @@ collective goes through ``torch.distributed`` at every world size, so a
 world-size-1 run takes the same path as a wider one.  Every call is safe
 to record as a CUDA graph: the buffers come from ``torch.empty`` and the
 collectives are NCCL's (``launch/mesh.py`` starts the group).
+
+Each runs over the group of the ``mesh`` it is given; a sub-group (the
+ranks that share this rank's coordinates on the axes not named) is the
+mesh ``Mesh.over(axes)``, and "W" below is then that sub-group's size,
+"rank" this rank's index in it.
 """
 from __future__ import annotations
 
@@ -24,6 +29,14 @@ def all_reduce_sum(t, mesh):
     """Sums ``t`` over the mesh's ranks, in place; returns it."""
     dist.all_reduce(t, group=mesh.group)
     return t
+
+
+def all_to_all(x, mesh):
+    """(W, ...) ``x``, its block p sent to rank p -> (W, ...), block p the
+    one rank p sent here."""
+    out = torch.empty_like(x)
+    dist.all_to_all_single(out, x.contiguous(), group=mesh.group)
+    return out
 
 
 def all_gather_rows(x, mesh):
@@ -47,7 +60,8 @@ class ColumnShards:
     matrix and in the matrix of whole leaves."""
 
     def __init__(self, sizes, flags, mesh):
-        self.w = mesh.size
+        self.mesh = mesh
+        self.w = self.mesh.size
         self.sizes, self.flags = tuple(sizes), tuple(flags)
         self.offsets = [0]
         for n in self.sizes:
@@ -69,7 +83,7 @@ class ColumnShards:
                 out.append(x[:, a:a + n])
         return out
 
-    def to_columns(self, x, mesh):
+    def to_columns(self, x):
         """This rank's clients' rows ``x`` (C/W, N) -> ``(sh, rep)``: the
         (C, sum sh_sizes) shard matrix and the (C, sum rep_sizes) whole
         leaves, both contiguous, rows in client order."""
@@ -79,20 +93,17 @@ class ColumnShards:
         send = torch.stack([torch.cat(self._cols(x, True, p), 1)
                             if self.sh_sizes else x[:, :0]
                             for p in range(self.w)])      # (W, r, n_sh)
-        if self.w == 1:
-            sh = send
-        else:
-            sh = torch.empty_like(send)
-            dist.all_to_all_single(sh, send, group=mesh.group)
+        sh = send if self.w == 1 else all_to_all(send, self.mesh)
         sh = sh.reshape(self.w * r, -1)
-        rep = (all_gather_rows(torch.cat(self._cols(x, False), 1), mesh)
+        rep = (all_gather_rows(torch.cat(self._cols(x, False), 1),
+                               self.mesh)
                if self.rep_sizes else x.new_empty(self.w * r, 0))
         return sh, rep
 
-    def gather(self, out_sh, out_rep, mesh):
+    def gather(self, out_sh, out_rep):
         """The (N,) row from this rank's aggregated shard ``out_sh`` (sum
         sh_sizes,) and the whole leaves ``out_rep`` (sum rep_sizes,)."""
-        shards = all_gather_rows(out_sh[None], mesh)        # (W, n_sh)
+        shards = all_gather_rows(out_sh[None], self.mesh)    # (W, n_sh)
         if self.w == 1 and self.whole:
             return shards[0]
         out, s, q = [], 0, 0

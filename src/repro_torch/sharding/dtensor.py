@@ -1,0 +1,309 @@
+"""The pod step's state as DTensors (``torch.distributed.tensor``): the
+counterpart of GSPMD's placed arrays.
+
+A state leaf placed by a ``P`` (``specs.placements``) is a ``DTensor`` on
+the mesh's ``DeviceMesh``; an op on DTensors inserts the collectives its
+sharding needs (the all-gather of an FSDP leg, the reduce-scatter of a
+gradient, the all-reduce of a partial sum), as GSPMD inserts them around
+the JAX package's jitted step.  The models are written on plain tensors
+and run on DTensors unchanged, except around the ops that have no DTensor
+sharding strategy: there ``local_op`` redistributes explicitly to
+``Replicate`` (keeping the batch rows' split over the data axes where the
+op is row-local), runs the op on the local tensors, and wraps its outputs
+back, as GSPMD all-gathers around an op it cannot partition.  Each such
+place is listed in ROADMAP §3.  Nothing here catches an error: an op
+without a strategy outside those places raises.
+
+On plain tensors every function here is the identity (``local_op`` calls
+the op), so the unsharded step runs the same code.
+"""
+from __future__ import annotations
+
+import contextlib
+
+import torch
+
+from repro_torch import tree
+
+DP_AXES = ("pod", "data")
+
+
+def is_dtensor(x):
+    from torch.distributed.tensor import DTensor
+    return isinstance(x, DTensor)
+
+
+def _any_dtensor(xs):
+    return next((x for x in xs if isinstance(x, torch.Tensor)
+                 and is_dtensor(x)), None)
+
+
+@contextlib.contextmanager
+def mixing(on=True):
+    """Lets plain tensors (the models' device fills and index ranges) enter
+    ops with DTensors as replicated operands; a no-op when ``on`` is
+    false."""
+    if not on:
+        yield
+        return
+    from torch.distributed.tensor.experimental import implicit_replication
+    with implicit_replication():
+        yield
+
+
+def _row_placements(x):
+    """``x``'s placements with the batch rows' split (``Shard(0)`` on a data
+    axis) kept and everything else ``Replicate``."""
+    from torch.distributed.tensor import Replicate, Shard
+    names = x.device_mesh.mesh_dim_names or ()
+    return [p if (isinstance(p, Shard) and p.dim == 0 and i < len(names)
+                  and names[i] in DP_AXES) else Replicate()
+            for i, p in enumerate(x.placements)]
+
+
+class _ContiguousGrad(torch.autograd.Function):
+    """The identity, whose backward makes the grad contiguous: DTensor's
+    backward of a redistribution views the grad of a local tensor, which
+    an einsum's backward leaves strided."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.contiguous()
+
+
+def local_op(fn, *args, rows=0, heads=()):
+    """``fn(*args)`` on plain tensors, for an op with no DTensor sharding
+    strategy.  The first ``rows`` args are batch-row tensors: they keep
+    their split over the data axes (``fn`` must then be row-local).
+    ``heads`` gives the head dim of each of the first ``len(heads)`` args:
+    where the first arg's head dim is split over another axis, each of them
+    is split alike on its own head dim (``fn`` must then be local to a
+    head).  Every other split is redistributed to ``Replicate``; ``fn``
+    runs on the local tensors, and its tensor outputs come back as
+    DTensors placed as the first arg was (``Replicate`` if there are no
+    row args).  Without a DTensor among ``args`` it is ``fn(*args)``."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    ref = _any_dtensor(args)
+    if ref is None:
+        return fn(*args)
+    mesh = ref.device_mesh
+    full = [Replicate()] * mesh.ndim
+    first = _any_dtensor(args[:rows])
+    row_pl = _row_placements(first) if first is not None else full
+    lead = args[0] if heads else None
+    split = ([i for i, p in enumerate(lead.placements)
+              if p == Shard(heads[0]) and row_pl[i] == Replicate()]
+             if isinstance(lead, torch.Tensor) and is_dtensor(lead) else [])
+
+    def target(i):
+        if i >= rows:
+            return full
+        pl = list(row_pl)
+        if i < len(heads):
+            for m in split:
+                pl[m] = Shard(heads[i])
+        return pl
+
+    out_pl = target(0) if rows else full
+    # the mesh dims the computation is split over: there the grad of an
+    # input that every rank reads whole is a partial sum
+    comp = {i for i, p in enumerate(row_pl) if isinstance(p, Shard)}
+    comp.update(split)
+
+    def grad_pl(pl):
+        return [p if isinstance(p, Shard) else
+                Partial() if i in comp else Replicate()
+                for i, p in enumerate(pl)]
+
+    loc = []
+    for i, a in enumerate(args):
+        pl = target(i)
+        if isinstance(a, torch.Tensor) and is_dtensor(a):
+            a = _ContiguousGrad.apply(redistribute(a, mesh, pl).to_local(
+                grad_placements=grad_pl(pl)))
+        elif isinstance(a, torch.Tensor) and pl != full:
+            a = _cut(a, mesh, pl).to_local()
+        loc.append(a)
+    out = fn(*loc)
+
+    def wrap(o):
+        if isinstance(o, torch.Tensor):     # contiguous: DTensor views it
+            return DTensor.from_local(o.contiguous(), mesh, out_pl,
+                                      run_check=False)
+        return o
+
+    if isinstance(out, tuple):
+        return tuple(wrap(o) for o in out)
+    return wrap(out)
+
+
+def over_data(x, dim=None):
+    """``x`` with its split over the data axes set to ``Shard(dim)``
+    (``None``: whole over them) and its other mesh dims as they are: a
+    weight gathered over the data axes where it is read (FSDP's
+    all-gather; its grad comes back by a reduce-scatter), or a replicated
+    activation cut to this rank's block (a local slice).  Where ``dim``
+    does not divide the data extent ``x`` stays whole over them.  A plain
+    ``x`` is returned as it is."""
+    if not (isinstance(x, torch.Tensor) and is_dtensor(x)):
+        return x
+    from torch.distributed.tensor import Replicate, Shard
+    mesh = x.device_mesh
+    data = [i for i, n in enumerate(mesh.mesh_dim_names or ())
+            if n in DP_AXES]
+    n = 1
+    for i in data:
+        n *= mesh.size(i)
+    pl = list(x.placements)
+    for i in data:
+        pl[i] = (Shard(dim) if dim is not None and x.shape[dim] % n == 0
+                 else Replicate())
+    return redistribute(x, mesh, pl)
+
+
+def sharding_leaves(t):
+    """The ``NamedSharding`` leaves of a tree in ``tree.leaves`` order
+    (dict keys sorted); ``None`` has none."""
+    from repro_torch.sharding import specs
+    if t is None:
+        return []
+    if isinstance(t, specs.NamedSharding):
+        return [t]
+    if isinstance(t, dict):
+        return [x for k in sorted(t) for x in sharding_leaves(t[k])]
+    return [x for v in t for x in sharding_leaves(v)]
+
+
+def to_layout(x, sh):
+    """``x`` placed by the ``NamedSharding`` ``sh`` on its mesh's
+    ``DeviceMesh``: a DTensor is redistributed (the collectives between
+    the two layouts), a plain tensor (the same whole tensor on every rank)
+    is cut to this rank's piece with no communication."""
+    from repro_torch.sharding import specs
+
+    pl = specs.placements(sh.spec, sh.mesh)
+    if is_dtensor(x):
+        return redistribute(x, sh.mesh.device_mesh, pl)
+    return _cut(x, sh.mesh.device_mesh, pl)
+
+
+def _cut(x, device_mesh, pl):
+    """The whole plain ``x`` (the same on every rank) as a DTensor placed by
+    ``pl``: this rank's piece, with no communication (and on a mesh of one
+    rank, no copy)."""
+    from torch.distributed.tensor import DTensor, distribute_tensor
+    if device_mesh.size() == 1:
+        return DTensor.from_local(x, device_mesh, pl, run_check=False)
+    return distribute_tensor(x, device_mesh, pl, src_data_rank=None)
+
+
+def redistribute(x, device_mesh, pl):
+    """``x.redistribute(device_mesh, pl)``; where the placements differ
+    only on mesh dims of one rank (the same local data), the local tensor
+    relabelled, with no collective and no copy."""
+    from torch.distributed.tensor import DTensor
+    if x.device_mesh == device_mesh and all(
+            a == b or device_mesh.size(i) == 1
+            for i, (a, b) in enumerate(zip(x.placements, pl))):
+        if tuple(x.placements) == tuple(pl):
+            return x
+        return DTensor.from_local(x.to_local(), device_mesh, pl,
+                                  run_check=False, shape=x.shape,
+                                  stride=x.stride())
+    return x.redistribute(device_mesh, pl)
+
+
+def place(t, shardings):
+    """Each tensor leaf of ``t`` with at least one dim as a DTensor placed by
+    its ``NamedSharding`` in ``shardings`` (``to_layout``).  0-d leaves
+    (counters), non-tensor leaves (a generator) and ``None`` stay as they
+    are."""
+    shs = sharding_leaves(shardings)
+    leaves = [l for l in tree.leaves(t) if l is not None]
+    if len(shs) != len(leaves):
+        raise ValueError(f"{len(shs)} shardings for {len(leaves)} leaves")
+    it = iter(shs)
+
+    def one(x):
+        if x is None:
+            return None
+        sh = next(it)
+        if isinstance(x, torch.Tensor) and x.dim() > 0:
+            return to_layout(x, sh)
+        return x
+
+    return tree.unflatten(t, [one(x) for x in tree.leaves(t)])
+
+
+def placed_like(t, like):
+    """Each tensor leaf of ``t`` (whole, the same on every rank) placed as
+    ``like``'s DTensor leaf; a leaf whose ``like`` is plain stays."""
+    def one(x, l):
+        if isinstance(l, torch.Tensor) and is_dtensor(l) and not is_dtensor(x):
+            return _cut(x, l.device_mesh, l.placements)
+        return x
+
+    return tree.unflatten(t, [one(x, l) for x, l in zip(tree.leaves(t),
+                                                        tree.leaves(like))])
+
+
+def local(x):
+    """A DTensor's local tensor; ``x`` itself if it is plain."""
+    if isinstance(x, torch.Tensor) and is_dtensor(x):
+        return x.to_local()
+    return x
+
+
+def model_split(q):
+    """The dim a leaf of the per-client compute copy (a DTensor on the
+    "model" axis's one-dim sub-mesh, or plain) is split on over that axis,
+    or ``None`` where it is whole."""
+    from torch.distributed.tensor import Shard
+    if not is_dtensor(q):
+        return None
+    p = q.placements[0]
+    return p.dim if isinstance(p, Shard) else None
+
+
+def from_model_piece(o, q, p):
+    """``o``, this rank's piece over "model" of a leaf laid out as the
+    compute copy's leaf ``q`` and whole over the data axes, placed as the
+    param ``p`` (its data split a local slice, no communication); ``o``
+    itself where ``p`` is plain."""
+    from torch.distributed.tensor import DTensor, Replicate
+    if not is_dtensor(p):
+        return o
+    mesh = p.device_mesh
+    over_model = q.placements[0] if is_dtensor(q) else Replicate()
+    pl = [Replicate() if n in DP_AXES else over_model
+          for n in mesh.mesh_dim_names]
+    x = DTensor.from_local(o, mesh, pl, run_check=False, shape=p.shape,
+                           stride=p.stride())
+    return redistribute(x, mesh, p.placements)
+
+
+def whole(t):
+    """Each DTensor leaf gathered whole on every rank (``full_tensor``; on
+    a mesh of one rank its local tensor, with no copy); other leaves as
+    they are."""
+    def one(x):
+        if not (isinstance(x, torch.Tensor) and is_dtensor(x)):
+            return x
+        if x.device_mesh.size() == 1:
+            return x.to_local()
+        return x.full_tensor()
+
+    return tree.map(one, t)
+
+
+def plain(x):
+    """A replicated DTensor's local tensor (a metric); ``x`` itself if it is
+    plain."""
+    if isinstance(x, torch.Tensor) and is_dtensor(x):
+        return x.full_tensor()
+    return x

@@ -106,10 +106,10 @@ def test_unported_options_raise():
            "n": torch.ones(8)}
     body = lambda st, xs: (st, {})
     # no entry point names item e or item g any more: telemetry and the pod
-    # path are ported (item g' is what the pod path leaves for later)
+    # path are ported, its model axis and ZeRO-1 too (item g' named them)
     src = ROOT / "src" / "repro_torch"
     assert not [p for p in src.rglob("*.py") if "item e" in p.read_text()
-                or re.search(r"item g\b(?!')", p.read_text())]
+                or re.search(r"item g\b", p.read_text())]
     # nor item 13: every block kind is ported
     assert not [p for p in src.rglob("*.py") if "item 13" in p.read_text()]
     # the driver stages a rank's rows of each batch: rank 1 of 2 here
@@ -124,8 +124,14 @@ def test_unported_options_raise():
                                      [[5.0, 6.0], [7.0, 8.0]]]
     assert driver.ScanDriver(body, batch_sharding=sh).put_sharding == \
         driver.chunk_sharding(sh)
-    with pytest.raises(NotImplementedError, match="item g'"):
-        make_host_mesh(1, 2)
+    # a model axis: a 1 x 2 mesh over a gloo group of one clamps to 1 x 1,
+    # as jax.make_mesh's host mesh clamps to the device count
+    from repro_torch.launch.mesh import host_mesh
+    with host_mesh(device="cpu"):
+        m = make_host_mesh(1, 2)
+        assert m.shape == (1, 1) and m.device_mesh is not None
+        assert m.device_mesh.mesh_dim_names == ("data", "model")
+        assert m.over(("model",)).size == 1
     with pytest.raises(ValueError, match="dense-uplink"):
         async_engine.make_async_round(
             model, dataclasses.replace(cfg, population=0, compress="int8"),

@@ -1,0 +1,322 @@
+"""Shared cases of the tensor-parallel pod tests (``test_torch_pod_tp*.py``):
+the port's pod step on a state placed over a (data, model) gloo mesh of W
+spawned processes, against the same step unsharded in the test's process.
+
+Each rank builds the same whole params from one seed, places the state by
+``param_specs`` (as ``launch/train.py`` does), runs two SGD steps on its
+rows of each batch (``batch_shardings``), and returns the whole params
+(gathered), the federation state and the metrics.  The ``LAYOUTS`` cases
+run ``robust=None`` with the state in another layout, ZeRO-1's among them
+(its compute copy in bf16); the unsharded ZeRO-1 step runs on a 1 x 1
+mesh.  Spawned processes are joined under a timeout each, so a hang fails
+the test instead of eating the suite's time.
+"""
+import queue as queue_mod
+import traceback
+
+import numpy as np
+import pytest
+import torch
+import torch.multiprocessing as mp
+
+from repro_torch import tree
+from repro_torch.configs.base import FedConfig, TrainConfig
+from repro_torch.configs.registry import ARCHS
+from repro_torch.core import pod
+from repro_torch.launch import inputs
+from repro_torch.launch import mesh as mesh_mod
+from repro_torch.models import transformer
+from repro_torch.optim import optimizers
+from repro_torch.sharding import dtensor, specs
+
+TIMEOUT = 240                   # seconds for the spawned processes
+SMALL = dict(n_layers=2, d_model=64, n_heads=4, n_kv_heads=2, d_ff=128,
+             vocab_size=128, head_dim=16)
+# one config a block kind, at SMALL widths
+KINDS = {
+    "attn": ARCHS["tiny-lm"].replace(**SMALL),
+    "moe": ARCHS["granite-moe-1b-a400m"].reduced().replace(**SMALL),
+    "hybrid": ARCHS["hymba-1.5b"].reduced().replace(**SMALL),
+    "xlstm": ARCHS["xlstm-350m"].reduced().replace(**SMALL),
+    "xattn": ARCHS["llama-3.2-vision-90b"].reduced().replace(
+        cross_attn_every=2, **SMALL),
+}
+C, GB, S = 4, 8, 16             # clients, global batch, sequence
+ROBUST = {"none": (None, {}),
+          "fedavg": ("per_client", {}),
+          "trimmed_mean": ("per_client", dict(aggregator="trimmed_mean")),
+          "krum": ("per_client", dict(aggregator="krum")),
+          "int8": ("per_client", dict(compress="int8"))}
+# robust=None in another layout: case -> (the state's layout, ZeRO-1's
+# compute layout or None), by ``sharding/specs.py`` function
+LAYOUTS = {"moe_ff": ("param_specs_moe_ff", None),
+           "zero1": ("param_specs", "param_specs_tp"),
+           "zero1_moe": ("param_specs_moe_ff", "param_specs_zero1_moe")}
+ATOL, THETA_ATOL = 1e-5, 5e-4
+BF16_REL = 1e-2     # ZeRO-1 computes in bf16, rounded in other orders
+
+
+def batches(cfg):
+    rng = np.random.default_rng(7)
+    out = []
+    for _ in range(2):
+        toks = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                             (GB, S + 1)))
+        b = {"targets": toks[:, 1:].clone()}
+        if cfg.embed_inputs:
+            b["tokens"] = toks[:, :-1].clone()
+        else:
+            b["embeds"] = torch.from_numpy(rng.standard_normal(
+                (GB, S, cfg.d_model)).astype(np.float32))
+        if cfg.arch_type == "vlm":
+            b["image_embeds"] = torch.from_numpy(rng.standard_normal(
+                (GB, cfg.n_image_tokens, cfg.d_model)).astype(np.float32))
+        out.append(b)
+    return out
+
+
+def run(kind, case, mesh=None):
+    """Two pod steps of ``kind`` under ``case``; with ``mesh`` on a state
+    placed by ``param_specs`` (a ``LAYOUTS`` case: by its layout) and this
+    rank's rows of each batch.  The unsharded ZeRO-1 step runs on a 1 x 1
+    mesh of its own."""
+    master, compute = LAYOUTS.get(case, ("param_specs", None))
+    if mesh is None and compute is not None:
+        with mesh_mod.host_mesh(device="cpu") as one:
+            return _run(kind, case, one, master, compute)
+    return _run(kind, case, mesh, master, compute)
+
+
+def _run(kind, case, mesh, master, compute):
+    cfg = KINDS[kind]
+    robust, fed_kw = ROBUST.get(case, (None, {}))
+    fed = FedConfig(n_clients=C, **fed_kw)
+    tc = TrainConfig(global_batch=GB, seq_len=S, lr=1e-2, warmup_steps=1,
+                     total_steps=4, optimizer="sgd")
+    params = transformer.init_transformer(torch.Generator().manual_seed(0),
+                                          cfg)
+    init = tree.map(lambda v: v.float().numpy().copy(), params)
+    opt_init, _ = optimizers.make_optimizer(tc)
+    agg = mesh if robust else None
+    layout = lambda t, f: specs.named(mesh, getattr(specs, f)(t, mesh=mesh))
+    kw = {}
+    if compute is not None:
+        kw["zero1_shardings"] = (layout(params, compute),
+                                 layout(params, master))
+    shardings = None if mesh is None else (lambda st: layout(st, master))
+    state = pod.init_pod_state(params, opt_init, C, fed,
+                               torch.Generator().manual_seed(1), mesh=agg,
+                               shardings=shardings)
+    step = pod.make_train_step(cfg, fed, tc, robust=robust, agg_mesh=agg,
+                               **kw)
+    metrics = []
+    for b in batches(cfg):
+        if mesh is not None:
+            bsh = inputs.batch_shardings(b, mesh)
+            b = {k: bsh[k].local(v) for k, v in b.items()}
+        state, m = step(state, b)
+        metrics.append({k: float(v) for k, v in m.items()})
+    return {"params": tree.map(lambda v: v.float().numpy(),
+                               dtensor.whole(state.params)), "init": init,
+            "team": state.fed.team.numpy(), "h": bool(state.fed.h),
+            "trust": state.fed.trust.numpy(), "metrics": metrics}
+
+
+AGG_C = 8
+
+
+def agg_tree(rows=slice(None)):
+    """(AGG_C, ...) client updates: a leaf that splits over 2 ranks (with
+    its int8 quant blocks), a ragged one and a tiny one that stay whole."""
+    rng = np.random.default_rng(0)
+    t = {"w": rng.standard_normal((AGG_C, 64, 8), np.float32),
+         "r": rng.standard_normal((AGG_C, 301), np.float32),
+         "b": rng.standard_normal((AGG_C, 5), np.float32)}
+    return {k: torch.from_numpy(v[rows].copy()) for k, v in t.items()}
+
+
+def agg_wm():
+    rng = np.random.default_rng(4)
+    w = torch.from_numpy(rng.uniform(0.1, 1.1, AGG_C).astype(np.float32))
+    m = torch.ones(AGG_C)
+    m[2] = 0.0
+    return w, m
+
+
+def agg_record(t):
+    from repro_torch.comm import codecs
+    like = tree.map(lambda l: l[0], t)
+    layout = codecs.WireLayout([l.numel() for l in tree.leaves(like)], 128)
+    enc = codecs.Codec("int8", qblk=128).encode_flat(
+        tree.flatten_rows(t).float(), layout)
+    return enc, layout, like
+
+
+def run_axes(axes, mesh):
+    """``aggregate_sharded`` and ``fused_dequant_aggregate_sharded`` over
+    ``axes`` of the mesh, each rank given the rows of its clients within
+    its sub-group (the same rows at every coordinate of the other axes),
+    for every aggregator."""
+    from repro_torch.comm.kernels import comm_codecs as dq
+    from repro_torch.core import aggregation
+    sub = mesh.over(axes)
+    n = AGG_C // sub.size
+    local = agg_tree(slice(sub.rank * n, (sub.rank + 1) * n))
+    enc, layout, like = agg_record(local)
+    w, m = agg_wm()
+    out = {}
+    for agg in ("fedavg", "median", "trimmed_mean", "krum"):
+        cfg = FedConfig(n_clients=AGG_C, aggregator=agg)
+        out["dense", agg] = tree.map(
+            lambda v: v.numpy(),
+            aggregation.aggregate_sharded(local, w, m, cfg, mesh, axes))
+        out["int8", agg] = tree.map(
+            lambda v: v.numpy(), dq.fused_dequant_aggregate_sharded(
+                enc, layout, w, m, cfg, mesh, like=like, axes=axes))
+    return out
+
+
+TP_SPLIT, TP_WHOLE = 66, 37
+
+
+def tp_updates():
+    """(AGG_C, 66) columns split over "model" and (AGG_C, 37) whole ones;
+    the seed makes Krum's choice change if the whole columns counted
+    twice."""
+    rng = np.random.default_rng(2)
+    return (rng.standard_normal((AGG_C, TP_SPLIT), np.float32),
+            rng.standard_normal((AGG_C, TP_WHOLE), np.float32) * 1.5)
+
+
+def run_tp(mesh):
+    """``aggregation.aggregate_tp`` on each rank's rows (its data index's
+    clients) of its block of the split columns and of the whole ones, for
+    every aggregator."""
+    from repro_torch.core import aggregation
+    D, M = mesh.shape
+    d, m = mesh.coords()
+    split, whole = tp_updates()
+    rows = slice(d * AGG_C // D, (d + 1) * AGG_C // D)
+    cols = slice(m * TP_SPLIT // M, (m + 1) * TP_SPLIT // M)
+    w, mask = agg_wm()
+    out = {}
+    for agg in ("fedavg", "median", "trimmed_mean", "krum"):
+        cfg = FedConfig(n_clients=AGG_C, aggregator=agg)
+        out[agg] = tuple(o.numpy() for o in aggregation.aggregate_tp(
+            torch.from_numpy(split[rows, cols].copy()),
+            torch.from_numpy(whole[rows].copy()), w, mask, cfg, mesh))
+    return out
+
+
+def _worker(rank, shape, cases, store_dir, out_q):
+    try:
+        torch.set_num_threads(1)
+        W = shape[0] * shape[1]
+        mesh_mod.start_group("cpu", world_size=W, rank=rank,
+                             store_dir=store_dir)
+        mesh = mesh_mod.make_host_mesh(*shape)
+        out_q.put((rank, {(k, c): (run_axes(c, mesh) if k == "axes"
+                                   else run_tp(mesh) if k == "tp"
+                                   else run(k, c, mesh))
+                          for k, c in cases}))
+    except Exception:                   # reported by the test, not lost
+        out_q.put((rank, traceback.format_exc()))
+    finally:
+        if torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
+
+
+def spawn(shape, cases, store_dir):
+    """Runs ``cases`` ((kind, case) pairs) on a ``shape`` mesh of spawned
+    gloo processes -> {rank: {(kind, case): result}}."""
+    W = shape[0] * shape[1]
+    ctx = mp.get_context("spawn")
+    out_q = ctx.Queue()
+    procs = [ctx.Process(target=_worker,
+                         args=(r, shape, cases, store_dir, out_q))
+             for r in range(W)]
+    for p in procs:
+        p.start()
+    results = {}
+    try:
+        for _ in procs:                 # drain before joining
+            rank, out = out_q.get(timeout=TIMEOUT)
+            results[rank] = out
+    except queue_mod.Empty:
+        pytest.fail(f"the {shape} mesh did not finish in {TIMEOUT} s")
+    finally:
+        for p in procs:
+            p.join(timeout=30)
+            if p.is_alive():
+                p.kill()
+                p.join(timeout=10)
+    for rank, out in results.items():
+        if isinstance(out, str):
+            pytest.fail(f"rank {rank} failed:\n{out}")
+    return results
+
+
+def check(got, ref, case=None):
+    """Teams and h equal, params and trust within 1e-5, theta within 5e-4
+    (``tests/test_torch_pod.py`` says why), the other metrics within
+    1e-5.  A ZeRO-1 case (bf16 compute) is held by ``check_bf16``."""
+    if LAYOUTS.get(case, (None, None))[1] is not None:
+        return check_bf16(got, ref)
+    np.testing.assert_array_equal(got["team"], ref["team"])
+    assert got["h"] == ref["h"]
+    np.testing.assert_allclose(got["trust"], ref["trust"], atol=ATOL)
+    for a, b in zip(tree.leaves(got["params"]), tree.leaves(ref["params"])):
+        np.testing.assert_allclose(a, b, atol=ATOL)
+    for gm, rm in zip(got["metrics"], ref["metrics"]):
+        for k in rm:
+            np.testing.assert_allclose(
+                gm[k], rm[k], rtol=1e-5, err_msg=k,
+                atol=THETA_ATOL if k == "theta_team" else ATOL)
+
+
+def check_bf16(got, ref):
+    """ZeRO-1 against the unsharded ZeRO-1 step: teams and h equal; loss
+    and grad_norm of each step within 1e-2 relative; each param's change
+    over the two steps within 1e-2 of the largest change (a step that lost
+    a part of its grads moves its params by another amount)."""
+    np.testing.assert_array_equal(got["team"], ref["team"])
+    assert got["h"] == ref["h"]
+    for gm, rm in zip(got["metrics"], ref["metrics"]):
+        for k in ("loss", "grad_norm"):
+            np.testing.assert_allclose(gm[k], rm[k], rtol=BF16_REL,
+                                       err_msg=k)
+    moved = [b - i for b, i in zip(tree.leaves(ref["params"]),
+                                   tree.leaves(ref["init"]))]
+    largest = max(float(np.abs(m).max()) for m in moved)
+    for a, b in zip(tree.leaves(got["params"]), tree.leaves(ref["params"])):
+        np.testing.assert_allclose(a, b, rtol=0, atol=BF16_REL * largest)
+
+
+def module_tests(shape, kinds, cases):
+    """A test module's fixtures and test: the ``cases`` of each of
+    ``kinds`` on a ``shape`` mesh of spawned processes, each rank held to
+    the unsharded step (``check``).  Returns (one_thread, ranks, test) for
+    the module's globals."""
+
+    @pytest.fixture(autouse=True, scope="module")
+    def one_thread():
+        """Small models: one intra-op thread keeps the suite's parallel
+        workers from oversubscribing the cores."""
+        n = torch.get_num_threads()
+        torch.set_num_threads(1)
+        yield
+        torch.set_num_threads(n)
+
+    @pytest.fixture(scope="module")
+    def ranks(tmp_path_factory):
+        return spawn(shape, [(k, c) for k in kinds for c in cases],
+                     str(tmp_path_factory.mktemp("pod_tp")))
+
+    @pytest.mark.parametrize("case", cases)
+    @pytest.mark.parametrize("kind", kinds)
+    def test(ranks, kind, case):
+        ref = run(kind, case)
+        for r in ranks:
+            check(ranks[r][kind, case], ref, case)
+
+    return one_thread, ranks, test
