@@ -317,6 +317,32 @@ Phases, one line each (a failure raises, so the exit code is not 0):
               ``param_specs_moe_ff`` against plain tensors, ZeRO-1 under
               ``param_specs_zero1_moe`` / ``param_specs_moe_ff`` against
               the fp32 step, TP_GRANITE_STEPS steps of each timed, peak.
+  12. dryrun  the dry-run of the sharded step (``launch/dryrun.py``): the
+              step run once on fake tensors over a fake process group of
+              256 (512) ranks, counted per chip (flops, bytes, collective
+              bytes by kind, peak of live storage) and turned into the
+              roofline's modeled seconds with the H100's constants; nothing
+              in it runs on the card or launches a kernel.  A child process
+              (``--dryrun fake``, started before phase 11, joined here)
+              prints qwen2.5-14b x train_4k at 16 x 16, dbrx x train_4k
+              under ``perf.measure(..., "zero1_moe")``, minitron-4b x
+              decode_32k under ``tp_serve`` and at 2 x 16 x 16, one JSON
+              line each, and the anchors' dry-runs at mesh (1, 1).
+              A second child (``--dryrun card``) runs the anchors for real
+              on the card under the same counter: tiny-lm and granite at
+              full depth on phase 11's configuration (``robust=None``,
+              placed by ``param_specs`` at mesh (1, 1), NCCL): counted
+              flops equal the dry-run's exactly, both count 0 collective
+              bytes, the dry-run's peak within DRYRUN_PEAK_REL of
+              ``max_memory_allocated``; the replayed step's ms printed
+              against the dry-run's ``bound_s``.  granite's placed step
+              with ``remat`` on and off (step 1 bitwise under
+              deterministic algorithms; peak GB and step ms both ways),
+              tiny-lm with ``remat`` replayed bitwise its python loop, and
+              minitron-4b's prefill and decode on ``param_specs_tp`` params
+              and a placed cache bitwise the plain call.  Both children
+              count zero kernel launches; their counts, summed by kernel,
+              are each kernel's ``dryrun_launches``.
 The last three lines are the nvidia-smi line, the kernels JSON and the
 result JSON.  ``python3 chip_smoke.py --kernels`` runs phases 1, 2, 2b and
 2c alone and ends with the nvidia-smi line and the kernels JSON (launches
@@ -568,6 +594,29 @@ TP_STEPS = 6
 TP_PARITY = (4, 2)
 TP_GRANITE_STEPS = 3
 TP_TIMEOUT = 900                # seconds for the phase's child process
+
+# phase 12: the dry-run (launch/dryrun.py, roofline.py, perf.py) on the
+# card machine's torch, over a fake process group, in a child process
+# started before phase 11 and joined here (it needs no card and runs beside
+# phase 11's card work, after phase 10's CPU-port steps); the anchor:
+# tiny-lm and granite at full depth on phase 11's configuration (C = 4, 16
+# x 256 tokens, robust=None, mesh (1, 1)) both as a real step on the card
+# and as its dry-run, the counted flops equal, no collective byte, the
+# dry-run's peak within DRYRUN_PEAK_REL of the card's max_memory_allocated;
+# granite's placed step with remat on and off (step 1 bitwise under
+# deterministic algorithms; peak and step ms both ways); tiny-lm with remat
+# replayed bitwise its python loop (TP_PARITY); minitron-4b's prefill of
+# TP_SERVE_B x TP_SERVE_PROMPT tokens and TP_SERVE_DECODE decode steps on
+# params placed by param_specs_tp and a placed cache, bitwise the plain
+# call's logits
+DRYRUN_PEAK_REL = 0.15
+DRYRUN_QWEN = ("qwen2.5-14b", "train_4k")
+DRYRUN_PERF = ("dbrx", "zero1_moe")
+DRYRUN_SERVE = ("minitron-4b", "decode_32k")
+DRYRUN_ANCHORS = (POD_ARCH, GRANITE)
+ANCHOR_CHUNK, ANCHOR_CHUNKS = 2, 2      # the replayed steps: chunk, chunks
+TP_SERVE_B, TP_SERVE_PROMPT, TP_SERVE_DECODE = 2, 64, 2
+DRYRUN_TIMEOUT = 600            # seconds for each of the phase's children
 
 
 def bound(bytes_moved, ops, ops_per_s=FP32_OPS_PER_S):
@@ -4898,6 +4947,343 @@ def _tp(smi):
                            if l.startswith('{"tp"')))["tp"]
 
 
+# --------------------------------------------------------------- phase 12 --
+def _kernel_counts(reset=False):
+    """Every kernel wrapper's launch counter, by the kernels line's names
+    (``reset``: each set to 0 first)."""
+    from repro_torch.comm.kernels import comm_codecs as cc
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import paged_decode as pd
+    from repro_torch.kernels import population_select as ps
+    from repro_torch.kernels import robust_agg as ra
+    from repro_torch.kernels import robust_pipeline as rp
+    if reset:
+        for mod in (rp, cc, ra, ps, pd, fa):
+            mod.reset_launch_counts()
+    return {**_counts(), **ps.launch_counts(), **pd.launch_counts(),
+            **fa.launch_counts()}
+
+
+def _dryrun_fake_child():
+    """``python3 chip_smoke.py --dryrun fake``: phase 12's dry-runs, on fake
+    tensors over fake process groups (no card is used).  Prints one JSON
+    line a run and then ``{"dryrun_fake": ...}`` for the parent."""
+    import contextlib
+    import io
+    from repro_torch.configs.base import InputShape
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch import dryrun, perf
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.launch import roofline as roof
+    t0 = time.perf_counter()
+    _kernel_counts(reset=True)
+    out = {"runs": {}, "anchors": {}}
+
+    def keep(name, res, t):
+        res["wall_s"] = time.perf_counter() - t
+        out["runs"][name] = res
+        print(f"[dryrun] {name}: {json.dumps(res, default=float)}",
+              flush=True)
+
+    t = time.perf_counter()
+    keep("qwen2.5-14b x train_4k 16x16", dryrun.run_one(
+        *DRYRUN_QWEN, verbose=False), t)
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        res = perf.measure(*DRYRUN_PERF)
+    keep("perf dbrx zero1_moe 16x16", res, t)
+    t = time.perf_counter()
+    keep("minitron-4b x decode_32k tp_serve 16x16", dryrun.run_one(
+        *DRYRUN_SERVE, variant="tp_serve", verbose=False), t)
+    t = time.perf_counter()
+    keep("minitron-4b x decode_32k 2x16x16", dryrun.run_one(
+        *DRYRUN_SERVE, multi_pod=True, verbose=False), t)
+    shape = InputShape("anchor", POD_SEQ, POD_GB, "train")
+    for arch in DRYRUN_ANCHORS:
+        t = time.perf_counter()
+        with mesh_mod.fake_group(1):
+            mesh = mesh_mod.make_grid_mesh((1, 1), ("data", "model"))
+            low, _ = dryrun.lower_train(get_config(arch), shape, mesh,
+                                        n_clients=POD_C)
+        terms = roof.roofline(low.cost, low.collectives)
+        out["anchors"][arch] = {"cost": low.cost,
+                                "collectives": low.collectives,
+                                "memory": low.memory,
+                                "bound_s": terms["bound_s"],
+                                "dominant": terms["dominant"],
+                                "wall_s": time.perf_counter() - t}
+        print(f"[dryrun] anchor {arch} at mesh (1, 1), counted on fake "
+              f"tensors: {json.dumps(out['anchors'][arch], default=float)}",
+              flush=True)
+    out["launches"] = _kernel_counts()
+    moved = {k: n for k, n in out["launches"].items() if n}
+    if moved:
+        raise AssertionError(f"[dryrun] the dry-run launched kernels: "
+                             f"{moved}")
+    out["seconds"] = time.perf_counter() - t0
+    print(json.dumps({"dryrun_fake": out}, default=float))
+    return 0
+
+
+def _anchor_step(arch, mesh, cfg=None, counted=True):
+    """The anchor's step on the card: ``dryrun.train_setup`` (placed by
+    ``param_specs`` at mesh (1, 1), C = 4, 16 x 256 tokens) on params drawn
+    on the card, step 1 under the cost counter (``counted``).  Returns
+    (its record, the state after it, the step, the batch)."""
+    import contextlib
+    import torch
+    from repro_torch.configs.base import InputShape
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import roofline as roof
+    from repro_torch.models import transformer
+    cfg = cfg or get_config(arch)
+    state, batch, step = dryrun.train_setup(
+        cfg, InputShape("anchor", POD_SEQ, POD_GB, "train"), mesh,
+        transformer.init_transformer(_gen(0), cfg), n_clients=POD_C)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    counter = roof.CostCounter()
+    if counted:
+        counter.track(state, batch)
+    t = time.perf_counter()
+    with counter if counted else contextlib.nullcontext():
+        state, m = step(state, batch)
+    torch.cuda.synchronize()
+    rec = {"step1_s": time.perf_counter() - t,
+           "max_memory_allocated": torch.cuda.max_memory_allocated(),
+           "loss": float(m["loss"])}
+    if counted:
+        cost, coll = counter.costs()
+        rec.update(cost=cost, collectives=coll,
+                   counter_peak_bytes=counter.peak_bytes)
+    return rec, state, step, batch
+
+
+def _replayed_ms(state, step, batch):
+    """The step replayed under ``pod.run`` (ScanDriver: captured once):
+    chunks of ANCHOR_CHUNK steps, the first (eager step and capture) left
+    out; ms a step over the others."""
+    from repro_torch.core import pod
+    marks = []
+    pod.run(state, step, lambda t: batch, ANCHOR_CHUNK * ANCHOR_CHUNKS,
+            driver="scan", chunk_rounds=ANCHOR_CHUNK,
+            on_chunk=lambda st, rows: marks.append(time.perf_counter()))
+    return (marks[-1] - marks[0]) / (ANCHOR_CHUNK * (ANCHOR_CHUNKS - 1)) \
+        * 1e3
+
+
+def _dryrun_remat(mesh, out, smi):
+    """granite's placed step with remat off then on, under deterministic
+    algorithms: step 1 bitwise (params), step 1 counted (the anchor) with
+    remat on, step 2 timed; peak of step 1 both ways."""
+    import torch
+    from repro_torch import tree
+    from repro_torch.configs.registry import get_config
+    from repro_torch.sharding import dtensor
+    host = None
+    torch.use_deterministic_algorithms(True)
+    try:
+        for remat in (False, True):
+            cfg = get_config(GRANITE).replace(remat=remat)
+            rec, state, step, batch = _anchor_step(GRANITE, mesh, cfg,
+                                                   counted=remat)
+            params = [x.detach() for x in tree.leaves(
+                dtensor.whole(state.params))]
+            if host is None:
+                host = [x.cpu() for x in params]
+            else:
+                same = all(torch.equal(a.cpu(), b)
+                           for a, b in zip(params, host))
+                if not same:
+                    raise AssertionError("[remat] granite step 1 differs "
+                                         "with remat on")
+                print("[remat] granite placed step 1 (param_specs, mesh "
+                      "(1, 1), deterministic algorithms): remat on bitwise "
+                      "remat off (every param)")
+            del params
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            state, _ = step(state, batch)
+            torch.cuda.synchronize()
+            rec["step2_ms"] = (time.perf_counter() - t) * 1e3
+            rec["peak_gb"] = rec["max_memory_allocated"] / 1e9
+            print(f"[remat] granite remat={remat}: step 1 peak "
+                  f"{rec['peak_gb']:.2f} GB, step 2 {rec['step2_ms']:.1f} "
+                  f"ms (per-step loop) | {smi}")
+            out[f"remat_{remat}"] = rec
+            if remat:
+                rec["replayed_ms"] = _replayed_ms(state, step, batch)
+            del state, step, batch
+            _blk_free()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    out[GRANITE] = out["remat_True"]
+
+
+def _dryrun_tp_serve(mesh, out):
+    """minitron-4b at full width and depth: prefill and decode on params
+    placed by ``param_specs_tp`` and a cache placed by ``cache_specs``
+    (mesh (1, 1)) against the same calls on plain tensors: logits
+    bitwise."""
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import transformer
+    from repro_torch.models.model import build
+    from repro_torch.sharding import dtensor, specs
+    cfg = get_config(DRYRUN_SERVE[0])
+    model = build(cfg)
+    params = transformer.cast_params(model.init(_gen(0)), cfg)
+    toks = torch.randint(0, cfg.vocab_size,
+                         (TP_SERVE_B, TP_SERVE_PROMPT + TP_SERVE_DECODE),
+                         generator=_gen(1), device=DEVICE)
+    max_len = TP_SERVE_PROMPT + TP_SERVE_DECODE
+
+    def serve(placed):
+        p = params
+        cache = model.init_cache(TP_SERVE_B, max_len, device=DEVICE)
+        batches = [{"tokens": toks[:, :TP_SERVE_PROMPT]}] + [
+            {"tokens": toks[:, TP_SERVE_PROMPT + t:TP_SERVE_PROMPT + t + 1]}
+            for t in range(TP_SERVE_DECODE)]
+        if placed:
+            p = dtensor.place(p, specs.named(mesh, specs.param_specs_tp(
+                p, mesh=mesh)))
+            cache = dtensor.place(cache, specs.named(
+                mesh, specs.cache_specs(cache, mesh)))
+            batches = [dtensor.place(b, specs.named(
+                mesh, specs.batch_specs(b, mesh))) for b in batches]
+        with torch.no_grad():
+            lg, cache = model.prefill(p, batches[0], cache)
+            out_ = [dtensor.plain(lg)]
+            for t, b in enumerate(batches[1:]):
+                lg, cache = model.decode(p, b, cache, TP_SERVE_PROMPT + t)
+                out_.append(dtensor.plain(lg))
+        return out_
+
+    plain, placed = serve(False), serve(True)
+    for i, (a, b) in enumerate(zip(placed, plain)):
+        if not torch.equal(a, b):
+            raise AssertionError(f"[tp_serve] minitron-4b call {i}: placed "
+                                 "logits differ from the plain call's")
+    out["tp_serve"] = {"calls": len(plain), "bitwise": True}
+    print(f"[tp_serve] minitron-4b prefill ({TP_SERVE_B} x "
+          f"{TP_SERVE_PROMPT}) + {TP_SERVE_DECODE} decode steps on "
+          "param_specs_tp params and a cache_specs cache (mesh (1, 1)): "
+          "logits bitwise the plain call's")
+    del params
+    _blk_free()
+
+
+def _dryrun_card_child():
+    """``python3 chip_smoke.py --dryrun card``: phase 12's steps on the card
+    (the anchors under the cost counter, remat, tp_serve).  Prints its lines
+    and then ``{"dryrun_card": ...}`` for the parent."""
+    import os
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch import mesh as mesh_mod
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    t0 = time.perf_counter()
+    smi = _smi()
+    _kernel_counts(reset=True)
+    mesh_mod.start_group(DEVICE)
+    out = {}
+    try:
+        mesh = mesh_mod.make_host_mesh()
+        rec, state, step, batch = _anchor_step(POD_ARCH, mesh)
+        rec["replayed_ms"] = _replayed_ms(state, step, batch)
+        out[POD_ARCH] = rec
+        del state, step, batch
+        _blk_free()
+        _dryrun_remat(mesh, out, smi)
+        cfg, fed, tc = _tp_cfgs()
+        _tp_parity("tiny-lm remat=True, param_specs",
+                   cfg.replace(remat=True), fed, tc, mesh, "param_specs")
+        _dryrun_tp_serve(mesh, out)
+    finally:
+        dist.destroy_process_group()
+    out["launches"] = _kernel_counts()
+    moved = {k: n for k, n in out["launches"].items() if n}
+    if moved:
+        raise AssertionError(f"[dryrun] phase 12 launched kernels: {moved}")
+    out["seconds"] = time.perf_counter() - t0
+    print(json.dumps({"dryrun_card": out}, default=float))
+    return 0
+
+
+def _dryrun_start():
+    """Starts phase 12's fake-tensor child (it needs no card: it runs beside
+    phase 11)."""
+    return subprocess.Popen([sys.executable, str(Path(__file__).resolve()),
+                             "--dryrun", "fake"], stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+
+
+def _child_json(lines, key):
+    return json.loads(next(l for l in reversed(lines)
+                           if l.startswith('{"' + key + '"')))[key]
+
+
+def _dryrun(smi, fake):
+    """Phase 12: the card child, then the fake child joined; the anchor's
+    gates.  Returns the merged record, with ``launches``: both children's
+    kernel launches summed by kernel name."""
+    import os
+    t0 = time.perf_counter()
+    env = dict(os.environ, PYTORCH_CUDA_ALLOC_CONF="expandable_segments:True")
+    proc = subprocess.run([sys.executable, str(Path(__file__).resolve()),
+                           "--dryrun", "card"], capture_output=True,
+                          text=True, timeout=DRYRUN_TIMEOUT, env=env)
+    lines = proc.stdout.splitlines()
+    print("\n".join(l for l in lines if not l.startswith('{"dryrun_card"')))
+    if proc.returncode != 0:
+        sys.stderr.write(proc.stderr[-20000:])
+        raise RuntimeError(f"phase 12 (card) failed (exit {proc.returncode})")
+    card = _child_json(lines, "dryrun_card")
+    fake_out, fake_err = fake.communicate(timeout=DRYRUN_TIMEOUT)
+    lines = fake_out.splitlines()
+    print("\n".join(l for l in lines if not l.startswith('{"dryrun_fake"')))
+    if fake.returncode != 0:
+        sys.stderr.write(fake_err[-20000:])
+        raise RuntimeError(f"phase 12 (fake) failed (exit {fake.returncode})")
+    dry = _child_json(lines, "dryrun_fake")
+    for arch in DRYRUN_ANCHORS:
+        real, fk = card[arch], dry["anchors"][arch]
+        if real["cost"]["flops"] != fk["cost"]["flops"]:
+            raise AssertionError(f"[anchor] {arch}: {real['cost']['flops']} "
+                                 f"flops counted on the card, "
+                                 f"{fk['cost']['flops']} in the dry-run")
+        if any(real["collectives"].values()) or any(
+                fk["collectives"].values()):
+            raise AssertionError(f"[anchor] {arch}: collective bytes at "
+                                 f"mesh (1, 1): {real['collectives']} / "
+                                 f"{fk['collectives']}")
+        peak, got = real["max_memory_allocated"], fk["memory"]["peak_bytes"]
+        if abs(got - peak) > DRYRUN_PEAK_REL * peak:
+            raise AssertionError(f"[anchor] {arch}: dry-run peak {got} B "
+                                 f"against {peak} B on the card")
+        frac = real["replayed_ms"] / 1e3 / fk["bound_s"]
+        real["replayed_over_bound"] = frac
+        print(f"[anchor] {arch} (C = {POD_C}, {POD_GB} x {POD_SEQ} tokens, "
+              f"robust=None, mesh (1, 1)): {fk['cost']['flops']:.6e} flops "
+              f"counted on the card and in the dry-run (equal), 0 "
+              f"collective bytes; peak {peak / 1e9:.3f} GB on the card "
+              f"(max_memory_allocated), {got / 1e9:.3f} GB predicted "
+              f"({got / peak - 1:+.3f}); replayed step "
+              f"{real['replayed_ms']:.2f} ms against bound_s "
+              f"{fk['bound_s'] * 1e3:.2f} ms ({fk['dominant']}): "
+              f"{frac:.2f}x the bound | {smi}")
+    seconds = time.perf_counter() - t0
+    print(f"[dryrun] phase 12 took {seconds:.1f} s here (card child "
+          f"{card['seconds']:.1f} s; the fake child {dry['seconds']:.1f} s, "
+          f"run beside phase 11) | {smi}")
+    launched = dict(card["launches"])
+    for name, n in dry["launches"].items():
+        launched[name] = launched.get(name, 0) + n
+    return {"card": card, "fake": dry, "seconds": seconds,
+            "launches": launched}
+
+
 def main(argv=()):
     _import_port()
     import torch
@@ -4913,6 +5299,14 @@ def main(argv=()):
         return _pod_child()
     if "--tp" in argv:              # phase 11 alone, as _tp runs it
         return _tp_child()
+    if "--dryrun" in argv:          # phase 12 alone; a child with its part
+        if "fake" in argv:
+            return _dryrun_fake_child()
+        if "card" in argv:
+            return _dryrun_card_child()
+        print(json.dumps({"dryrun": _dryrun(_smi(), _dryrun_start())},
+                         default=float))
+        return 0
     if "--blocks" in argv:          # phase 10 alone, as _blocks runs it
         parts = [a for a in argv if a in ("models", "train")]
         if parts:
@@ -4966,10 +5360,12 @@ def main(argv=()):
     if "pod" not in blocks["kernels"]:
         raise AssertionError("phase 10 did not time K1-K3 on granite's "
                              "buffer")
+    fake = _dryrun_start()          # phase 12's dry-runs, beside 11
     tp = _tp(smi)
     for got in tp["launches"].values():
         for name, n in got.items():
             counts[name] = counts.get(name, 0) + n
+    dry = _dryrun(smi, fake)
     for entry in report:
         name = entry["name"]
         entry["launches"] = counts[name]
@@ -4988,6 +5384,8 @@ def main(argv=()):
                    if name in got}
         if by_path:
             entry["tp_launches"] = by_path
+        entry["dryrun_launches"] = dry["launches"][name]
+    print(f"[dryrun] phase 12: {dry['seconds']:.1f} s")
     print(smi)
     print(json.dumps({"kernels": report}))
     print(json.dumps({"ok": True, "device": {

@@ -200,17 +200,18 @@ def should_fuse(codec, cfg):
 
 def fused_dequant_pipeline(q, s, layout, weights, mask, *,
                            aggregator="trimmed_mean", trim_frac=0.2,
-                           cosine_thresh=-0.5, krum_f=1):
+                           cosine_thresh=-0.5, krum_f=1, krum_multi_m=1):
     """Full Eq.-11 pipeline over int8 codes (G, C, N) and scales (G, C, NQ)
     with weights and mask (G, C) -> (G, N) fp32, through K6a-c and the
-    gate and Krum scoring of ``kernels/robust_pipeline.py``."""
+    gate and Krum scoring of ``kernels/robust_pipeline.py``
+    (``krum_multi_m``: multi-Krum's count of averaged winners)."""
     return rp.eq11(
         lambda m: dequant_gate_partials(q, s, layout, m),
         lambda m, w, mode, tf: dequant_gated_combine(
             q, s, layout, m, w, mode=mode, trim_frac=tf),
         lambda m: dequant_pairwise_gram(q, s, layout, m), weights, mask,
         aggregator=aggregator, trim_frac=trim_frac,
-        cosine_thresh=cosine_thresh, krum_f=krum_f)
+        cosine_thresh=cosine_thresh, krum_f=krum_f, krum_multi_m=krum_multi_m)
 
 
 def fused_dequant_aggregate_tree(enc, layout, weights, mask, cfg, *, like):

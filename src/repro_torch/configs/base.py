@@ -1,8 +1,9 @@
 """Model and federated configuration — the port's copy of
 ``repro/configs/base.py``.
 
-``ModelConfig`` keeps every field of the JAX one, with its defaults, but
-``remat`` (the port has no activation rematerialisation).  ``FedConfig``
+``ModelConfig`` keeps every field of the JAX one, with its defaults
+(``remat``: each layer unit's activations recomputed in the backward,
+``models/transformer.forward``).  ``FedConfig``
 keeps every field of the JAX one, with the same defaults, so a config
 written for one package reads the same in the other; the options this
 slice does not run raise ``NotImplementedError`` in
@@ -61,6 +62,7 @@ class ModelConfig:
     attn_impl: str = "xla"            # xla (plain) | pallas (K9 on the card)
     dtype: str = "bfloat16"
     param_dtype: str = "float32"
+    remat: bool = True                # per-unit activation recomputation
     loss_chunk: int = 0               # chunk the LM loss over the sequence
     source: str = ""                  # citation of the public config
 
@@ -121,7 +123,7 @@ class ModelConfig:
             n_image_tokens=min(self.n_image_tokens, 16),
             sliding_window=(min(self.sliding_window, 64)
                             if self.sliding_window else 0),
-            block_pattern=(), dtype="float32")
+            block_pattern=(), remat=False, dtype="float32")
         if self.n_experts:
             kw["n_experts"] = min(self.n_experts, 4)
             kw["top_k"] = min(self.top_k, 2)

@@ -13,6 +13,7 @@ CNN_CONFIG = ModelConfig(
     n_kv_heads=1,
     d_ff=128,                 # dense head width
     vocab_size=10,            # n_classes
+    remat=False,
     dtype="float32",
     source="paper SSVI-A (Pneumonia X-ray / MNIST CNN)",
 )
@@ -27,6 +28,7 @@ MLP_CONFIG = ModelConfig(
     n_kv_heads=1,
     d_ff=128,
     vocab_size=22,            # n_classes
+    remat=False,
     dtype="float32",
     source="paper SSVI-D (Crop Recommendation tabular)",
 )
@@ -41,6 +43,7 @@ TINY_LM = ModelConfig(
     n_kv_heads=4,
     d_ff=2048,
     vocab_size=32000,
+    remat=False,
     dtype="float32",
     source="in-repo ~100M example config",
 )

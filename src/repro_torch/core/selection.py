@@ -99,3 +99,8 @@ def population_cohort(priority, d, gumbel, *, method="segmented", blk=4096):
     indices in descending key order, the same on every route."""
     logw = torch.log(torch.clamp(priority.float(), min=1e-12))
     return ps.gumbel_topd(logw, d, gumbel, method=method, blk=blk)
+
+
+def participation_ratio(cum_selected):
+    """Fraction of clients selected at least once (paper Table VI proxy)."""
+    return (cum_selected > 0).float().mean()

@@ -66,3 +66,12 @@ def stack_clients(x: np.ndarray, y: np.ndarray, parts, *, eval_frac=0.2,
         "n": t_sizes.astype(np.float32),
     }
 
+
+def size_skew_partition(rng: np.random.Generator, n_total: int,
+                        n_clients: int, zipf_a: float = 1.3):
+    """Zipf-distributed client sizes (for data-quality q_k experiments)."""
+    raw = 1.0 / np.arange(1, n_clients + 1) ** zipf_a
+    sizes = np.maximum((raw / raw.sum() * n_total).astype(int), 2)
+    idx = rng.permutation(n_total)
+    cuts = np.cumsum(sizes)[:-1]
+    return [p for p in np.split(idx, cuts)][:n_clients]

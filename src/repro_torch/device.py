@@ -24,3 +24,20 @@ def resolve(device=None) -> torch.device:
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {dev}")
     return dev
+
+
+def plain_route(x) -> bool:
+    """Whether a kernel wrapper runs its plain version on ``x``: True for
+    a CPU tensor, False for a CUDA one (the kernel launches).  A fake
+    tensor (the dry-run's, ``launch/dryrun.py``) holds no data for either
+    and raises, as does any other device: nothing is counted as a launch
+    or a plain run there."""
+    from torch._subclasses.fake_tensor import is_fake
+    if is_fake(x):
+        raise RuntimeError("a kernel wrapper was reached by a fake tensor: "
+                           "no kernel or plain version runs on one")
+    if x.device.type == "cpu":
+        return True
+    if x.device.type == "cuda":
+        return False
+    raise ValueError(f"no kernel for device {x.device}")

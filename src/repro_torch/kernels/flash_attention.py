@@ -29,6 +29,7 @@ import ctypes
 
 import torch
 
+from repro_torch import device
 from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention_ref import NEG_INF
 from repro_torch.kernels.robust_pipeline import SMEM_LIMIT
@@ -127,11 +128,9 @@ def flash_attention_fwd(q, k, v, *, causal=True, window=0):
             "kernel (the reference's is forward only too), so its output "
             "would drop the gradient of q, k and v.  Call it under "
             "torch.no_grad() or on inputs that do not require grad.")
-    if q.device.type == "cpu":
+    if device.plain_route(q):
         return flash_attention_fwd_plain(q, k, v, causal=causal,
                                          window=window)
-    if q.device.type != "cuda":
-        raise ValueError(f"no kernel for device {q.device}")
     B, Hq, S, dh = q.shape
     Hkv = k.shape[1]
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:

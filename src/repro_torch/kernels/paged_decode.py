@@ -30,6 +30,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch import device
 from repro_torch.kernels import _build
 from repro_torch.kernels.paged_decode_ref import NEG_INF, dequant_pool
 from repro_torch.kernels.robust_pipeline import SMEM_LIMIT, sm_count
@@ -186,11 +187,9 @@ def paged_flash_decode(q, kp, vp, table, lengths, *, k_scale=None,
     in torch ops), so two calls are bitwise equal.  One launch a call:
     ``.launches`` counts calls.
     """
-    if q.device.type == "cpu":
+    if device.plain_route(q):
         return paged_flash_decode_plain(q, kp, vp, table, lengths,
                                         k_scale=k_scale, v_scale=v_scale)
-    if q.device.type != "cuda":
-        raise ValueError(f"no kernel for device {q.device}")
     s, hq, dh = q.shape
     n, page, hkv, _ = kp.shape
     int8 = k_scale is not None

@@ -51,6 +51,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch import device
 from repro_torch.kernels import _build
 from repro_torch.kernels.robust_pipeline import SMEM_LIMIT
 
@@ -220,7 +221,7 @@ def block_topd(g, d, blk):
     """
     if g.dim() != 1 or g.shape[0] % blk:
         raise ValueError(f"keys must be (nb * {blk},), got {tuple(g.shape)}")
-    if g.device.type == "cpu":
+    if device.plain_route(g):
         return block_topd_plain(g, d, blk)
     return _launch(g, d, blk, merge=False)[:2]
 
@@ -242,7 +243,7 @@ def topd_pallas(g, d, *, blk=BLK):
     ``topd_pallas_plain``."""
     blk = max(int(blk), d)
     g = g.float()
-    if g.device.type == "cpu":
+    if device.plain_route(g):
         return topd_pallas_plain(g, d, blk)
     return _launch(g, d, blk, merge=True)[2]
 

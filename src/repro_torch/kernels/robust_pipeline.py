@@ -35,7 +35,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch import tree
+from repro_torch import device, tree
 from repro_torch.kernels import _build
 from repro_torch.kernels.robust_agg import _BIG, stable_ranks
 
@@ -169,11 +169,10 @@ def check_pass1_smem(c, n):
 
 
 def _dispatch(x):
-    if x.device.type == "cuda":
-        return True
-    if x.device.type == "cpu":
-        return False
-    raise ValueError(f"no kernel for device {x.device}")
+    """True where the kernel launches (a CUDA tensor), False where the
+    plain version runs (a CPU one); raises on a fake tensor or another
+    device (``device.plain_route``)."""
+    return not device.plain_route(x)
 
 
 # ---------------------------------------------------------------------------
@@ -465,10 +464,11 @@ def _resolve_gate(dots, sqn, refsq, mask, cosine_thresh):
 
 
 def eq11(partials, combine, gram, weights, mask, *, aggregator, trim_frac,
-         cosine_thresh, krum_f):
+         cosine_thresh, krum_f, krum_multi_m=1):
     """The Eq.-11 pipeline over one kernel family: ``partials(mask)`` is
     pass 1, ``combine(mask, weights, mode, trim_frac)`` pass 2 and
-    ``gram(mask)`` Krum's Gram.  Weights and mask (G, C) -> (G, N) fp32."""
+    ``gram(mask)`` Krum's Gram (multi-Krum: the ``krum_multi_m`` best
+    averaged).  Weights and mask (G, C) -> (G, N) fp32."""
     mask = mask.float()
     m = _resolve_gate(*partials(mask), mask, cosine_thresh)
     if aggregator == "fedavg":
@@ -480,7 +480,8 @@ def eq11(partials, combine, gram, weights, mask, *, aggregator, trim_frac,
     if aggregator == "median":
         return combine(m, m, "median", trim_frac)
     if aggregator == "krum":
-        w = _krum_weights(sq_dists_from_gram(gram(m), m), m, krum_f, 1)
+        w = _krum_weights(sq_dists_from_gram(gram(m), m), m, krum_f,
+                          krum_multi_m)
         return combine(m, w, "mean", trim_frac)
     raise ValueError(aggregator)
 
@@ -537,9 +538,11 @@ def fused_pipeline_sharded(parts, weights, mask, *, counted, reduce,
 
 
 def fused_pipeline(x, weights, mask, *, aggregator="trimmed_mean",
-                   trim_frac=0.2, cosine_thresh=-0.5, krum_f=1, flat=False):
+                   trim_frac=0.2, cosine_thresh=-0.5, krum_f=1,
+                   krum_multi_m=1, flat=False):
     """Full Eq.-11 pipeline over a cohort batch x (G, C, N) with weights
-    and mask (G, C) -> (G, N) fp32 aggregated rows, through K1-K3.  With
+    and mask (G, C) -> (G, N) fp32 aggregated rows, through K1-K3
+    (``krum_multi_m``: multi-Krum's count of averaged winners).  With
     ``flat`` the launches are counted on the flat wrappers K4a-c (the
     counterpart of ``repro/kernels/robust_pipeline.py:fused_pipeline``):
     the same kernels, so the same result bit for bit."""
@@ -551,7 +554,8 @@ def fused_pipeline(x, weights, mask, *, aggregator="trimmed_mean",
         lambda m: _pass1(x, m, pass1),
         lambda m, w, mode, tf: _combine(x, m, w, mode, tf, combine),
         lambda m: _gram(x, gram), weights, mask, aggregator=aggregator,
-        trim_frac=trim_frac, cosine_thresh=cosine_thresh, krum_f=krum_f)
+        trim_frac=trim_frac, cosine_thresh=cosine_thresh, krum_f=krum_f,
+        krum_multi_m=krum_multi_m)
 
 
 def _pipeline_args(cfg):

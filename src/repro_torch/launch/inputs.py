@@ -33,6 +33,12 @@ class ShapeDtype:
         return len(self.shape)
 
 
+def _shape(shape_name):
+    """An ``InputShape`` from its name, or the shape itself."""
+    return (INPUT_SHAPES[shape_name] if isinstance(shape_name, str)
+            else shape_name)
+
+
 def shape_variant(cfg: ModelConfig, shape_name: str) -> ModelConfig:
     """Per-shape config adjustments: a training shape chunks the LM-head
     loss (full (B, S, V) logits at vocab 152k would dominate activation
@@ -48,8 +54,10 @@ def shape_variant(cfg: ModelConfig, shape_name: str) -> ModelConfig:
     return cfg.replace(**kw) if kw else cfg
 
 
-def train_batch_specs(cfg: ModelConfig, shape_name: str):
-    shape = INPUT_SHAPES[shape_name]
+def train_batch_specs(cfg: ModelConfig, shape_name):
+    """The train batch of an input shape (its name, or an ``InputShape``)
+    as ``ShapeDtype`` leaves."""
+    shape = _shape(shape_name)
     gb, s = shape.global_batch, shape.seq_len
     batch = {"targets": ShapeDtype((gb, s), torch.int32)}
     if cfg.embed_inputs:
@@ -66,7 +74,7 @@ def infer_batch_specs(cfg: ModelConfig, shape_name: str, *, decode=False):
     """The serving batch of an input shape: tokens (or frame embeddings)
     of the whole prompt, or of one step with ``decode``; a VLM's patch
     embeddings with the prompt."""
-    shape = INPUT_SHAPES[shape_name]
+    shape = _shape(shape_name)
     gb = shape.global_batch
     s = 1 if decode else shape.seq_len
     batch = {}
@@ -86,8 +94,8 @@ def cache_specs_struct(cfg: ModelConfig, shape_name: str):
     from repro_torch import tree
     from repro_torch.models import transformer
 
-    shape = INPUT_SHAPES[shape_name]
-    ring = bool(cfg.sliding_window) and shape_name == "long_500k"
+    shape = _shape(shape_name)
+    ring = bool(cfg.sliding_window) and shape.name == "long_500k"
     cache = transformer.init_cache(cfg, shape.global_batch, shape.seq_len,
                                    ring=ring, dtype=torch.bfloat16,
                                    device="meta")

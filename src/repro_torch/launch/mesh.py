@@ -9,8 +9,14 @@ which the pod step places its state as DTensors (``sharding/dtensor.py``),
 and one sub-group a axis: ``Mesh.over(axes)`` is the mesh of the ranks that
 share this rank's coordinates on the axes not named, whose collectives
 (``sharding/collectives.py``) the aggregation over a part of the mesh
-calls.  ``make_production_mesh`` (the TPU pod's 16 x 16 layout) is not
-ported here.
+calls.
+
+``make_production_mesh`` lays the production layout (16 x 16 ("data",
+"model"), or 2 x 16 x 16 with a leading "pod" axis) out on a fake process
+group of 256 or 512 ranks (``fake_group``), on which ``launch/dryrun.py``
+counts the sharded step; this process is rank 0 of it.  Its
+``DeviceMesh`` is a "cpu" one: a fake CUDA mesh cannot be built without a
+card, and the dry-run's tensors are fake CPU tensors.
 
 Nothing tells a program here of a cluster.  Where no group exists,
 ``host_mesh`` starts one of world size 1 itself, on a ``FileStore`` in a
@@ -127,6 +133,54 @@ def make_host_mesh(data: int = 1, model: int = 1, *, group=None):
                   device_mesh.get_group("model"))
     return Mesh(("data", "model"), (data, model), group, rank, device_mesh,
                 groups)
+
+
+@contextlib.contextmanager
+def fake_group(world_size):
+    """The default process group on the "fake" backend (``FakeStore``: no
+    rank but this one exists, collectives move nothing), this process rank
+    0 of ``world_size``; destroyed on exit.  Raises if a default group
+    already exists: it never replaces or joins one."""
+    if dist.is_initialized():
+        raise RuntimeError("a default process group exists; the fake group "
+                           "of the dry-run needs a process of its own")
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=world_size)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+
+
+def make_grid_mesh(shape, axis_names, device="cpu"):
+    """A mesh of ``shape`` over the whole default group, with its
+    ``DeviceMesh`` on ``device`` and one sub-group an axis; ranks row-major,
+    as ``jax.make_mesh`` lays out devices."""
+    from torch.distributed.device_mesh import DeviceMesh
+    shape, axis_names = tuple(shape), tuple(axis_names)
+    n = 1
+    for s in shape:
+        n *= s
+    if dist.get_world_size() != n:
+        raise ValueError(f"a {shape} mesh does not span the "
+                         f"{dist.get_world_size()} ranks of the group")
+    device_mesh = DeviceMesh(device, torch.arange(n).reshape(shape),
+                             mesh_dim_names=axis_names)
+    return Mesh(axis_names, shape, None, dist.get_rank(), device_mesh,
+                tuple(device_mesh.get_group(a) for a in axis_names))
+
+
+def make_production_mesh(*, multi_pod: bool = False):
+    """16 x 16 = 256 ranks ("data", "model"); ``multi_pod`` adds a leading
+    2-wide "pod" axis (512 ranks).  The default group must be a fake group
+    of that many ranks (``fake_group``)."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    if not dist.is_initialized() or dist.get_backend() != "fake":
+        raise RuntimeError("make_production_mesh needs a fake default group "
+                           "(launch.mesh.fake_group)")
+    return make_grid_mesh(shape, axes)
 
 
 @contextlib.contextmanager

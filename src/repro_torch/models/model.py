@@ -12,7 +12,10 @@ and, for the transformer,
   decode(params, batch, cache, pos) -> (logits, cache)
 A batch holds ``tokens`` or ``embeds`` (musicgen's frontend stub), and
 ``image_embeds`` for the cross-attention layers (prefill and the full
-sequence; decode reads their cache).
+sequence; decode reads their cache).  ``prefill`` and ``decode`` also run
+on params placed by ``param_specs`` or ``param_specs_tp``, a cache placed
+by ``cache_specs`` and a batch placed by ``batch_specs``: the serving
+side of the sharded layouts.
 """
 from __future__ import annotations
 
@@ -21,7 +24,9 @@ from typing import Any, Callable
 
 import torch
 
+from repro_torch import tree
 from repro_torch.models import small, transformer
+from repro_torch.sharding import dtensor
 
 
 @dataclass(frozen=True)
@@ -52,6 +57,12 @@ def build(cfg) -> Model:
     return Model(cfg, init, loss, forward=lambda p, b: fwd(p, b["x"]))
 
 
+def _placed(params):
+    """On params placed as DTensors (``sharding/specs.py`` layouts), plain
+    tensors (positions, masks) enter their ops as replicated operands."""
+    return dtensor.mixing(dtensor.is_dtensor(tree.leaves(params)[0]))
+
+
 def _transformer_model(cfg) -> Model:
     def forward(params, batch):
         logits, _, _ = transformer.forward(
@@ -67,12 +78,13 @@ def _transformer_model(cfg) -> Model:
 
     def prefill(params, batch, cache):
         # last-position logits only: nothing downstream reads the others
-        hidden, cache, _ = transformer.forward(
-            params, cfg, tokens=batch.get("tokens"),
-            embeds=batch.get("embeds"),
-            image_embeds=batch.get("image_embeds"), cache=cache,
-            collect_logits=False)
-        return transformer.lm_head(params, cfg, hidden[:, -1:]), cache
+        with _placed(params):
+            hidden, cache, _ = transformer.forward(
+                params, cfg, tokens=batch.get("tokens"),
+                embeds=batch.get("embeds"),
+                image_embeds=batch.get("image_embeds"), cache=cache,
+                collect_logits=False)
+            return transformer.lm_head(params, cfg, hidden[:, -1:]), cache
 
     def decode(params, batch, cache, pos):
         """batch: {tokens: (B, 1)} or {embeds: (B, 1, d)}; pos: the
@@ -82,9 +94,10 @@ def _transformer_model(cfg) -> Model:
         positions = (torch.full((x.shape[0], 1), pos, device=x.device)
                      if isinstance(pos, int)
                      else pos.to(x.device).expand(x.shape[0], 1))
-        logits, cache, _ = transformer.forward(
-            params, cfg, tokens=batch.get("tokens"),
-            embeds=batch.get("embeds"), positions=positions, cache=cache)
+        with _placed(params):
+            logits, cache, _ = transformer.forward(
+                params, cfg, tokens=batch.get("tokens"),
+                embeds=batch.get("embeds"), positions=positions, cache=cache)
         return logits, cache
 
     return Model(cfg, lambda g: transformer.init_transformer(g, cfg),

@@ -65,6 +65,14 @@ def _ssm_coeffs(params, xc, cfg, dtype, step_mask=None):
     return a.to(sd), b.to(sd), Cm
 
 
+def _decode_step(params, xc, h0, cfg, dtype):
+    """One recurrence step: (new state (B, di, st), readout (B, di) fp32)."""
+    a, b, Cm = _ssm_coeffs(params, xc, cfg, dtype)
+    h = a * h0 + b                                 # (B, di, st)
+    y = torch.einsum("bds,bs->bd", h.float(), Cm) + params["D"] * xc.float()
+    return h, y
+
+
 def _combine(left, right):
     al, bl = left
     ar, br = right
@@ -138,14 +146,17 @@ def mamba_fwd(params, x, cfg, state=None):
         xc, conv_state = causal_depthwise_conv(
             xin, params["conv_w"], params["conv_b"], state["conv"])
         xc = F.silu(xc)[:, 0]                      # (B, di)
-        a, b, Cm = _ssm_coeffs(params, xc, cfg, dtype)
-        h = a * state["h"] + b                     # (B, di, st)
-        y = torch.einsum("bds,bs->bd", h.float(), Cm) \
-            + params["D"] * xc.float()
+        keys = ("x_proj", "dt_proj", "dt_bias", "A_log", "D")
+        # on DTensors the step runs on each rank's rows with its channels
+        # and the SSM weights gathered, as the scan does (ROADMAP §3)
+        h, y = dtensor.local_op(
+            lambda xc_, h0_, *w: _decode_step(dict(zip(keys, w)), xc_, h0_,
+                                              cfg, dtype),
+            xc, state["h"], *(params[k] for k in keys), rows=2)
         y = (y.to(dtype) * F.silu(z[:, 0]))[:, None]
         out = y @ params["out_proj"].to(dtype)
-        state["h"].copy_(h)
-        state["conv"].copy_(conv_state)
+        dtensor.copy_(state["h"], h)
+        dtensor.copy_(state["conv"], conv_state)
         return out, state
 
     # ---- full sequence (train, or prefill when state is given)
@@ -167,8 +178,8 @@ def mamba_fwd(params, x, cfg, state=None):
     y = y.to(dtype) * F.silu(z)
     out = y @ params["out_proj"].to(dtype)
     if state is not None:
-        state["h"].copy_(h)
-        state["conv"].copy_(conv_tail)
+        dtensor.copy_(state["h"], h)
+        dtensor.copy_(state["conv"], conv_tail)
         return out, state
     return out, None
 

@@ -13,8 +13,10 @@ Parameters keep the JAX layout: each leaf of ``params["layers"]`` is
 stacked over the layer *units* (a unit is one repetition of
 ``layer_cycle``), (n_units, ...).  ``forward`` is JAX's ``scan_unroll``
 branch, the same function as its ``lax.scan``: a Python loop over the
-units, each unit's leaves indexed out of the stack (views, no copy).  The
-MoE layers' auxiliary losses are summed over the layers.
+units, each stacked leaf unbound once into its units' views (no copy).
+With ``cfg.remat`` a unit runs under ``torch.utils.checkpoint`` when grad
+is on, as the reference wraps its unit in ``jax.checkpoint``.  The MoE
+layers' auxiliary losses are summed over the layers.
 
 Modes:
   full sequence : ``forward(cache=None)`` (scoring, the loss)
@@ -27,6 +29,7 @@ Caches are updated in place (``models/attention.py``, ``ssm.py``,
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import tree
 from repro_torch.sharding import dtensor
@@ -217,15 +220,34 @@ def forward(params, cfg, *, tokens=None, embeds=None, image_embeds=None,
     rope = (rope_table(positions, cfg.resolved_head_dim, cfg.rope_theta)
             if any(k in ATTENTION_KINDS for k in cycle) else None)
     aux = torch.zeros((), device=x.device)
-    for u in range(n_units):
+    stacks = params["layers"]
+    # each stacked leaf unbound once: its backward writes the stack once
+    units = list(zip(*(l.unbind(0) for l in tree.leaves(stacks))))
+
+    def unit_fwd(u, x, aux, *leaves):
+        up = tree.unflatten(stacks, list(leaves))
         for i, kind in enumerate(cycle):
-            bp = tree.map(lambda l: l[u], params["layers"][f"b{i}"])
             c = (None if cache is None
                  else tree.map(lambda l: l[u], cache[f"b{i}"]))
-            x, a = _block_fwd(bp, kind, x, cfg, positions, c, image_embeds,
-                              cfg.sliding_window, rope)
+            x, a = _block_fwd(up[f"b{i}"], kind, dtensor.residual(x), cfg,
+                              positions, c, image_embeds, cfg.sliding_window,
+                              rope)
             if a is not None:
                 aux = aux + a
+        return x, aux
+
+    # per-unit rematerialisation (``jax.checkpoint(unit_fwd)``): a unit's
+    # activations are recomputed in the backward, its FSDP weights gathered
+    # again; no RNG state is saved (nothing draws in the forward, and
+    # reading the CUDA RNG state cannot be captured in a CUDA graph)
+    remat = cfg.remat and cache is None and torch.is_grad_enabled()
+    for u in range(n_units):
+        if remat:
+            x, aux = checkpoint(unit_fwd, u, x, aux, *units[u],
+                                use_reentrant=False,
+                                preserve_rng_state=False)
+        else:
+            x, aux = unit_fwd(u, x, aux, *units[u])
     x = rms_norm(x, params["ln_f"]["scale"], cfg.norm_eps)
     if not collect_logits:
         return x, cache, aux

@@ -59,9 +59,10 @@ def _mlstm_inputs(params, xm, H, dtype):
     di = params["wq"].shape[0]
     dh = di // H
     lead = xm.shape[:-1]
-    q = (xm @ params["wq"].to(dtype)).reshape(*lead, H, dh)
-    k = (xm @ params["wk"].to(dtype)).reshape(*lead, H, dh)
-    v = (xm @ params["wv"].to(dtype)).reshape(*lead, H, dh)
+    # on DTensors a head count that does not split over "model" is whole
+    # there (ROADMAP §3)
+    q, k, v = (dtensor.whole_units(xm @ params[w].to(dtype), -1, H).reshape(
+        *lead, H, dh) for w in ("wq", "wk", "wv"))
     li = (xm @ params["wi"].to(dtype)).float() + params["bi"]
     lf = _log_sigmoid((xm @ params["wf"].to(dtype)).float() + params["bf"])
     # jnp.sqrt(dh) in fp32, cast to the compute dtype (a device fill)
@@ -115,6 +116,32 @@ def _mlstm_chunkwise(q, k, v, li, lf, C_prev, n_prev, m_prev, L):
     return h, C_prev, n_prev, m_prev
 
 
+def _head_norm(h, scale, H):
+    """The mLSTM's per-head group norm of (B, S, H dh) rows.  On DTensors
+    it runs on each rank's rows with the heads whole: the grad that comes
+    back from ``down`` is split over "model" on the merged head dim, which
+    DTensor cannot unflatten into H heads that do not split there (ROADMAP
+    §3)."""
+    return dtensor.local_op(lambda h_, g_: group_norm(h_, g_, H), h, scale,
+                            rows=1)
+
+
+def _mlstm_step(q, k, v, li, lf, C0, n0, m0):
+    """One recurrent mLSTM step on (B, H, ...) inputs and state -> (h (B,
+    H, dh), C, n, m)."""
+    q32, k32, v32 = q.float(), k.float(), v.float()
+    m_new = torch.maximum(lf + m0, li)                        # (B, H)
+    fp = torch.exp(lf + m0 - m_new)[..., None]
+    ip = torch.exp(li - m_new)[..., None]
+    C = fp[..., None] * C0 \
+        + ip[..., None] * (k32[..., None] * v32[..., None, :])
+    n = fp * n0 + ip * k32
+    num = torch.einsum("bhkv,bhk->bhv", C, q32)
+    den = torch.maximum(torch.einsum("bhk,bhk->bh", n, q32).abs(),
+                        torch.exp(-m_new))[..., None]
+    return num / den, C, n, m_new
+
+
 def mlstm_fwd(params, x, cfg, state=None):
     """x: (B, S, d); state {"C", "n", "m", "conv"}: S == 1 is one recurrent
     step, S > 1 a prefill; both write ``state`` in place.  Returns (y,
@@ -128,22 +155,17 @@ def mlstm_fwd(params, x, cfg, state=None):
             xm, params["conv_w"], params["conv_b"], state["conv"])
         xc = F.silu(xc)
         q, k, v, li, lf = _mlstm_inputs(params, xc[:, 0], H, dtype)
-        q32, k32, v32 = q.float(), k.float(), v.float()
-        m_new = torch.maximum(lf + state["m"], li)            # (B, H)
-        fp = torch.exp(lf + state["m"] - m_new)[..., None]
-        ip = torch.exp(li - m_new)[..., None]
-        C = fp[..., None] * state["C"] \
-            + ip[..., None] * (k32[..., None] * v32[..., None, :])
-        n = fp * state["n"] + ip * k32
-        num = torch.einsum("bhkv,bhk->bhv", C, q32)
-        den = torch.maximum(torch.einsum("bhk,bhk->bh", n, q32).abs(),
-                            torch.exp(-m_new))[..., None]
-        h = (num / den).reshape(x.shape[0], 1, -1).to(dtype)
-        h = group_norm(h, params["gn"], H)
+        # row-local; on DTensors the heads are gathered around it, as in
+        # the chunkwise form (ROADMAP §3)
+        h, C, n, m_new = dtensor.local_op(
+            _mlstm_step, q, k, v, li, lf, state["C"], state["n"],
+            state["m"], rows=8)
+        h = h.reshape(x.shape[0], 1, -1).to(dtype)
+        h = _head_norm(h, params["gn"], H)
         out = (h * F.silu(z)) @ params["down"].to(dtype)
         for key, val in (("C", C), ("n", n), ("m", m_new),
                          ("conv", conv_state)):
-            state[key].copy_(val)
+            dtensor.copy_(state[key], val)
         return out, state
 
     # ---- chunkwise-parallel form (train, or prefill when state given)
@@ -167,12 +189,12 @@ def mlstm_fwd(params, x, cfg, state=None):
     h, C_prev, n_prev, m_prev = dtensor.local_op(
         lambda *a: _mlstm_chunkwise(*a, min(cfg.scan_chunk, S)),
         q, k, v, li, lf, C_prev, n_prev, m_prev, rows=8)
-    h = group_norm(h.to(dtype), params["gn"], H)
+    h = _head_norm(h.to(dtype), params["gn"], H)
     out = (h * F.silu(z)) @ params["down"].to(dtype)
     if state is not None:
         for key, val in (("C", C_prev), ("n", n_prev), ("m", m_prev),
                          ("conv", conv_tail)):
-            state[key].copy_(val)
+            dtensor.copy_(state[key], val)
         return out, state
     return out, None
 
@@ -261,7 +283,7 @@ def slstm_fwd(params, x, cfg, state=None):
         gx, *carry, params["r"], params["b"], rows=5)
     if state is not None:
         for key, val in zip(("c", "n", "m", "h"), carry):
-            state[key].copy_(val)
+            dtensor.copy_(state[key], val)
     y = group_norm(hseq.to(dtype), params["gn"], H)
     # post-up-projection (factor 4/3, GLU)
     u = F.gelu(y @ params["up_g"].to(dtype), approximate="tanh") \

@@ -142,6 +142,109 @@ def local_op(fn, *args, rows=0, heads=()):
     return wrap(out)
 
 
+def whole_units(x, dim, units):
+    """``x`` with its split of dim ``dim`` over the mesh gathered where
+    ``units`` (the heads that dim holds) do not split evenly over it, so
+    it can be unflattened into (units, unit size); otherwise, and for a
+    plain ``x``, ``x`` itself.  GSPMD pads an uneven split; DTensor refuses
+    it, so such an arch's heads are whole on every rank of that axis."""
+    if not (isinstance(x, torch.Tensor) and is_dtensor(x)):
+        return x
+    from torch.distributed.tensor import Replicate, Shard
+    dim %= x.dim()
+    n = 1
+    for i, p in enumerate(x.placements):
+        if p == Shard(dim):
+            n *= x.device_mesh.size(i)
+    if units % n == 0:
+        return x
+    pl = [Replicate() if p == Shard(dim) else p for p in x.placements]
+    return redistribute(x, x.device_mesh, pl)
+
+
+def residual(x):
+    """The residual stream at a block boundary in one layout: the batch
+    rows split over the data axes (where they divide), whole over every
+    other mesh dim (a partial sum reduced, a split gathered).  Without it a
+    block's layout, and so its collectives and flops, would follow the
+    layout the block before it left, and a layer's cost would depend on
+    its neighbours.  A plain ``x`` is returned as it is."""
+    if not (isinstance(x, torch.Tensor) and is_dtensor(x)):
+        return x
+    from torch.distributed.tensor import Replicate, Shard
+    mesh = x.device_mesh
+    data = [i for i, n in enumerate(mesh.mesh_dim_names or ())
+            if n in DP_AXES]
+    n = 1
+    for i in data:
+        n *= mesh.size(i)
+    row = Shard(0) if x.shape[0] % n == 0 else Replicate()
+    return redistribute(x, mesh, [row if i in data else Replicate()
+                                  for i in range(mesh.ndim)])
+
+
+def copy_(dst, src):
+    """``dst.copy_(src)`` with ``dst``'s placements kept: each rank writes
+    its own piece (DTensor's own in-place ops replace the placements of a
+    tensor split on a written dim and leave its local tensor as it was).
+    Returns ``dst``."""
+    if not is_dtensor(dst):
+        dst.copy_(src)
+        return dst
+    mesh, pl = dst.device_mesh, dst.placements
+    dst.to_local().copy_((redistribute(src, mesh, pl) if is_dtensor(src)
+                          else _cut(src, mesh, pl)).to_local())
+    return dst
+
+
+def _shard_offset(x, dim):
+    """(offset, length) of this rank's piece of ``x``'s dim ``dim``: its
+    splits there are even (the cache layouts split a dim only where it
+    divides), nested in mesh-dim order as DTensor nests them."""
+    from torch.distributed.tensor import Shard
+    coord = x.device_mesh.get_coordinate()
+    off, size = 0, x.shape[dim]
+    for i, p in enumerate(x.placements):
+        if p == Shard(dim):
+            size //= x.device_mesh.size(i)
+            off += coord[i] * size
+    return off, size
+
+
+def write_run_(dst, dim, start, src):
+    """A cache write: ``dst``'s slots ``(start + t) mod n`` on dim ``dim``
+    (``n`` its length there) set to ``src``'s slice ``t``, for ``t`` below
+    ``src.shape[dim]`` (at most ``n``), in place.  On a plain ``dst`` it is
+    that ``index_copy_``.  On a placed one each rank writes only the slots
+    that fall in its own piece, with no collective: ``src`` is laid out as
+    ``dst`` but whole on ``dim``, and in steps of this rank's piece length
+    ``m`` the run's slots land on the distinct local offsets ``(slot - lo)
+    mod m``; a slot outside the piece writes back the value it finds
+    there, so the write is exact.  Returns ``dst``."""
+    from torch.distributed.tensor import Replicate, Shard
+    n, T = dst.shape[dim], src.shape[dim]
+    if not is_dtensor(dst):
+        idx = (start + torch.arange(T, device=src.device)) % n
+        return dst.index_copy_(dim, idx, src)
+    pl = [Replicate() if p == Shard(dim) else p for p in dst.placements]
+    src = (redistribute(src, dst.device_mesh, pl) if is_dtensor(src)
+           else _cut(src, dst.device_mesh, pl)).to_local()
+    start = local(start)
+    loc = dst.to_local()
+    lo, m = _shard_offset(dst, dim)
+    shape = [1] * loc.dim()
+    for c in range(0, T, m):
+        piece = src.narrow(dim, c, min(m, T - c))
+        slot = (start + c + torch.arange(piece.shape[dim],
+                                         device=loc.device)) % n
+        at = (slot - lo) % m
+        shape[dim] = piece.shape[dim]
+        mine = ((slot >= lo) & (slot < lo + m)).reshape(shape)
+        loc.index_copy_(dim, at, torch.where(mine, piece,
+                                             loc.index_select(dim, at)))
+    return dst
+
+
 def over_data(x, dim=None):
     """``x`` with its split over the data axes set to ``Shard(dim)``
     (``None``: whole over them) and its other mesh dims as they are: a

@@ -1,7 +1,8 @@
 """The port stands alone and runs on the card unless asked otherwise:
 no repro_torch module (nor chip_smoke.py) imports jax or anything of the
-JAX package, the entry points raise without CUDA, and chip_smoke.py
-prints no result and exits non-zero without CUDA or outside the repo."""
+JAX package or starts a process group when imported, the entry points
+raise without CUDA, and chip_smoke.py prints no result and exits non-zero
+without CUDA or outside the repo."""
 import dataclasses
 import os
 import re
@@ -24,10 +25,13 @@ for name in names:
     importlib.import_module(name)
 import chip_smoke
 chip_smoke.bound(1, 1); chip_smoke.kernel_work("pairwise_gram", 1, 2, 3)
+import torch.distributed as dist
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "repro"
              or m.startswith("repro."))
-print(len(names), bad, all(m in names for m in (
+# no module starts a process group (the dry-run's fake one included) when
+# it is imported
+print(len(names), bad, dist.is_initialized(), all(m in names for m in (
     "repro_torch.scenarios", "repro_torch.scenarios.engine",
     "repro_torch.scenarios.registry", "repro_torch.core.attacks",
     "repro_torch.kernels.robust_agg_ops", "repro_torch.serve",
@@ -46,7 +50,9 @@ print(len(names), bad, all(m in names for m in (
     "repro_torch.sharding.specs", "repro_torch.sharding.collectives",
     "repro_torch.launch.mesh", "repro_torch.launch.inputs",
     "repro_torch.launch.train", "repro_torch.models.moe",
-    "repro_torch.models.ssm", "repro_torch.models.xlstm")))
+    "repro_torch.models.ssm", "repro_torch.models.xlstm",
+    "repro_torch.launch.dryrun", "repro_torch.launch.roofline",
+    "repro_torch.launch.perf")))
 """
 
 
@@ -61,7 +67,9 @@ def test_port_imports_no_jax_and_no_repro():
                          capture_output=True, text=True, timeout=120,
                          check=True).stdout.split()
     assert int(out[0]) >= 20, out            # every module was imported
-    assert out[1:] == ["[]", "True"], out     # scenarios, serving, K8/K9 too
+    # no jax, no group started, and the scenarios, serving, K8/K9, the
+    # dry-run and its roofline among the modules
+    assert out[1:] == ["[]", "False", "True"], out
 
 
 def test_entry_points_raise_without_cuda():

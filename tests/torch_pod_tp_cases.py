@@ -208,6 +208,124 @@ def run_tp(mesh):
     return out
 
 
+SERVE_B, SERVE_S, SERVE_DECODE, SERVE_LEN = 4, 8, 3, 16
+# the serving cases' configs: fp32, the hybrid's window shorter than the
+# prompt + decode so its ring cache wraps
+SERVE_KINDS = {"attn": KINDS["attn"], "moe": KINDS["moe"],
+               "hybrid": KINDS["hybrid"].replace(sliding_window=8),
+               "xlstm": KINDS["xlstm"]}
+SERVE_ATOL = 1e-5
+
+
+def run_serve(kind, variant, mesh=None):
+    """``Model.prefill`` of a (4, 8) prompt, then three ``Model.decode``
+    steps, on plain tensors or (``mesh``) on params placed by
+    ``param_specs`` (``param_specs_tp`` under ``tp_serve``), a cache placed
+    by ``cache_specs`` and the batch's rows split over "data"; the
+    hybrid's cache is a ring.  Returns the logits of each call, whole."""
+    from repro_torch.models.model import build
+    cfg = SERVE_KINDS[kind]
+    model = build(cfg)
+    params = model.init(torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(3)
+    toks = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (SERVE_B, SERVE_S + SERVE_DECODE)))
+    cache = model.init_cache(SERVE_B, SERVE_LEN, ring=kind == "hybrid",
+                             dtype=torch.float32)
+    batches = [{"tokens": toks[:, :SERVE_S]}] + [
+        {"tokens": toks[:, SERVE_S + t:SERVE_S + t + 1]}
+        for t in range(SERVE_DECODE)]
+    if mesh is not None:
+        fn = specs.param_specs_tp if variant == "tp_serve" \
+            else specs.param_specs
+        params = dtensor.place(params, specs.named(mesh, fn(params,
+                                                            mesh=mesh)))
+        cache = dtensor.place(cache, specs.named(mesh, specs.cache_specs(
+            cache, mesh)))
+        batches = [dtensor.place(b, specs.named(mesh, specs.batch_specs(
+            b, mesh))) for b in batches]
+    with torch.no_grad():
+        out, cache = model.prefill(params, batches[0], cache)
+        logits = [out]
+        for t, b in enumerate(batches[1:]):
+            out, cache = model.decode(params, b, cache, SERVE_S + t)
+            logits.append(out)
+    return [dtensor.plain(l).numpy() for l in logits]
+
+
+def check_serve(got, ref):
+    """Each call's logits within SERVE_ATOL of the plain call's largest."""
+    for g, r in zip(got, ref):
+        np.testing.assert_allclose(g, r, rtol=0,
+                                   atol=SERVE_ATOL * np.abs(r).max())
+
+
+# a stacked KV leaf (U, B, L, Hkv, dh) and the runs written into its
+# sequence dim as (start, length): across a piece boundary, wrapping past
+# the end, the whole length, one slot
+WRITE_SHAPE = (1, 4, 16, 2, 3)
+WRITE_RUNS = ((5, 7), (14, 5), (0, 16), (3, 1))
+
+
+def write_inputs():
+    """The KV leaf before the writes, and each run's source."""
+    rng = np.random.default_rng(5)
+    draw = lambda shape: rng.standard_normal(shape).astype(np.float32)
+    init = draw(WRITE_SHAPE)
+    return init, [draw(WRITE_SHAPE[:2] + (n,) + WRITE_SHAPE[3:])
+                  for _, n in WRITE_RUNS]
+
+
+def run_write(mesh=None):
+    """``dtensor.write_run_`` of each of WRITE_RUNS, in turn, into the KV
+    leaf, plain or placed by ``cache_specs`` (``mesh``), each under a
+    ``CostCounter`` -> (the leaf whole after each run, the collective
+    bytes the writes moved)."""
+    from repro_torch.launch import roofline
+    init, srcs = write_inputs()
+    cache = {"k": torch.from_numpy(init)}
+    if mesh is not None:
+        cache = dtensor.place(cache, specs.named(mesh, specs.cache_specs(
+            cache, mesh)))
+    outs, moved = [], 0
+    for (start, _), src in zip(WRITE_RUNS, srcs):
+        counter = roofline.CostCounter()
+        with counter:
+            dtensor.write_run_(cache["k"], 2, torch.tensor(start),
+                               torch.from_numpy(src))
+        moved += sum(counter.costs()[1].values())
+        outs.append(dtensor.plain(cache["k"]).numpy().copy())
+    return outs, moved
+
+
+def run_remat(kind, mesh=None):
+    """One SGD pod step (``robust=None``) of ``kind`` with ``remat`` on and
+    off, from the same init and batch, on a state placed by
+    ``param_specs`` (``mesh``) or plain -> {remat: whole params}."""
+    out = {}
+    for remat in (True, False):
+        cfg = KINDS[kind].replace(remat=remat)
+        fed = FedConfig(n_clients=C)
+        tc = TrainConfig(global_batch=GB, seq_len=S, lr=1e-2, warmup_steps=1,
+                         total_steps=4, optimizer="sgd")
+        params = transformer.init_transformer(
+            torch.Generator().manual_seed(0), cfg)
+        opt_init, _ = optimizers.make_optimizer(tc)
+        shardings = None if mesh is None else (
+            lambda st: specs.named(mesh, specs.param_specs(st, mesh=mesh)))
+        state = pod.init_pod_state(params, opt_init, C, fed,
+                                   torch.Generator().manual_seed(1),
+                                   shardings=shardings)
+        b = batches(cfg)[0]
+        if mesh is not None:
+            bsh = inputs.batch_shardings(b, mesh)
+            b = {k: bsh[k].local(v) for k, v in b.items()}
+        state, _ = pod.make_train_step(cfg, fed, tc)(state, b)
+        out[remat] = tree.map(lambda v: v.float().numpy(),
+                              dtensor.whole(state.params))
+    return out
+
+
 def _worker(rank, shape, cases, store_dir, out_q):
     try:
         torch.set_num_threads(1)
@@ -217,6 +335,9 @@ def _worker(rank, shape, cases, store_dir, out_q):
         mesh = mesh_mod.make_host_mesh(*shape)
         out_q.put((rank, {(k, c): (run_axes(c, mesh) if k == "axes"
                                    else run_tp(mesh) if k == "tp"
+                                   else run_serve(*c, mesh) if k == "serve"
+                                   else run_remat(c, mesh) if k == "remat"
+                                   else run_write(mesh) if k == "write"
                                    else run(k, c, mesh))
                           for k, c in cases}))
     except Exception:                   # reported by the test, not lost
