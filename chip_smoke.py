@@ -26,8 +26,10 @@ Phases, one line each (a failure raises, so the exit code is not 0):
               one-member and empty masks: the median bitwise its plain
               version, the empty mask exactly 0, and bitwise K2 under the
               same mask.  The flat wrappers K4a-c bitwise K1-K3 (the flat
-              tree path against the leafwise one, all four aggregators),
-              the two-stage scheme at G=2 against its plain path, and K3
+              tree path against the other, all four aggregators), a tree's
+              8 leaves through the segment table (``rp_*_seg``) bitwise
+              the one matrix they were cut from, timed beside concatenating
+              them first, the two-stage scheme at G=2 against its plain path, and K3
               and K6c at C=96 (six 32 x 32 output tiles a split).  Times
               by CUDA events, K3's and K6c's printed beside those of the
               design before the register micro-tiles (GRAM_BEFORE_MS) and,
@@ -343,8 +345,24 @@ Phases, one line each (a failure raises, so the exit code is not 0):
               and a placed cache bitwise the plain call.  Both children
               count zero kernel launches; their counts, summed by kernel,
               are each kernel's ``dryrun_launches``.
+  13. lint    the static analysis (``python -m repro_torch.analysis.lint
+              --all``) over its 14 entry points, in two child processes:
+              ``--device cpu`` (started before phase 11, beside it and
+              phase 12, joined here) and ``--device cuda`` (a child that
+              takes the card and loads the kernels beside phase 12 and
+              runs the linter after it, LINT_TIMEOUT).  Prints each
+              entry's status, its kernel launches by counter against the
+              launches it expects, each kernel's shared memory a block
+              against the card's opt-in limit, and the phase's seconds.
+              Fails on an error finding on either device, on an entry
+              whose set of (rule, severity) findings differs between the
+              two (notes, which hold what only the card checks, are not
+              compared), and on an entry expected to launch a kernel that
+              launched none.  The card's launches,
+              summed by kernel, are each kernel's ``lint_launches``.
 The last three lines are the nvidia-smi line, the kernels JSON and the
-result JSON.  ``python3 chip_smoke.py --kernels`` runs phases 1, 2, 2b and
+result JSON.  ``python3 chip_smoke.py --lint`` runs phase 13 alone.
+``python3 chip_smoke.py --kernels`` runs phases 1, 2, 2b and
 2c alone and ends with the nvidia-smi line and the kernels JSON (launches
 null), with no result line: the quick check of the kernels, and the way to
 time a parent commit's kernels (that commit's own script, run from a
@@ -617,6 +635,11 @@ DRYRUN_ANCHORS = (POD_ARCH, GRANITE)
 ANCHOR_CHUNK, ANCHOR_CHUNKS = 2, 2      # the replayed steps: chunk, chunks
 TP_SERVE_B, TP_SERVE_PROMPT, TP_SERVE_DECODE = 2, 64, 2
 DRYRUN_TIMEOUT = 600            # seconds for each of the phase's children
+
+# phase 13: the static analysis over its entry points, on the CPU (beside
+# phases 11-12) and on the card
+LINT_TIMEOUT = 180              # seconds for each of the phase's children
+LINT_ENTRIES = 14
 
 
 def bound(bytes_moved, ops, ops_per_s=FP32_OPS_PER_S):
@@ -1162,14 +1185,33 @@ def _k5_and_flat(cnn_sizes):
 
     g, c, n = SLICE_SHAPE
     x, m, w = _inputs(SLICE_SHAPE, 3, [[1.0] * c])
-    leaves = list(torch.split(x[0], cnn_sizes, dim=1))
+    # the tree's leaves, each its own tensor: they stream through the
+    # segment table (rp_*_seg), bitwise the one matrix they come from
+    leaves = [l.contiguous() for l in torch.split(x[0], cnn_sizes, dim=1)]
     for agg in ("fedavg", "trimmed_mean", "median", "krum"):
         cfg = FedConfig(n_clients=c, aggregator=agg)
         flat = rp.fused_aggregate_tree_flat(leaves, w[0], m[0], cfg)
         lead = rp.fused_aggregate_tree(leaves, w[0], m[0], cfg)
-        for i, (o, r) in enumerate(zip(flat, lead)):
+        whole = torch.split(rp.fused_pipeline(
+            x, w, m, **rp._pipeline_args(cfg))[0], cnn_sizes)
+        for i, (o, r, d) in enumerate(zip(flat, lead, whole)):
             _bitwise(f"fused_aggregate_tree_flat[{agg}] leaf {i}", o, r,
-                     "the leafwise path")
+                     "K1-K3's count")
+            _bitwise(f"fused_aggregate_tree[{agg}] leaf {i}", r, d,
+                     "the concatenated matrix")
+    cfg = FedConfig(n_clients=c, aggregator="trimmed_mean")
+    seg_ms = time_ms(lambda: rp.fused_aggregate_tree(leaves, w[0], m[0],
+                                                     cfg))
+    cat_ms = time_ms(lambda: rp.fused_pipeline(
+        torch.cat(leaves, 1)[None], w, m, **rp._pipeline_args(cfg)))
+    seg_dev = device_ms(lambda: rp.fused_aggregate_tree(leaves, w[0], m[0],
+                                                        cfg))
+    cat_dev = device_ms(lambda: rp.fused_pipeline(
+        torch.cat(leaves, 1)[None], w, m, **rp._pipeline_args(cfg)))
+    print(f"[kernels] tree aggregate, {len(leaves)} leaves {(c, n)} "
+          f"trimmed_mean: segment table {seg_ms:.4f} ms (device "
+          f"{seg_dev:.4f}), concatenated then one matrix {cat_ms:.4f} ms "
+          f"(device {cat_dev:.4f})")
     _bitwise("pairwise_sq_dists_blocked", rp.pairwise_sq_dists_blocked(x, m),
              rp.pairwise_sq_dists(x, m), "K3's distances")
     x2, m2, w2 = _inputs((2, c, n), 4, [[1.0] * c,
@@ -1184,7 +1226,9 @@ def _k5_and_flat(cnn_sizes):
                                  ref, exact=agg == "median"))
     torch.cuda.synchronize()
     print("[kernels] flat wrappers K4a-c bitwise K1-K3 (tree path, four "
-          "aggregators); two-stage at G=2 agrees with its plain path")
+          "aggregators); the tree's leaves through the segment table "
+          "bitwise their concatenation; two-stage at G=2 agrees with its "
+          "plain path")
 
     gw, cw, nw = GRAM_WIDE_SHAPE
     xg, mg, _ = _inputs(GRAM_WIDE_SHAPE, 96,
@@ -5284,6 +5328,143 @@ def _dryrun(smi, fake):
             "launches": launched}
 
 
+# --------------------------------------------------------------- phase 13 --
+def _lint_path(device):
+    d = SRC.parent / "build" / "lint"
+    d.mkdir(parents=True, exist_ok=True)
+    return d / f"{device}.json"
+
+
+def _lint_start():
+    """Starts phase 13's CPU pass (``python -m repro_torch.analysis.lint
+    --all --device cpu``): it needs no card, and runs beside phases 11 and
+    12 on one thread."""
+    import os
+    env = dict(os.environ, OMP_NUM_THREADS="1")
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(SRC)] + ([env["PYTHONPATH"]] if env.get("PYTHONPATH") else []))
+    return subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.analysis.lint", "--all",
+         "--device", "cpu", "--json", str(_lint_path("cpu"))],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env)
+
+
+def _lint_card_start():
+    """Starts phase 13's card pass (``--lint card``), which takes the card
+    and loads the kernels at once (beside phase 12) and runs the linter
+    when phase 13 tells it to."""
+    return subprocess.Popen([sys.executable, str(Path(__file__).resolve()),
+                             "--lint", "card"], stdin=subprocess.PIPE,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+
+
+def _lint_card_child():
+    """``python3 chip_smoke.py --lint card``: phase 13's card pass.  It
+    imports the linter, the modules its entries build from and what the op
+    log imports when it first starts, takes the card and loads the built
+    kernels, prints ``ready``, and at a line on its standard input runs
+    ``lint.main(["--all", "--device", "cuda", ...])``; its exit code is
+    the linter's."""
+    import importlib
+    import torch
+    from repro_torch.analysis import lint, traversal
+    from repro_torch.kernels import _build
+    for mod in ("core.fedfits", "core.async_engine", "core.pod",
+                "serve.engine", "launch.serve", "data.pipeline",
+                "optim.optimizers", "obs.counters"):
+        importlib.import_module(f"repro_torch.{mod}")
+    with traversal.OpLog():             # its imports (DTensor's planner,
+        pass                            # the flop counter): ~10 s there
+    torch.zeros(1, device=DEVICE)       # the context, before phase 12 ends
+    torch.cuda.synchronize()
+    _build.load()
+    print("ready", flush=True)
+    sys.stdin.readline()
+    return lint.main(["--all", "--device", "cuda", "--json",
+                      str(_lint_path("cuda"))])
+
+
+def _lint_join(proc, device):
+    try:
+        out, err = proc.communicate(timeout=LINT_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        raise
+    if proc.returncode != 0:
+        sys.stderr.write(out[-20000:] + err[-20000:])
+        raise RuntimeError(f"phase 13 ({device} pass) failed (exit "
+                           f"{proc.returncode})")
+    with open(_lint_path(device)) as f:
+        rep = json.load(f)
+    s = rep["summary"]
+    if (s["entries"], s["skipped"], s["errors"]) != (LINT_ENTRIES, 0, 0):
+        raise AssertionError(f"[lint] {device}: {s} (want {LINT_ENTRIES} "
+                             "entries, 0 skipped, 0 errors)")
+    return rep
+
+
+def _lint(smi, cpu, child):
+    """Phase 13: the card pass (its child told to go), then the CPU pass
+    joined; the same findings on both, and every expected kernel launched
+    on the card."""
+    t0 = time.perf_counter()
+    try:
+        if child.stdout.readline().strip() != "ready":
+            raise RuntimeError("phase 13's card child did not start")
+        waited = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        child.stdin.write("go\n")
+        child.stdin.flush()
+        card = _lint_join(child, "cuda")
+    except BaseException:
+        for proc in (cpu, child):
+            proc.kill()
+            proc.communicate()
+        raise
+    card_s = time.perf_counter() - t0
+    host = _lint_join(cpu, "cpu")
+    found = {d: {r["entry"]: sorted({(f["rule"], f["severity"])
+                                     for f in r["findings"]})
+                 for r in rep["results"]}
+             for d, rep in (("cuda", card), ("cpu", host))}
+    if found["cuda"] != found["cpu"]:
+        raise AssertionError(f"[lint] findings differ: card {found['cuda']}"
+                             f", CPU {found['cpu']}")
+    meta, totals = card["meta"], {}
+    for r in card["results"]:
+        name = r["entry"]
+        got = meta["launches"][name]
+        want = meta["expected_launches"][name] or {}
+        for k, n in got.items():
+            totals[k] = totals.get(k, 0) + n
+        silent = sorted(k for k, n in want.items() if n and not got.get(k))
+        if silent:
+            raise AssertionError(f"[lint] {name}: expected launches of "
+                                 f"{silent} and none ran on the card")
+        smem = ", ".join(f"{k} {b} B" if b is not None else f"{k} static"
+                         for k, b in meta["smem"][name]) or "no kernel"
+        captured = any(n.startswith("donation_audit: captured")
+                       for n in r["notes"])
+        print(f"[lint] {name}: {r['status']} on the card and the CPU, "
+              f"{len(r['findings'])} findings"
+              f"{', captured and replayed' if captured else ''}; launches "
+              f"{json.dumps(got, sort_keys=True)} (expected "
+              f"{json.dumps(want, sort_keys=True)}); shared memory a block "
+              f"{smem} of the card's opt-in {meta['smem_optin']} B "
+              f"(SMEM_LIMIT {meta['smem_limit']} B); "
+              f"{meta['seconds'][name]:.2f} s on the card")
+    print(f"[lint] phase 13: card pass {card_s:.1f} s from its go "
+          f"({sum(meta['seconds'].values()):.1f} s in the entries; the "
+          f"child started before phase 12, {waited:.1f} s waited here for "
+          f"it to be ready), CPU pass "
+          f"{sum(host['meta']['seconds'].values()):.1f} s in the entries, "
+          f"beside phases 11-12 | {smi}")
+    return {"seconds": card_s, "waited": waited, "launches": totals,
+            "findings": found["cuda"]}
+
+
 def main(argv=()):
     _import_port()
     import torch
@@ -5306,6 +5487,12 @@ def main(argv=()):
             return _dryrun_card_child()
         print(json.dumps({"dryrun": _dryrun(_smi(), _dryrun_start())},
                          default=float))
+        return 0
+    if "--lint" in argv:            # phase 13 alone; its card child
+        if "card" in argv:
+            return _lint_card_child()
+        print(json.dumps({"lint": _lint(_smi(), _lint_start(),
+                                        _lint_card_start())}))
         return 0
     if "--blocks" in argv:          # phase 10 alone, as _blocks runs it
         parts = [a for a in argv if a in ("models", "train")]
@@ -5361,11 +5548,14 @@ def main(argv=()):
         raise AssertionError("phase 10 did not time K1-K3 on granite's "
                              "buffer")
     fake = _dryrun_start()          # phase 12's dry-runs, beside 11
+    lint_cpu = _lint_start()        # phase 13's CPU pass, beside 11-12
     tp = _tp(smi)
     for got in tp["launches"].values():
         for name, n in got.items():
             counts[name] = counts.get(name, 0) + n
+    lint_card = _lint_card_start()  # phase 13's card child, waiting
     dry = _dryrun(smi, fake)
+    lint = _lint(smi, lint_cpu, lint_card)
     for entry in report:
         name = entry["name"]
         entry["launches"] = counts[name]
@@ -5385,7 +5575,9 @@ def main(argv=()):
         if by_path:
             entry["tp_launches"] = by_path
         entry["dryrun_launches"] = dry["launches"][name]
+        entry["lint_launches"] = lint["launches"].get(name, 0)
     print(f"[dryrun] phase 12: {dry['seconds']:.1f} s")
+    print(f"[lint] phase 13: {lint['seconds']:.1f} s")
     print(smi)
     print(json.dumps({"kernels": report}))
     print(json.dumps({"ok": True, "device": {

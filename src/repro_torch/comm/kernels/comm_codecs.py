@@ -285,6 +285,6 @@ def fused_dequant_aggregate_sharded(enc, layout, weights, mask, cfg, mesh, *,
     outs = [o[0] for o in outs]
     empty = q_sh.new_empty(0, dtype=torch.float32)
     out_sh = outs.pop(0) if cols.sh_sizes else empty
-    out = cols.gather(out_sh, outs[0] if outs else empty)
-    return tree.map(lambda o, l: o.to(l.dtype), tree.row_views(out, like),
-                    like)
+    rows = cols.gather(out_sh, outs[0] if outs else empty)
+    return tree.unflatten(like, [o.view(l.shape).to(l.dtype)
+                                 for o, l in zip(rows, tree.leaves(like))])

@@ -306,7 +306,8 @@ def aggregate_tp(split, whole, weights, mask, cfg, mesh):
     for cols, n_sh, n_rep in mats:
         out_sh = next(outs) if n_sh else split.new_empty(0)
         out_rep = next(outs) if n_rep else split.new_empty(0)
-        res.append(cols.gather(out_sh, out_rep))
+        rows = cols.gather(out_sh, out_rep)
+        res.append(rows[0] if len(rows) == 1 else torch.cat(rows))
     empty = split.new_empty(0)
     return (res.pop(0) if split.shape[1] else empty,
             res.pop(0) if whole.shape[1] else empty)
@@ -328,16 +329,13 @@ def aggregate_sharded(updates, weights, mask, cfg, mesh, axes=None, *,
     order (the pod step's grads, streamed in place).  ``weights`` and
     ``mask`` are the whole (C,) columns.  Each leaf's flattened axis shards
     over the W ranks where its size divides W
-    (``specs.client_flat_specs``): one all_to_all turns the rows into (C,
-    n/W) column shards, every rank streams only its shard through K1 and
-    K2 (K3), only the (C,) cosine partials and Krum's (C, C) Gram cross
-    ranks (one all-reduce each), and the (N,) result is all-gathered.
-    Leaves that do not split stay whole on every rank and count once, on
-    the first.  Returns the aggregate, shaped like ``like`` (default:
-    ``updates`` without its client axis), each leaf in its dtype.  Equal to
-    ``aggregate`` up to the order of the cross-rank sums; at W = 1, with
-    every leaf split, bitwise."""
-    from repro_torch.kernels import robust_pipeline as rp
+    (``specs.client_flat_specs``): the reshard (``ColumnShards.to_columns``:
+    one all_to_all at W > 1) turns the rows into (C, n/W) column shards,
+    and the body (``aggregate_columns``) aggregates them.  Returns the
+    aggregate, shaped like ``like`` (default: ``updates`` without its
+    client axis), each leaf in its dtype.  Equal to ``aggregate`` up to
+    the order of the cross-rank sums; at W = 1, with every leaf split,
+    bitwise."""
     from repro_torch.sharding import collectives, specs
 
     sub = mesh.over(shard_axes(mesh, axes))
@@ -348,19 +346,37 @@ def aggregate_sharded(updates, weights, mask, cfg, mesh, axes=None, *,
     _, flags = specs.client_flat_specs(sizes, sub, sub.axis_names)
     cols = collectives.ColumnShards(sizes, flags, sub)
     sh, rep = cols.to_columns(updates.float())
-    own = sub.rank == 0
+    return aggregate_columns(sh, rep, cols, weights, mask, cfg, like)
+
+
+def aggregate_columns(sh, rep, cols, weights, mask, cfg, like):
+    """The body of ``aggregate_sharded``, the counterpart of the JAX
+    package's ``shard_map``: its input is the layout the reference's
+    ``with_sharding_constraint`` asks of the producer.  ``sh`` (C, sum
+    ``cols.sh_sizes``) holds every client's rows of this rank's column
+    block of each split leaf, ``rep`` (C, sum ``cols.rep_sizes``) the
+    leaves that stay whole.  Every rank streams only its shard through K1
+    and K2 (K3); only the (C,) cosine partials and Krum's (C, C) Gram
+    cross ranks (one all-reduce each), the whole leaves counting once, on
+    the first rank; and each split leaf's aggregated block is all-gathered
+    into its own (n,) row (``ColumnShards.gather``: no concatenation).
+    Returns the aggregate shaped like ``like``, each leaf in its dtype."""
+    from repro_torch.kernels import robust_pipeline as rp
+    from repro_torch.sharding import collectives
+
+    own = cols.mesh.rank == 0
     parts = [(x[None], c) for x, c in ((sh, True), (rep, own))
              if x.shape[1]]
     outs = rp.fused_pipeline_sharded(
         [x for x, _ in parts], weights[None], mask[None],
         counted=[c for _, c in parts],
-        reduce=lambda t: collectives.all_reduce_sum(t, sub),
+        reduce=lambda t: collectives.all_reduce_sum(t, cols.mesh),
         **rp._pipeline_args(cfg))
     outs = [o[0] for o in outs]
     out_sh = outs.pop(0) if sh.shape[1] else sh.new_empty(0)
-    out = cols.gather(out_sh, outs[0] if outs else sh.new_empty(0))
-    return tree.map(lambda o, l: o.to(l.dtype), tree.row_views(out, like),
-                    like)
+    rows = cols.gather(out_sh, outs[0] if outs else sh.new_empty(0))
+    return tree.unflatten(like, [o.view(l.shape).to(l.dtype)
+                                 for o, l in zip(rows, tree.leaves(like))])
 
 
 def two_stage_ref(slot_updates, slot_weights, slot_masks, cfg):

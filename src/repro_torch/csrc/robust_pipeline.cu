@@ -7,7 +7,10 @@
 //   rp_combine <- gated_combine_leafwise         (K2: mean | trimmed | median)
 //   rp_gram    <- pairwise_sq_dists_leafwise     (K3: Gram matrix X X^T)
 // The kernels themselves are in robust_pipeline.cuh, shared with K6
-// (comm_codecs.cu); these entry points read a dense fp32 (G, C, N) matrix.
+// (comm_codecs.cu); these entry points read a dense fp32 (G, C, N) matrix,
+// and the *_seg ones the same matrix as L fp32 leaves side by side (a tree's
+// leaves, each (G, C, n_l), with no copy into one matrix): the same kernels,
+// plan and sums, so bitwise the dense entry points on the concatenation.
 //
 // Bound at the main path's shape (G=1, C=16, N=421,642): each kernel reads the
 // 27.0 MB matrix once, about 8 us at 3.35 TB/s; the rank network's C^2 compares
@@ -47,6 +50,49 @@ int rp_gram(const float* x, float* part, float* out, int G, int C, int N, int ch
             void* stream) {
   return launch_gram(DenseRows{x, N}, part, out, G, C, N, chunk,
                      (cudaStream_t)stream);
+}
+
+// seg[0 .. L-1] the leaves' device pointers, off[0 .. L] their first columns
+// (off[0] = 0, off[L] = N), both host arrays read here; L <= kMaxSegs.
+static int seg_rows(const float* const* seg, const int* off, int L, int N,
+                    SegRows* s) {
+  if (L < 1 || L > kMaxSegs || off[0] != 0 || off[L] != N)
+    return (int)cudaErrorInvalidValue;
+  for (int l = 0; l < L; ++l) {
+    if (off[l + 1] <= off[l]) return (int)cudaErrorInvalidValue;
+    s->seg[l] = seg[l];
+    s->off[l] = off[l];
+  }
+  s->off[L] = N;
+  s->L = L;
+  return 0;
+}
+
+int rp_pass1_seg(const float* const* seg, const int* off, int L,
+                 const float* mask, float* part, float* out, int G, int C,
+                 int N, int nblk, void* stream) {
+  SegRows s;
+  const int err = seg_rows(seg, off, L, N, &s);
+  if (err) return err;
+  return launch_pass1(s, mask, part, out, G, C, N, nblk, (cudaStream_t)stream);
+}
+
+int rp_combine_seg(const float* const* seg, const int* off, int L,
+                   const float* mask, const float* w, float* out, int G, int C,
+                   int N, int cols, int mode, float trim_frac, void* stream) {
+  SegRows s;
+  const int err = seg_rows(seg, off, L, N, &s);
+  if (err) return err;
+  return launch_combine(s, mask, w, out, G, C, N, cols, mode, trim_frac,
+                        (cudaStream_t)stream);
+}
+
+int rp_gram_seg(const float* const* seg, const int* off, int L, float* part,
+                float* out, int G, int C, int N, int chunk, void* stream) {
+  SegRows s;
+  const int err = seg_rows(seg, off, L, N, &s);
+  if (err) return err;
+  return launch_gram(s, part, out, G, C, N, chunk, (cudaStream_t)stream);
 }
 
 }  // extern "C"

@@ -4,13 +4,17 @@
 // The kernels are templated on a row source, which says how element (row r,
 // column col) of the (G*C, N) client matrix is read:
 //   DenseRows  fp32 rows, one load                (K1-K3, robust_pipeline.cu)
+//   SegRows    fp32 leaves side by side, each its (K1-K3 on a tree,
+//              own (G*C, n_l) matrix, found       robust_pipeline.cu)
+//              through the segment table
 //   QuantRows  int8 codes times their fp32 block  (K6a-c, comm_codecs.cu)
 //              scale, found through the leaf table;
 //              a masked-out row reads as 0
 // Everything after the load (the rank networks, the pass-1 partial sums, the
 // combine's three modes, gram_partials, reduce_partials) is one copy.  So K6
 // on (codes, scales, mask) is bitwise K1-K3 on the fp32 matrix
-// where(mask, q * s, 0), by construction.
+// where(mask, q * s, 0), and K1-K3 on a tree's leaves bitwise K1-K3 on their
+// concatenation, by construction.
 //
 // Every kernel streams its matrix once.  On the TPU the grid runs in order and
 // (C,) accumulators carry across steps; here blocks run in parallel, so each
@@ -105,6 +109,65 @@ struct DenseRows {
     load_vec<V>(r, col, sc, v);
   }
   bool aligned(int V) const { return (uintptr_t)x % (4 * V) == 0; }
+};
+
+// fp32 leaves side by side: column col of the (G*C, N) matrix lies in leaf l
+// (off[l] <= col < off[l+1]), a contiguous (G*C, off[l+1] - off[l]) matrix
+// at seg[l].  The table travels in the kernel's parameters (no copy to the
+// device, so a launch can be captured in a CUDA graph), L <= kMaxSegs.  A
+// thread's V columns are one vector load where they lie in one leaf and its
+// row is aligned to the vector, else V scalar loads (a leaf of odd width
+// shifts the alignment from row to row): the values the concatenated matrix
+// holds either way.
+constexpr int kMaxSegs = 64;
+struct SegRows {
+  static constexpr bool kAsync = false;
+  const float* seg[kMaxSegs];
+  int off[kMaxSegs + 1];
+  int L;
+  // the leaf of column col: the last l with off[l] <= col
+  __device__ __forceinline__ int scale_col(int col) const {
+    int lo = 0, hi = L - 1;
+    while (lo < hi) {
+      const int mid = (lo + hi + 1) >> 1;
+      if (off[mid] <= col) lo = mid; else hi = mid - 1;
+    }
+    return lo;
+  }
+  __device__ __forceinline__ float value(size_t r, int col, int l) const {
+    return __ldg(seg[l] + r * (size_t)(off[l + 1] - off[l]) + (col - off[l]));
+  }
+  __device__ __forceinline__ float load(size_t r, int col, int l) const {
+    return value(r, col, l);
+  }
+  __device__ __forceinline__ bool live(size_t) const { return true; }
+  template <int V>
+  __device__ __forceinline__ void load_vec(size_t r, int col, const int* sc,
+                                           float* v) const {
+    const int l = sc[0];
+    const float* p = seg[l] + r * (size_t)(off[l + 1] - off[l]) + (col - off[l]);
+    if constexpr (V > 1) {
+      if (sc[V - 1] == l && (uintptr_t)p % (4 * V) == 0) {
+        if constexpr (V == 4) {
+          const float4 t = *reinterpret_cast<const float4*>(p);
+          v[0] = t.x; v[1] = t.y; v[2] = t.z; v[3] = t.w;
+        } else {
+          const float2 t = *reinterpret_cast<const float2*>(p);
+          v[0] = t.x; v[1] = t.y;
+        }
+        return;
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < V; ++k) v[k] = value(r, col + k, sc[k]);
+  }
+  template <int V>
+  __device__ __forceinline__ void load_vec(size_t r, int col, const int* sc,
+                                           bool, float* v) const {
+    load_vec<V>(r, col, sc, v);
+  }
+  // the vector path is picked a load at a time, above
+  bool aligned(int) const { return true; }
 };
 
 // int8 codes q (G*C, N) and fp32 scales s (G*C, NQ), laid out leaf after leaf

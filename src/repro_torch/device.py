@@ -2,10 +2,11 @@
 
 ``resolve(None)`` means the card: it raises when CUDA is absent instead of
 carrying on on the CPU.  The CPU is used only when the caller asks for it
-(the tests do).  On the card the fp32 numerics are pinned: cuDNN's default
-TF32 convolutions would move the fitness scores of the reference fp32
-round and flip threshold decisions, so both TF32 switches are turned off
-here, at the entry point.
+(the tests do).  The fp32 numerics are pinned: cuDNN's default TF32
+convolutions would move the fitness scores of the reference fp32 round on
+the card and flip threshold decisions, so both TF32 switches are turned
+off here, at the entry point, on either device (on the CPU they change no
+result, and the static analysis audits the same switches there).
 """
 from __future__ import annotations
 
@@ -19,10 +20,10 @@ def resolve(device=None) -> torch.device:
             raise RuntimeError(
                 "repro_torch runs on a CUDA device by default and none is "
                 "available; pass device='cpu' to run on the CPU")
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {dev}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     return dev
 
 

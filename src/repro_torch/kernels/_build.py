@@ -31,6 +31,11 @@ _SIGNATURES = {
     "rp_combine": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
     # x, part, out, G, C, N, chunk, stream
     "rp_gram": [_P, _P, _P, _I, _I, _I, _I, _P],
+    # the same over L leaves side by side: seg (L pointers) and off (L + 1
+    # ints), host arrays, then L and the dense entry point's arguments
+    "rp_pass1_seg": [_P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _P],
+    "rp_combine_seg": [_P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
+    "rp_gram_seg": [_P, _P, _I, _P, _P, _I, _I, _I, _I, _P],
     # q, s, table, mask, part, out, G, C, N, NQ, L, qblk, nblk, stream
     "cc_pass1": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     # q, s, table, mask, w, out, G, C, N, NQ, L, qblk, cols, mode, trim_frac,

@@ -147,6 +147,23 @@ def topd_pallas_plain(g, d, blk=BLK):
     return _merge(_order_key(v), gi, d)
 
 
+THREADS = 256           # K7: threads a CTA (csrc/population_select.cu)
+SURVIVORS = 2048        # K7: the shared survivors of a bound
+SHARED_STATIC = 3120    # K7: sizeof(Shared), its static shared memory
+
+
+def smem_bytes(blk, d):
+    """K7's shared memory a CTA at (blk, d), dynamic and static: the
+    block's keys as float4s (padded to THREADS of them), the survivors and
+    a power of two >= d of 8-byte slots, and the static ``Shared`` struct.
+    ``lib.ps_topd_smem`` computes the same in the CUDA source."""
+    nq = -(-(-(-blk // 4)) // THREADS) * THREADS
+    n2 = 1
+    while n2 < d:
+        n2 <<= 1
+    return 16 * nq + 8 * (SURVIVORS + n2) + SHARED_STATIC
+
+
 _COUNTERS = {}          # (device, stream) -> the merge's completion counter
 
 

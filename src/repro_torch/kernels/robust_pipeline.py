@@ -12,10 +12,14 @@
            distances and the O(G*C^2) Krum scoring stay in torch, as they
            stay in jnp in the JAX package.
 
-Layout: the kernels take one (G, C, N) fp32 matrix.  The round writes each
-client's update straight into per-leaf views of one preallocated (C, N)
-buffer, so there is no concatenate and no segment table (the TPU segment
-table exists only to avoid XLA's concatenate).
+Layout: the kernels take one (G, C, N) fp32 matrix, or a tree's leaves side
+by side, each its own (G, C, n_l) fp32 matrix, through a segment table
+(``SegRows`` in ``csrc/robust_pipeline.cuh``; at most ``MAX_SEGS`` leaves).
+The round writes each client's update straight into per-leaf views of one
+preallocated (C, N) buffer, which streams as one matrix; a tree of several
+leaves streams in place through the table, with no concatenate, as the TPU
+segment table avoids XLA's.  The kernels, their plan and their sums are the
+same either way, so a tree's aggregate is bitwise that of its concatenation.
 
 Flat wrappers (K4a-c): the JAX package keeps a second, pre-flattened form of
 the three kernels (``cosine_gate_partials``, ``gated_combine``,
@@ -46,6 +50,7 @@ GRAM_BLOCKS_PER_SM = 4  # K3/K6c: blocks to aim for, 4 a SM of the card
 PLAIN_CHUNK = 8192      # plain versions: columns per step (bounds the
                         # (C, C, chunk) compare tensor)
 SMEM_LIMIT = 232448     # bytes of shared memory a Hopper block may use
+MAX_SEGS = 64           # leaves of one launch (kMaxSegs in the .cuh)
 MODES = {"mean": 0, "trimmed": 1, "median": 2}
 
 
@@ -53,16 +58,59 @@ def _cdiv(a, b):
     return -(-a // b)
 
 
+def _segs(x):
+    """The leaves of ``x``: one (G, C, N) matrix, or a list of (G, C, n_l)
+    leaves side by side."""
+    return list(x) if isinstance(x, (list, tuple)) else [x]
+
+
+def _offsets(segs):
+    """Each leaf's first column in the concatenation, and N last."""
+    off = [0]
+    for t in segs:
+        off.append(off[-1] + t.shape[-1])
+    return off
+
+
+def dims(x):
+    """(G, C, N) of ``x`` (``_segs``): N sums the leaves' widths."""
+    segs = _segs(x)
+    return (*segs[0].shape[:-1], _offsets(segs)[-1])
+
+
 def _check_cuda(x, *small):
-    if x.dtype != torch.float32:
-        raise TypeError(f"CUDA kernels take float32 updates, got {x.dtype}")
-    if not x.is_contiguous():
-        raise ValueError("CUDA kernels take a contiguous (G, C, N) matrix")
-    if x.dim() != 3 or x.shape[-1] >= 2 ** 31:
-        raise ValueError(f"CUDA kernels take (G, C, N < 2^31), got "
-                         f"{tuple(x.shape)}")
-    return [s.to(device=x.device, dtype=torch.float32).contiguous()
-            for s in small]
+    segs = _segs(x)
+    for s in segs:
+        if s.dtype != torch.float32:
+            raise TypeError(f"CUDA kernels take float32 updates, got "
+                            f"{s.dtype}")
+        if not s.is_contiguous():
+            raise ValueError("CUDA kernels take contiguous (G, C, n) "
+                             "matrices")
+        if s.dim() != 3 or s.shape[:2] != segs[0].shape[:2]:
+            raise ValueError(f"CUDA kernels take (G, C, n) leaves, got "
+                             f"{[tuple(t.shape) for t in segs]}")
+    if dims(x)[-1] >= 2 ** 31:
+        raise ValueError(f"CUDA kernels take N < 2^31, got {dims(x)}")
+    if len(segs) > MAX_SEGS:
+        raise ValueError(f"{len(segs)} leaves: one launch takes at most "
+                         f"{MAX_SEGS}")
+    return [t.to(device=segs[0].device, dtype=torch.float32).contiguous()
+            for t in small]
+
+
+class _Table:
+    """The segment table of leaves ``segs`` for a *_seg entry point: host
+    arrays of their pointers and first columns, alive while it is."""
+
+    def __init__(self, segs):
+        import ctypes
+        off = _offsets(segs)
+        self.ptrs = (ctypes.c_void_p * len(segs))(*[t.data_ptr()
+                                                    for t in segs])
+        self.off = (ctypes.c_int * len(off))(*off)
+        self.args = (ctypes.addressof(self.ptrs), ctypes.addressof(self.off),
+                     len(segs))
 
 
 def _launch(fn, *args):
@@ -169,15 +217,30 @@ def check_pass1_smem(c, n):
 
 
 def _dispatch(x):
-    """True where the kernel launches (a CUDA tensor), False where the
-    plain version runs (a CPU one); raises on a fake tensor or another
-    device (``device.plain_route``)."""
-    return not device.plain_route(x)
+    """True where the kernel launches (CUDA tensors), False where the plain
+    version runs (CPU ones); raises on a fake tensor or another device
+    (``device.plain_route``)."""
+    return not device.plain_route(_segs(x)[0])
 
 
 # ---------------------------------------------------------------------------
 # plain versions (the CPU path, and the card's yardstick of correctness)
 # ---------------------------------------------------------------------------
+
+def _col_blocks(x, chunk):
+    """(start, block) over the columns of ``x`` (``_segs``) in steps of
+    ``chunk``: a (G, C, <= chunk) view of one leaf, or, where a step spans
+    leaves, their pieces joined (at most ``chunk`` columns).  The blocks
+    hold what the concatenated matrix's would, so the sums over them are
+    its sums."""
+    segs = _segs(x)
+    off = _offsets(segs)
+    for s in range(0, off[-1], chunk):
+        e = min(s + chunk, off[-1])
+        parts = [t[:, :, max(s, a) - a:min(e, b) - a]
+                 for t, a, b in zip(segs, off, off[1:]) if a < e and b > s]
+        yield s, parts[0] if len(parts) == 1 else torch.cat(parts, -1)
+
 
 def _median_cols(x, m, n):
     """Masked coordinate median of a fp32 (G, C, n_cols) block, as the TPU
@@ -192,14 +255,15 @@ def _median_cols(x, m, n):
 
 
 def cosine_gate_partials_plain(x, mask, *, chunk=PLAIN_CHUNK):
-    G, C, N = x.shape
+    G, C, N = dims(x)
+    dev = _segs(x)[0].device
     m = mask.float()[:, :, None]
     n = m.sum(1, keepdim=True)
-    dots = torch.zeros(G, C, device=x.device)
-    sqn = torch.zeros(G, C, device=x.device)
-    refsq = torch.zeros(G, 1, device=x.device)
-    for s in range(0, N, chunk):
-        xc = x[:, :, s:s + chunk].float()
+    dots = torch.zeros(G, C, device=dev)
+    sqn = torch.zeros(G, C, device=dev)
+    refsq = torch.zeros(G, 1, device=dev)
+    for _, xc in _col_blocks(x, chunk):
+        xc = xc.float()
         med = _median_cols(xc, m, n)
         dots += (xc * med).sum(-1)
         sqn += (xc * xc).sum(-1)
@@ -209,13 +273,13 @@ def cosine_gate_partials_plain(x, mask, *, chunk=PLAIN_CHUNK):
 
 def gated_combine_plain(x, gated_mask, weights, *, mode, trim_frac=0.2,
                         chunk=PLAIN_CHUNK):
-    G, C, N = x.shape
+    G, C, N = dims(x)
     m = gated_mask.float()[:, :, None]
     w = weights.float()[:, :, None]
     n = m.sum(1, keepdim=True)
-    out = torch.empty(G, N, device=x.device)
-    for s in range(0, N, chunk):
-        xc = x[:, :, s:s + chunk].float()
+    out = torch.empty(G, N, device=_segs(x)[0].device)
+    for s, xc in _col_blocks(x, chunk):
+        xc = xc.float()
         if mode == "mean":
             r = (xc * w).sum(1)
         elif mode == "median":
@@ -227,15 +291,15 @@ def gated_combine_plain(x, gated_mask, weights, *, mode, trim_frac=0.2,
             r = (xc * keep).sum(1) / torch.clamp(n - 2.0 * t, min=1.0)[:, 0]
         else:
             raise ValueError(mode)
-        out[:, s:s + chunk] = r
+        out[:, s:s + xc.shape[-1]] = r
     return out
 
 
 def pairwise_gram_plain(x, *, chunk=PLAIN_CHUNK):
-    G, C, N = x.shape
-    gram = torch.zeros(G, C, C, device=x.device)
-    for s in range(0, N, chunk):
-        xc = x[:, :, s:s + chunk].float()
+    G, C, N = dims(x)
+    gram = torch.zeros(G, C, C, device=_segs(x)[0].device)
+    for _, xc in _col_blocks(x, chunk):
+        xc = xc.float()
         gram += xc @ xc.transpose(1, 2)
     return gram
 
@@ -257,59 +321,74 @@ def launch_pass1(fn, ptrs, dims, device):
     return out[:, :C], out[:, C:2 * C], out[:, 2 * C:]
 
 
+def _source(x, dense, seg):
+    """(entry point, leading arguments) that read ``x`` (``_segs``): the
+    dense one on one matrix, the *_seg one through a segment table (held
+    in the arguments' owner, returned third)."""
+    segs = _segs(x)
+    lib = _build.load()
+    if len(segs) == 1:
+        return getattr(lib, dense), (segs[0].data_ptr(),), None
+    table = _Table(segs)
+    return getattr(lib, seg), table.args, table
+
+
 def _pass1(x, mask, wrapper):
-    """rp_pass1 on a CUDA tensor (counted on ``wrapper``), the plain
-    version on a CPU tensor."""
+    """rp_pass1 on CUDA tensors (counted on ``wrapper``), the plain
+    version on CPU ones."""
     if not _dispatch(x):
         return cosine_gate_partials_plain(x, mask)
     (mask,) = _check_cuda(x, mask)
-    out = launch_pass1(_build.load().rp_pass1, (x.data_ptr(), mask.data_ptr()),
-                       x.shape, x.device)
+    fn, args, _table = _source(x, "rp_pass1", "rp_pass1_seg")
+    out = launch_pass1(fn, (*args, mask.data_ptr()), dims(x),
+                       mask.device)
     wrapper.launches += 1
     return out
 
 
 def _combine(x, gated_mask, weights, mode, trim_frac, wrapper):
-    """rp_combine on a CUDA tensor (counted by mode on ``wrapper``), the
-    plain version on a CPU tensor."""
+    """rp_combine on CUDA tensors (counted by mode on ``wrapper``), the
+    plain version on CPU ones."""
     if mode not in MODES:
         raise ValueError(mode)
     if not _dispatch(x):
         return gated_combine_plain(x, gated_mask, weights, mode=mode,
                                    trim_frac=trim_frac)
     gated_mask, weights = _check_cuda(x, gated_mask, weights)
-    G, C, N = x.shape
+    G, C, N = dims(x)
     check_combine_smem(C, N, mode)
-    out = torch.empty(G, N, device=x.device)
-    lib = _build.load()
-    _launch(lib.rp_combine, x.data_ptr(), gated_mask.data_ptr(),
-            weights.data_ptr(), out.data_ptr(), G, C, N, COMBINE_THREADS,
-            MODES[mode], float(trim_frac))
+    out = torch.empty(G, N, device=weights.device)
+    fn, args, _table = _source(x, "rp_combine", "rp_combine_seg")
+    _launch(fn, *args, gated_mask.data_ptr(), weights.data_ptr(),
+            out.data_ptr(), G, C, N, COMBINE_THREADS, MODES[mode],
+            float(trim_frac))
     wrapper.launches[mode] += 1
     return out
 
 
 def _gram(x, wrapper):
-    """rp_gram on a CUDA tensor (counted on ``wrapper``), the plain version
-    on a CPU tensor."""
+    """rp_gram on CUDA tensors (counted on ``wrapper``), the plain version
+    on CPU ones."""
     if not _dispatch(x):
         return pairwise_gram_plain(x)
     _check_cuda(x)
-    G, C, N = x.shape
-    nsplit, chunk = gram_split(G, C, N, sm_count(x.device))
-    part = torch.empty(G, nsplit, C * C, device=x.device)
-    out = torch.empty(G, C, C, device=x.device)
-    lib = _build.load()
-    _launch(lib.rp_gram, x.data_ptr(), part.data_ptr(), out.data_ptr(),
-            G, C, N, chunk)
+    G, C, N = dims(x)
+    dev = _segs(x)[0].device
+    nsplit, chunk = gram_split(G, C, N, sm_count(dev))
+    part = torch.empty(G, nsplit, C * C, device=dev)
+    out = torch.empty(G, C, C, device=dev)
+    fn, args, _table = _source(x, "rp_gram", "rp_gram_seg")
+    _launch(fn, *args, part.data_ptr(), out.data_ptr(), G, C, N, chunk)
     wrapper.launches += 1
     return out
 
 
 def cosine_gate_partials(x, mask):
-    """K1.  x: (G, C, N), mask: (G, C) 0/1 -> (dots (G, C), sqnorms (G, C),
-    refsq (G, 1)): the per-client cosine partials against the masked
-    coordinate median, in one read of x.
+    """K1.  x: (G, C, N), or a list of (G, C, n_l) leaves side by side
+    (read in place through a segment table, as their concatenation),
+    mask: (G, C) 0/1 -> (dots (G, C), sqnorms (G, C), refsq (G, 1)): the
+    per-client cosine partials against the masked coordinate median, in
+    one read of x.
 
     Replaces ``repro/kernels/robust_pipeline.py:cosine_gate_partials_leafwise``.
     Bound: bytes (one read of x; the C^2 compares per column stay under
@@ -325,9 +404,9 @@ def cosine_gate_partials(x, mask):
 
 
 def gated_combine(x, gated_mask, weights, *, mode, trim_frac=0.2):
-    """K2.  x: (G, C, N); gated_mask: (G, C); weights: (G, C), normalised,
-    read by ``mean`` only -> (G, N) fp32.  ``mode``: mean | trimmed |
-    median.
+    """K2.  x: (G, C, N) or leaves side by side, as K1's; gated_mask: (G,
+    C); weights: (G, C), normalised, read by ``mean`` only -> (G, N) fp32.
+    ``mode``: mean | trimmed | median.
 
     Replaces ``repro/kernels/robust_pipeline.py:gated_combine_leafwise``.
     Bound: bytes (one read of x, one write of the row).  Design: a thread
@@ -340,8 +419,8 @@ def gated_combine(x, gated_mask, weights, *, mode, trim_frac=0.2):
 
 
 def pairwise_gram(x):
-    """K3.  x: (G, C, N) -> the Gram matrix X X^T (G, C, C) in fp32 FMA
-    (not TF32).
+    """K3.  x: (G, C, N) or leaves side by side, as K1's -> the Gram
+    matrix X X^T (G, C, C) in fp32 FMA (not TF32).
 
     Replaces ``repro/kernels/robust_pipeline.py:pairwise_sq_dists_leafwise``
     (its Gram accumulation; the distances are formed in torch).  Bound:
@@ -540,8 +619,9 @@ def fused_pipeline_sharded(parts, weights, mask, *, counted, reduce,
 def fused_pipeline(x, weights, mask, *, aggregator="trimmed_mean",
                    trim_frac=0.2, cosine_thresh=-0.5, krum_f=1,
                    krum_multi_m=1, flat=False):
-    """Full Eq.-11 pipeline over a cohort batch x (G, C, N) with weights
-    and mask (G, C) -> (G, N) fp32 aggregated rows, through K1-K3
+    """Full Eq.-11 pipeline over a cohort batch x (G, C, N), or its leaves
+    side by side (K1's ``x``), with weights and mask (G, C) -> (G, N) fp32
+    aggregated rows, through K1-K3
     (``krum_multi_m``: multi-Krum's count of averaged winners).  With
     ``flat`` the launches are counted on the flat wrappers K4a-c (the
     counterpart of ``repro/kernels/robust_pipeline.py:fused_pipeline``):
@@ -579,16 +659,23 @@ def _cross_slot(per, slot_masks):
     return torch.tensordot(cw, per, dims=1)
 
 
+def _leaf_matrices(updates, lead):
+    """Each leaf of ``updates`` (``lead`` = 1: (C, ...), 2: (G, C, ...)) as
+    a fp32 (G, C, n) matrix: a view of a contiguous fp32 leaf, a cast
+    copy of another dtype."""
+    return [l.reshape(*((1,) * (2 - lead)), *l.shape[:lead], -1).float()
+            .contiguous() for l in tree.leaves(updates)]
+
+
 def fused_aggregate_tree(updates, weights, mask, cfg, *, flat=False):
     """Single-cohort Eq.-11 aggregation of a tree of (C, ...) leaves of any
-    float dtype; the counterpart of ``aggregation.aggregate_ref``.  A
-    one-leaf tree of a contiguous fp32 (C, N) buffer streams in place;
-    several leaves are concatenated into one fp32 matrix first.  Each
-    output leaf is cast to its dtype once.  ``flat``: as in
-    ``fused_pipeline``."""
-    out = fused_pipeline(tree.flatten_rows(updates).float()[None],
-                         weights[None], mask[None], flat=flat,
-                         **_pipeline_args(cfg))[0]
+    float dtype; the counterpart of ``aggregation.aggregate_ref``.  The
+    leaves stream in place, side by side (the round's one-leaf (C, N)
+    buffer as one matrix, several leaves through the segment table), so
+    the result is bitwise that of their concatenation.  Each output leaf
+    is cast to its dtype once.  ``flat``: as in ``fused_pipeline``."""
+    out = fused_pipeline(_leaf_matrices(updates, 1), weights[None],
+                         mask[None], flat=flat, **_pipeline_args(cfg))[0]
     return _split(out, updates, 1)
 
 
@@ -601,12 +688,12 @@ def fused_aggregate_tree_flat(updates, weights, mask, cfg):
 def fused_two_stage_tree(slot_updates, slot_weights, slot_masks, cfg, *,
                          flat=False):
     """Cohort-batched two-stage scheme over a tree of (G, C, ...) leaves:
-    every cohort rides the G axis of one K1-K3 pipeline, then the
-    cross-slot mean weighted by cohort size, in fp32, one cast a leaf.
-    ``flat``: as in ``fused_pipeline``."""
-    per = fused_pipeline(tree.flatten_rows(slot_updates, 2).float(),
-                         slot_weights, slot_masks, flat=flat,
-                         **_pipeline_args(cfg))
+    every cohort rides the G axis of one K1-K3 pipeline (the leaves side
+    by side, as in ``fused_aggregate_tree``), then the cross-slot mean
+    weighted by cohort size, in fp32, one cast a leaf.  ``flat``: as in
+    ``fused_pipeline``."""
+    per = fused_pipeline(_leaf_matrices(slot_updates, 2), slot_weights,
+                         slot_masks, flat=flat, **_pipeline_args(cfg))
     return _split(_cross_slot(per, slot_masks), slot_updates, 2)
 
 

@@ -227,6 +227,9 @@ def lower_decode(cfg, shape_name, mesh, variant="baseline"):
     return low, params_s
 
 
+PROBE_DEPTHS = (2, 4)
+
+
 def _kind_probe_cfg(cfg, block_kind, n_layers_probe):
     """Probe variant: ``n_layers_probe`` layers of ONE block kind.
 
@@ -236,14 +239,19 @@ def _kind_probe_cfg(cfg, block_kind, n_layers_probe):
 
         cost_full = base + sum_kind n_kind * delta_kind,
 
-    base = 2*cost(kind, 1) - cost(kind, 2) (embed / head / loss / fitness,
-    the same for every kind), delta_kind = cost(kind, 2) - cost(kind, 1).
-    The port counts every layer it runs, so ``run_one`` reports the
-    full-depth count, which is exact; only ``perf.measure`` composes
-    probes, to save the full-depth run.  The composition equals the full
-    count for attn, moe, hybrid and xattn stacks; an xLSTM stack's layers
-    cost differently by their place in it, and its train step composes
-    low (ROADMAP §3)."""
+    delta_kind the cost of one more layer of that kind, base the rest
+    (embed / head / loss / fitness, the same for every kind).  The port's
+    probes have PROBE_DEPTHS layers (2 and 4): a one-layer probe's stacked
+    (1, ...) leaves take shortcuts a deeper stack does not (a gather of
+    such a grad on dim 1 is a view there, ``_maybe_view_chunk_cat``, and a
+    chunk-and-cat from two layers on), so on torch 2.11 the hybrid train
+    stack composed from 1 and 2 layers came out 9,216 B above its full
+    count.  From 2 and 4 it is exact.  The port counts every layer it
+    runs, so ``run_one`` reports the full-depth count, which is exact; only
+    ``perf.measure`` composes probes, to save the full-depth run.  The
+    composition equals the full count for attn, moe, hybrid and xattn
+    stacks; an xLSTM stack's layers cost differently by their place in it,
+    and its train step composes within a few percent (ROADMAP §3)."""
     return cfg.replace(n_layers=n_layers_probe,
                        block_pattern=(block_kind,) * n_layers_probe,
                        scan_unroll=True)
@@ -259,11 +267,12 @@ def _lower_for(cfg, shape_name, mesh, kind, variant="baseline"):
 
 def _probe_costs(cfg, shape_name, mesh, kind, variant="baseline"):
     """Composed per-chip flops / bytes / collective bytes of the full
-    depth, from a one- and a two-layer probe of each distinct block
-    kind."""
+    depth, from a probe of PROBE_DEPTHS[0] and one of PROBE_DEPTHS[1]
+    layers of each distinct block kind (``_kind_probe_cfg``)."""
     from collections import Counter
 
     kind_counts = Counter(cfg.layers)
+    a, b = PROBE_DEPTHS
 
     def one_probe(block_kind, n_layers_probe):
         pcfg = _kind_probe_cfg(cfg, block_kind, n_layers_probe)
@@ -276,16 +285,17 @@ def _probe_costs(cfg, shape_name, mesh, kind, variant="baseline"):
     tot_f = tot_b = 0.0
     tot_c = {}
     for bk, n_bk in kind_counts.items():
-        f1, b1, c1 = one_probe(bk, 1)
-        f2, b2, c2 = one_probe(bk, 2)
+        fa, ba, ca = one_probe(bk, a)
+        fb, bb, cb = one_probe(bk, b)
+        df, db = (fb - fa) / (b - a), (bb - ba) / (b - a)
+        dc = {kk: (cb[kk] - ca[kk]) / (b - a) for kk in ca}
         if base_f is None:
-            base_f = 2 * f1 - f2
-            base_b = 2 * b1 - b2
-            base_c = {kk: 2 * c1[kk] - c2[kk] for kk in c1}
-        tot_f += n_bk * (f2 - f1)
-        tot_b += n_bk * (b2 - b1)
-        for kk in c1:
-            tot_c[kk] = tot_c.get(kk, 0.0) + n_bk * (c2[kk] - c1[kk])
+            base_f, base_b = fa - a * df, ba - a * db
+            base_c = {kk: ca[kk] - a * dc[kk] for kk in ca}
+        tot_f += n_bk * df
+        tot_b += n_bk * db
+        for kk in ca:
+            tot_c[kk] = tot_c.get(kk, 0.0) + n_bk * dc[kk]
     flops = max(base_f + tot_f, 0.0)
     byts = max(base_b + tot_b, 0.0)
     coll = {kk: max(base_c.get(kk, 0.0) + v, 0.0) for kk, v in tot_c.items()}

@@ -2,14 +2,15 @@
 terms of optimisation variants of the three hillclimbed (arch x shape)
 pairs at 16 x 16, from the dry-run's probes only (``dryrun._probe_costs``
 on a fake process group: counted per chip, nothing measured).  The probes
-save the full-depth run.  Their composition equals the full-depth count
-for the pairs' attn, moe and hybrid stacks on torch 2.13 (on the card
-machine's torch 2.11 DTensor picks other strategies for the hybrid train
-stack, and the composition is not exact there).  It is not exact for an
-xLSTM stack, whose layers cost differently by their place in it: at small
-widths its train step composes 0.55% low in flops, 0.11% in bytes and
-12.9% in reduce-scatter bytes (ROADMAP §3); ``dryrun.run_one`` gives the
-exact full-depth count.
+(``dryrun.PROBE_DEPTHS``: 2 and 4 layers of each block kind) save the
+full-depth run.  Their composition equals the full-depth count for the
+pairs' attn, moe and hybrid stacks, on torch 2.13 and on the card
+machine's torch 2.11 alike.  It is not exact for an xLSTM stack, whose
+layers cost differently by their place in it: at small widths its train
+step composes within 5% in flops and bytes and within 15% in each
+collective kind (``tests/test_torch_dryrun.py``; ROADMAP §3); no pair here
+has xLSTM blocks, and ``dryrun.run_one`` gives the exact full-depth
+count.
 
   PYTHONPATH=src python -m repro_torch.launch.perf --pair qwen --variant zero1
 """

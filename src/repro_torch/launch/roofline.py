@@ -167,10 +167,13 @@ def _nbytes(t):
 
 def _is_view(func):
     """A view or metadata op: its outputs alias an input without writing
-    it, or it only allocates (``empty*``)."""
+    it, it only allocates (``empty*``), or it reads a tensor's metadata
+    (``prim::device``, ``prim::layout``: no data moves)."""
     name = func.__name__ if hasattr(func, "__name__") else str(func)
     if name.startswith(("empty", "new_empty", "_unsafe_view", "detach",
                         "lift_fresh", "alias", "sym_", "is_")):
+        return True
+    if func.namespace == "prim":
         return True
     rets = func._schema.returns
     return bool(rets) and all(r.alias_info is not None
@@ -253,7 +256,8 @@ class CostCounter(TorchDispatchMode):
       reads and writes memory), so it runs above XLA's fused count;
     * ``collectives``: the bytes of each collective's output on this rank,
       by the reference's kind names (the shape ``parse_collectives`` reads
-      off the result), ``wait_tensor`` skipped;
+      off the result; a c10d op that returns only its Work, its output
+      argument), ``wait_tensor`` skipped;
     * ``peak_bytes``: the largest total of live local storages while
       counting, starting from the tensors given to ``track`` (the
       arguments; ``argument_bytes``).  A storage is live until its last
@@ -348,7 +352,10 @@ class CostCounter(TorchDispatchMode):
         outs = _tensors(out)
         kind = _collective_kind(name)
         if kind is not None:
-            self.collectives[kind] += sum(_nbytes(t) for t in outs)
+            # a c10d op that returns only its Work (``alltoall_base_``)
+            # writes its first argument, the output buffer
+            moved = outs or _tensors(args[:1])
+            self.collectives[kind] += sum(_nbytes(t) for t in moved)
         elif not _is_view(func):
             n = (sum(_nbytes(t) for t in _tensors(args))
                  + sum(_nbytes(t) for t in _tensors(kwargs))

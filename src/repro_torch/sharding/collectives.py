@@ -6,8 +6,8 @@ A rank holds the rows of its own clients, (C/W, N) with the columns in leaf
 order.  ``ColumnShards.to_columns`` turns them into the (C, n/W) column
 shards of every split leaf by one ``all_to_all`` (the reshard that JAX's
 ``with_sharding_constraint`` folds into the producer) and gathers the rows
-of the leaves that stay whole; ``ColumnShards.gather`` all-gathers the
-aggregated shards back into the (N,) row.  At W = 1 the all_to_all is the
+of the leaves that stay whole; ``ColumnShards.gather`` all-gathers each
+leaf's aggregated shards back into its (n,) row.  At W = 1 the all_to_all is the
 identity and is not called (the rows are already the columns); every other
 collective goes through ``torch.distributed`` at every world size, so a
 world-size-1 run takes the same path as a wider one.  Every call is safe
@@ -40,16 +40,14 @@ def all_to_all(x, mesh):
 
 
 def all_gather_rows(x, mesh):
-    """Every rank's (r, ...) ``x``, rank-major: (W * r, ...).  At W = 1 the
-    gather runs in place on ``x`` (contiguous), so no second copy of an
-    (N,) aggregate exists."""
-    if mesh.size == 1:
-        x = x.contiguous()
-        dist.all_gather_into_tensor(x, x, group=mesh.group)
-        return x
-    parts = [torch.empty_like(x) for _ in range(mesh.size)]
-    dist.all_gather(parts, x.contiguous(), group=mesh.group)
-    return torch.cat(parts)
+    """Every rank's (r, ...) ``x``, rank-major: (W * r, ...), gathered into
+    one output (no concatenation).  At W = 1 the gather runs in place on
+    ``x`` (contiguous), so no second copy of an (N,) aggregate exists."""
+    x = x.contiguous()
+    out = x if mesh.size == 1 else x.new_empty(
+        (mesh.size * x.shape[0],) + tuple(x.shape[1:]))
+    dist.all_gather_into_tensor(out, x, group=mesh.group)
+    return out
 
 
 class ColumnShards:
@@ -101,18 +99,19 @@ class ColumnShards:
         return sh, rep
 
     def gather(self, out_sh, out_rep):
-        """The (N,) row from this rank's aggregated shard ``out_sh`` (sum
-        sh_sizes,) and the whole leaves ``out_rep`` (sum rep_sizes,)."""
-        shards = all_gather_rows(out_sh[None], self.mesh)    # (W, n_sh)
-        if self.w == 1 and self.whole:
-            return shards[0]
+        """Each leaf's (n,) row, in leaf order, from this rank's aggregated
+        shard ``out_sh`` (sum sh_sizes,) and the whole leaves ``out_rep``
+        (sum rep_sizes,): a split leaf's W blocks all-gathered into one
+        output (in place at W = 1), a whole leaf a view of ``out_rep``; no
+        concatenation."""
         out, s, q = [], 0, 0
         for n, f in zip(self.sizes, self.flags):
             if f:
                 b = n // self.w
-                out.append(shards[:, s:s + b].reshape(-1))
+                out.append(all_gather_rows(out_sh[s:s + b][None],
+                                           self.mesh).reshape(-1))
                 s += b
             else:
                 out.append(out_rep[q:q + n])
                 q += n
-        return torch.cat(out)
+        return out

@@ -55,6 +55,15 @@ FED = dict(n_clients=C, population=M, algorithm="fedavg", local_epochs=1,
            local_lr=0.2, async_max_retries=2, staleness_decay=0.5)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    # tiny CPU models under six test workers: one intra-op thread each
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _setup(arch):
     """(JAX model, port model, JAX federation, FedConfig fields) for the
     two configs."""

@@ -46,6 +46,15 @@ RTOL, ATOL = 1e-5, 1e-6
 SHAPES = {"a": (13, 7), "b": (301,), "c": (5,), "d": (512,)}
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    # tiny CPU models under six test workers: one intra-op thread each
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _np_tree(c, seed=0, scale=1.0):
     rng = np.random.default_rng(seed + 31 * c)
     return {k: (scale * rng.standard_normal((c, *s))).astype(np.float32)

@@ -354,6 +354,38 @@ def test_robust_agg_fwd_matches_plain_and_k2(card):
         ra.robust_agg_fwd(x, m, mode="mean")
 
 
+@pytest.mark.parametrize("widths", [[1000, 1, 777, 2048, 273],
+                                    [1000, 2, 776, 2048, 270]])
+@pytest.mark.parametrize("c", [16, 40, 96])
+def test_segment_table_is_bitwise_the_concatenation(card, c, widths):
+    """K1-K3 over a tree's leaves side by side (``rp_*_seg``: leaves of
+    odd and even widths, one or two columns wide among them, so a thread's
+    columns straddle leaves and rows change alignment) give the dense entry
+    points' results on their concatenation bit for bit, in every pass-1 and
+    combine path (the 16-row bucket with one and two columns a thread, four
+    a thread in the mean, 64 rows, the shared tile), and a launch through
+    the table replays in a CUDA graph."""
+    x, m, w = _inputs(card, c=c, n=sum(widths))
+    leaves = [l.contiguous() for l in torch.split(x, widths, dim=-1)]
+    for o, r in zip(rp.cosine_gate_partials(leaves, m),
+                    rp.cosine_gate_partials(x, m)):
+        _bitwise(o, r)
+    for mode in rp.MODES:
+        _bitwise(rp.gated_combine(leaves, m, w, mode=mode),
+                 rp.gated_combine(x, m, w, mode=mode))
+    _bitwise(rp.pairwise_gram(leaves), rp.pairwise_gram(x))
+    torch.cuda.synchronize()
+    ref = rp.gated_combine(x, m, w, mode="trimmed")
+    out = rp.gated_combine(leaves, m, w, mode="trimmed")
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = rp.gated_combine(leaves, m, w, mode="trimmed")
+    out.zero_()
+    graph.replay()
+    torch.cuda.synchronize()
+    _bitwise(out, ref)
+
+
 def test_flat_wrappers_are_bitwise_k1_k3(card):
     """K4a-c are K1-K3's entry points behind their own counters: the flat
     pipeline, the flat tree wrapper and the two-stage flat path give K1-K3's

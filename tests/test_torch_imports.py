@@ -52,7 +52,10 @@ print(len(names), bad, dist.is_initialized(), all(m in names for m in (
     "repro_torch.launch.train", "repro_torch.models.moe",
     "repro_torch.models.ssm", "repro_torch.models.xlstm",
     "repro_torch.launch.dryrun", "repro_torch.launch.roofline",
-    "repro_torch.launch.perf")))
+    "repro_torch.launch.perf", "repro_torch.analysis",
+    "repro_torch.analysis.report", "repro_torch.analysis.traversal",
+    "repro_torch.analysis.rules", "repro_torch.analysis.entrypoints",
+    "repro_torch.analysis.lint")))
 """
 
 
@@ -97,6 +100,9 @@ def test_entry_points_raise_without_cuda():
     with pytest.raises(RuntimeError, match="device='cpu'"):
         launch_train.main(["--arch", "tiny-lm", "--reduced", "--steps", "1",
                            "--robust", "per_client"])
+    from repro_torch.analysis import lint
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        lint.main(["--all"])
 
 
 def test_unported_options_raise():

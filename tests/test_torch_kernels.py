@@ -20,6 +20,7 @@ import torch
 
 from repro.kernels import robust_agg as jrobust_agg
 from repro.kernels import robust_pipeline as jrp
+from repro_torch import tree
 from repro_torch.comm import codecs
 from repro_torch.comm.kernels import comm_codecs
 from repro_torch.kernels import _build, robust_agg, robust_pipeline as rp
@@ -339,3 +340,71 @@ def test_padded_rank_rule_is_the_stable_rank(b):
                 rule[i] += pad[j] <= pad[i] if j < i else pad[j] < pad[i]
     np.testing.assert_array_equal(robust_agg.stable_ranks(_t(xm)).numpy(),
                                   rule)
+
+
+# --------------------------------------------------------------------- #
+# a tree's leaves side by side (the segment table)                      #
+# --------------------------------------------------------------------- #
+
+LEAF_WIDTHS = [5, 13, 1, 20, 7]
+
+
+@pytest.mark.parametrize("c", [6, 16])
+def test_leaves_side_by_side_are_bitwise_their_concatenation(c):
+    """The plain versions over leaves side by side give the concatenated
+    matrix's results bit for bit, with steps of 4 and 9 columns that start
+    inside leaves and span several, and at the default step."""
+    x, mask, w = (_t(a) for a in _inputs(c, sum(LEAF_WIDTHS), g=2))
+    leaves = [l.contiguous()
+              for l in torch.split(x, LEAF_WIDTHS, dim=-1)]
+    m = _t(mask)
+    for chunk in (4, 9, rp.PLAIN_CHUNK):
+        for o, r in zip(rp.cosine_gate_partials_plain(leaves, m, chunk=chunk),
+                        rp.cosine_gate_partials_plain(x, m, chunk=chunk)):
+            assert torch.equal(o, r), chunk
+        for mode in rp.MODES:
+            assert torch.equal(
+                rp.gated_combine_plain(leaves, m, w, mode=mode, chunk=chunk),
+                rp.gated_combine_plain(x, m, w, mode=mode, chunk=chunk))
+        assert torch.equal(rp.pairwise_gram_plain(leaves, chunk=chunk),
+                           rp.pairwise_gram_plain(x, chunk=chunk))
+    assert rp.dims(leaves) == (2, c, sum(LEAF_WIDTHS))
+
+
+@pytest.mark.parametrize("agg", ["fedavg", "trimmed_mean", "median", "krum"])
+def test_tree_aggregate_is_bitwise_the_concatenated_matrix(agg):
+    """``fused_aggregate_tree`` and ``fused_two_stage_tree`` stream a mixed
+    tree's leaves in place, bitwise the pipeline on their concatenation."""
+    from repro_torch.configs.base import FedConfig
+    c = 8
+    x, mask, w = (_t(a) for a in _inputs(c, 512 + 301 + 5 + 256, g=2))
+    cfg = FedConfig(n_clients=c, aggregator=agg)
+    upd = {"w": x[0, :, :512].reshape(c, 64, 8).contiguous(),
+           "r": x[0, :, 512:813].contiguous(),
+           "b": x[0, :, 813:818].contiguous(),
+           "h": x[0, :, 818:].contiguous()}
+    cat = torch.cat([l.reshape(c, -1) for l in tree.leaves(upd)], 1)
+    whole = rp.fused_pipeline(cat[None], w[:1], mask[:1],
+                              **rp._pipeline_args(cfg))[0]
+    like = {k: v[0] for k, v in upd.items()}
+    for got, ref in zip(tree.leaves(rp.fused_aggregate_tree(
+            upd, w[0], mask[0], cfg)), tree.leaves(tree.row_views(whole,
+                                                                   like))):
+        assert torch.equal(got, ref)
+    slots = {k: torch.stack([v, v.flip(0)]) for k, v in upd.items()}
+    xs = torch.stack([cat, cat.flip(0)])
+    ref = rp._cross_slot(rp.fused_pipeline(xs, w, mask,
+                                           **rp._pipeline_args(cfg)), mask)
+    for got, r in zip(tree.leaves(rp.fused_two_stage_tree(
+            slots, w, mask, cfg)), tree.leaves(tree.row_views(ref, like))):
+        assert torch.equal(got, r)
+
+
+def test_segment_table_offsets_and_limit():
+    leaves = [torch.zeros(1, 3, n) for n in LEAF_WIDTHS]
+    t = rp._Table(leaves)
+    assert list(t.off) == [0, 5, 18, 19, 39, 46]
+    assert list(t.ptrs) == [l.data_ptr() for l in leaves]
+    assert t.args[2] == len(leaves)
+    with pytest.raises(ValueError, match="at most"):
+        rp._check_cuda([torch.zeros(1, 3, 2)] * (rp.MAX_SEGS + 1))

@@ -81,6 +81,15 @@ EXACT = ("gate/cosine_rejected", "guard/nonfinite", "guard/norm",
 
 # ------------------------------------------------------------ registry ----
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    # tiny CPU models under six test workers: one intra-op thread each
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def test_registry_is_the_jax_packages():
     assert list(counters.REGISTRY) == list(jcounters.REGISTRY)
     for name, spec in counters.REGISTRY.items():

@@ -164,6 +164,9 @@ def _worker(rank, store_dir, out_q):
             cfg = FedConfig(n_clients=C, aggregator=agg)
             out["dense", agg] = _np(aggregation.aggregate_sharded(
                 local, w, m, cfg, mesh))
+            out["dense like", agg] = _np(aggregation.aggregate_sharded(
+                tree.flatten_rows(local).float(), w, m, cfg, mesh,
+                like=like))
             out["dense partials", agg] = dict(seen)
             out["int8", agg] = _np(dq.fused_dequant_aggregate_sharded(
                 enc, layout, w, m, cfg, mesh, like=like))
@@ -222,6 +225,23 @@ def _close(got, ref, bf16_atol=2e-2):
     for k in ref:
         np.testing.assert_allclose(got[k], ref[k], err_msg=k,
                                    atol=bf16_atol if k == "h" else ATOL)
+
+
+@pytest.mark.parametrize("agg", AGGS)
+def test_aggregate_sharded_like_buffer_w2_matches_unsharded(ranks, agg):
+    """The pod step's call at W = 2: each rank's (C/W, N) fp32 buffer with
+    ``like`` (its reshard by one all_to_all, then the body) against
+    ``aggregate`` of the whole tree, the same on both ranks."""
+    w, m = _wm()
+    full = _tree()
+    cfg = FedConfig(n_clients=C, aggregator=agg)
+    ref = _np(aggregation.aggregate(full, w, m, cfg))
+    _close(ranks[0]["dense like", agg], ref)
+    for k in ref:
+        np.testing.assert_array_equal(ranks[0]["dense like", agg][k],
+                                      ranks[1]["dense like", agg][k])
+        np.testing.assert_array_equal(ranks[0]["dense like", agg][k],
+                                      ranks[0]["dense", agg][k])
 
 
 @pytest.mark.parametrize("agg", AGGS)

@@ -65,6 +65,15 @@ VARIANTS = {   # suffix -> Scenario.replace fields of both packages' cell
 }
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    # tiny CPU models under six test workers: one intra-op thread each
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _np(t):
     return jax.tree_util.tree_map(np.asarray, t)
 

@@ -43,6 +43,15 @@ from repro_torch.serve import scheduler as sched
 SCFG = dict(max_slots=4, page_size=8, max_len=48, prompt_pad=8)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    # tiny CPU models under six test workers: one intra-op thread each
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def tiny():
     jc = jget_config("tiny-lm").reduced()

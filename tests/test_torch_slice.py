@@ -31,6 +31,15 @@ FED = dict(n_clients=K, algorithm="fedfits", local_epochs=2, local_lr=0.05,
            msl=4, pft=2)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    # tiny CPU models under six test workers: one intra-op thread each
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _jax_run(aggregator, compress="none", rounds=ROUNDS):
     """JAX reference run; returns (init params, batches, history with the
     per-round params, final state), all as numpy."""
