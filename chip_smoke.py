@@ -318,7 +318,11 @@ Phases, one line each (a failure raises, so the exit code is not 0):
               granite-moe-1b at full depth, ``robust=None``: step 1 under
               ``param_specs_moe_ff`` against plain tensors, ZeRO-1 under
               ``param_specs_zero1_moe`` / ``param_specs_moe_ff`` against
-              the fp32 step, TP_GRANITE_STEPS steps of each timed, peak.
+              the fp32 step, TP_GRANITE_STEPS steps of each timed, peak;
+              and the placed MoE's combine of a rank's slots
+              (``moe._slot_combine``, which mesh (1, 1) does not take) over
+              TP_SLOT_BLOCKS blocks at granite's width against the plain
+              combine, within TP_SLOT_REL.
   12. dryrun  the dry-run of the sharded step (``launch/dryrun.py``): the
               step run once on fake tensors over a fake process group of
               256 (512) ranks, counted per chip (flops, bytes, collective
@@ -604,8 +608,20 @@ BLOCKS_TIMEOUT = 900            # seconds for the phase's child process
 # largest param change; ZeRO-1's step-1 loss within ZERO1_LOSS_ATOL (the
 # reference test's tolerance) of the fp32 step's, its loss falling over
 # TP_STEPS steps; scan vs python over TP_PARITY (steps, chunk).  granite at
-# full depth, TP_GRANITE_STEPS steps under each MoE layout
+# full depth, TP_GRANITE_STEPS steps under each MoE layout (the placed MoE:
+# the routing keys gathered, each rank's slots filled and combined, the
+# partial sums reduced).  The padded heads of an uneven split: tiny-lm's
+# first attention layer on params placed at mesh (1, 1), run in its heads
+# padded as a split over TP_PAD_PIECES ranks pads them, against the same
+# call in its own heads (output and grads within TP_PAD_REL of their
+# largest).  The placed MoE's combine of a rank's slots (``moe._slot_combine``,
+# which a mesh of one rank does not take) at granite's width on the
+# (POD_GB x POD_SEQ) tokens, over TP_SLOT_BLOCKS blocks of the (E, C)
+# slots summed, against the plain ``moe._combine``: the output and the
+# expert rows' grad within TP_SLOT_REL of their largest
 TP_REL = 1e-6
+TP_PAD_PIECES, TP_PAD_REL = 3, 1e-5
+TP_SLOT_BLOCKS, TP_SLOT_REL = (4, 4), 1e-5
 ZERO1_LOSS_ATOL = 0.05
 ZERO1_GN_REL = 1e-2             # ZeRO-1's step-1 grad_norm against fp32's
 TP_STEPS = 6
@@ -628,6 +644,18 @@ TP_TIMEOUT = 900                # seconds for the phase's child process
 # params placed by param_specs_tp and a placed cache, bitwise the plain
 # call's logits
 DRYRUN_PEAK_REL = 0.15
+# the sharded step partitioned as the reference's partitions it (counts of
+# the same dry-runs, not measurements): qwen2.5-14b x train_4k's flops at
+# most DRYRUN_FLOPS_OVER_XLA x XLA's count of the reference's step (its
+# dry-run, `python -m repro.launch.dryrun --arch qwen2.5-14b --shape
+# train_4k`); a minitron-4b decode_32k step's all-gather at most 1/8 of the
+# count of the step that gathered the sequence-split cache (tp_serve at 16 x
+# 16, param_specs at 2 x 16 x 16)
+DRYRUN_XLA_QWEN_FLOPS = 868_310_858_072_064
+DRYRUN_FLOPS_OVER_XLA = 1.25
+DRYRUN_SERVE_AG_MAX = {
+    "minitron-4b x decode_32k tp_serve 16x16": 35_935_223_808 / 8,
+    "minitron-4b x decode_32k 2x16x16": 18_875_154_432 / 8}
 DRYRUN_QWEN = ("qwen2.5-14b", "train_4k")
 DRYRUN_PERF = ("dbrx", "zero1_moe")
 DRYRUN_SERVE = ("minitron-4b", "decode_32k")
@@ -4864,6 +4892,95 @@ def _tp_parity(label, cfg, fed, tc, mesh, layout, zero1=None):
     _blk_free()
 
 
+def _tp_padded_heads(mesh, cfg):
+    """tiny-lm's first attention layer (weights from seed 0, placed as
+    ``param_specs`` places them: columns of wq / wk / wv and rows of wo on
+    "model") on (POD_GB, POD_SEQ) rows split over "data", run in heads
+    padded as an uneven split over TP_PAD_PIECES ranks pads them (a zero q
+    head, each q head with its own copy of its kv head) against the same
+    call in its own heads: the output and the grads of x and of every
+    weight within TP_PAD_REL of their largest.  Returns its record."""
+    import torch
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    from repro_torch.models import attention
+    from repro_torch.sharding import dtensor
+    dm = mesh.device_mesh
+    w = attention.init_attention(_gen(0), cfg)
+    params = {k: DTensor.from_local(
+        v, dm, [Replicate(), Shard(0 if k == "wo" else 1)],
+        run_check=False).requires_grad_() for k, v in w.items()}
+    x = DTensor.from_local(
+        torch.randn(POD_GB, POD_SEQ, cfg.d_model, generator=_gen(1),
+                    device=DEVICE), dm, [Shard(0), Replicate()],
+        run_check=False).requires_grad_()
+    pos = torch.arange(POD_SEQ, device=DEVICE)[None].expand(POD_GB, -1)
+    hd = attention.heads(params, cfg, TP_PAD_PIECES)
+
+    def run(h):
+        with dtensor.mixing():
+            out, _ = attention.attention_fwd(params, x, cfg, pos, hd=h)
+            grads = torch.autograd.grad((out * out).sum(),
+                                        [x, *params.values()])
+        return [dtensor.plain(t).detach() for t in (out, *grads)]
+
+    padded, own = run(hd), run(None)
+    rel = max(float((a - b).abs().max() / b.abs().max())
+              for a, b in zip(padded, own))
+    print(f"[tp] tiny-lm attention in {hd.hp} padded heads ({cfg.n_heads} "
+          f"q / {cfg.n_kv_heads} kv as split over {TP_PAD_PIECES} ranks), "
+          f"placed at mesh (1, 1): output and grads within {rel:.3e} of "
+          f"their largest of the call in its own heads")
+    if not rel <= TP_PAD_REL:
+        raise AssertionError(f"[tp] padded heads differ by {rel:.3e} > "
+                             f"{TP_PAD_REL}")
+    _blk_free()
+    return {"heads": hd.hp, "max_rel": rel}
+
+
+def _tp_slot_combine(cfg):
+    """The placed MoE's combine of each rank's slots, on the card at
+    granite's width: routing drawn from seed 0's logits, fp32 expert rows,
+    each of TP_SLOT_BLOCKS blocks of the (E, C) slots combined by
+    ``moe._slot_combine`` (the weighted rows added into an (N, d) partial by
+    ``index_put``'s sorted accumulation) and the blocks summed, against
+    ``moe._combine`` on the whole buffer: output and the expert rows' grad
+    within TP_SLOT_REL of their largest.  Returns its record."""
+    import torch
+    from repro_torch.models import moe
+    N, K, E, d = POD_GB * POD_SEQ, cfg.top_k, cfg.n_experts, cfg.d_model
+    C = moe._capacity(N, cfg)
+    logits = torch.randn(N, E, generator=_gen(0), device=DEVICE)
+    top_p, top_e = torch.topk(torch.softmax(logits, -1), K)
+    top_p = top_p / top_p.sum(-1, keepdim=True)
+    eo = torch.randn(E, C, d, generator=_gen(1), device=DEVICE,
+                     requires_grad=True)
+    order, tok, _, start, _, keep, dest = moe._dispatch_parts(top_e, N, cfg)
+    want = moe._combine(eo, top_p, order, keep, dest, N, cfg)
+    (be, bc), got = TP_SLOT_BLOCKS, 0
+    en, cn = E // be, C // bc
+    for i in range(be):
+        for j in range(bc):
+            at, held, rows = moe._slot_map(start, tok, N, K, (i * en, en),
+                                           (j * cn, cn))
+            blk = eo[i * en:(i + 1) * en, j * cn:(j + 1) * cn]
+            got = got + moe._slot_combine(
+                blk.reshape(-1, d), top_p.reshape(-1)[order[at]], held,
+                rows, N)
+    cot = torch.randn(N, d, generator=_gen(2), device=DEVICE)
+    grads = [torch.autograd.grad((o * cot).sum(), eo)[0] for o in (got,
+                                                                   want)]
+    rel = max(float((a - b).abs().max() / b.abs().max())
+              for a, b in ((got.detach(), want.detach()), grads))
+    print(f"[tp] granite MoE combine over {be} x {bc} blocks of its "
+          f"({E}, {C}) slots, {N} tokens, d {d}: output and grad within "
+          f"{rel:.3e} of their largest of the plain combine")
+    if not rel <= TP_SLOT_REL:
+        raise AssertionError(f"[tp] slot combine differs by {rel:.3e} > "
+                             f"{TP_SLOT_REL}")
+    _blk_free()
+    return {"blocks": [be, bc], "max_rel": rel}
+
+
 def _tp_tiny(smi, out):
     """Phase 11 on tiny-lm at full width; returns {path: launches}."""
     import torch
@@ -4871,6 +4988,7 @@ def _tp_tiny(smi, out):
     mesh = make_host_mesh()
     paths = {}
     cfg, fed, tc = _tp_cfgs()
+    out["padded_heads"] = _tp_padded_heads(mesh, cfg)
     out["baseline"] = _tp_step1("tiny-lm robust=None, param_specs", cfg,
                                 fed, tc, mesh, None, "param_specs")
     for agg in ("fedavg", "trimmed_mean"):
@@ -4926,6 +5044,7 @@ def _tp_granite(smi, out):
     from repro_torch.launch.mesh import make_host_mesh
     mesh = make_host_mesh()
     cfg, fed, tc = _tp_cfgs(GRANITE)
+    out["slot_combine"] = _tp_slot_combine(cfg)
     out["moe_ff"] = _tp_step1("granite robust=None, param_specs_moe_ff",
                               cfg, fed, tc, mesh, None,
                               "param_specs_moe_ff")
@@ -5268,6 +5387,27 @@ def _child_json(lines, key):
                            if l.startswith('{"' + key + '"')))[key]
 
 
+def _dryrun_gates(runs, smi):
+    """The fake child's counts of the sharded step against their limits
+    (DRYRUN_XLA_QWEN_FLOPS, DRYRUN_SERVE_AG_MAX)."""
+    qwen = runs["qwen2.5-14b x train_4k 16x16"]["hlo_flops"]
+    ratio = qwen / DRYRUN_XLA_QWEN_FLOPS
+    print(f"[dryrun] qwen2.5-14b x train_4k 16x16: {qwen:.4e} flops a chip, "
+          f"{ratio:.3f}x XLA's count of the reference's step (limit "
+          f"{DRYRUN_FLOPS_OVER_XLA}) | {smi}")
+    if not ratio <= DRYRUN_FLOPS_OVER_XLA:
+        raise AssertionError(f"[dryrun] qwen2.5-14b train_4k flops {ratio}x "
+                             "XLA's")
+    for name, limit in DRYRUN_SERVE_AG_MAX.items():
+        ag = runs[name]["collective_by_kind"]["all-gather"]
+        print(f"[dryrun] {name}: all-gather {ag / 1e9:.4f} GB a chip (limit "
+              f"{limit / 1e9:.4f}: 1/8 of the step that gathered the "
+              "cache)")
+        if not ag <= limit:
+            raise AssertionError(f"[dryrun] {name}: all-gather {ag} B > "
+                                 f"{limit}")
+
+
 def _dryrun(smi, fake):
     """Phase 12: the card child, then the fake child joined; the anchor's
     gates.  Returns the merged record, with ``launches``: both children's
@@ -5291,6 +5431,7 @@ def _dryrun(smi, fake):
         sys.stderr.write(fake_err[-20000:])
         raise RuntimeError(f"phase 12 (fake) failed (exit {fake.returncode})")
     dry = _child_json(lines, "dryrun_fake")
+    _dryrun_gates(dry["runs"], smi)
     for arch in DRYRUN_ANCHORS:
         real, fk = card[arch], dry["anchors"][arch]
         if real["cost"]["flops"] != fk["cost"]["flops"]:

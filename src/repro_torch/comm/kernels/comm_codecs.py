@@ -270,8 +270,9 @@ def fused_dequant_aggregate_sharded(enc, layout, weights, mask, cfg, mesh, *,
     cols = collectives.ColumnShards(layout.sizes, flags, sub)
     scols = collectives.ColumnShards(
         [-(-n // qblk) for n in layout.sizes], flags, sub)
-    q_sh, q_rep = cols.to_columns(enc.q)
-    s_sh, s_rep = scols.to_columns(enc.s)
+    # the codec writes leaf order: each record packed once
+    q_sh, q_rep = cols.to_columns(cols.pack(enc.q))
+    s_sh, s_rep = scols.to_columns(scols.pack(enc.s))
     own = sub.rank == 0
     parts = [((q[None], s[None], layout.part(n)), c)
              for q, s, n, c in ((q_sh, s_sh, cols.sh_sizes, True),

@@ -261,40 +261,54 @@ def shard_axes(mesh, axes):
     return tuple(axes)
 
 
+def tp_columns(n, mesh):
+    """The ``collectives.ColumnShards`` of ``aggregate_tp``'s (C/D, n)
+    matrix over the mesh's data axes: its first n - n mod D columns split
+    into D blocks, the rest whole."""
+    from repro_torch.sharding import collectives, dtensor, specs
+    data = mesh.over(tuple(a for a in mesh.axis_names
+                           if a in dtensor.DP_AXES))
+    sizes = [s for s in (n - n % data.size, n % data.size) if s]
+    _, flags = specs.client_flat_specs(sizes, data, data.axis_names)
+    return collectives.ColumnShards(sizes, flags, data)
+
+
 def aggregate_tp(split, whole, weights, mask, cfg, mesh):
     """The Eq.-11 aggregate of per-client grads taken on a tensor-parallel
     copy of the params (the pod step's per-client path on a placed state).
     Each rank holds the rows of its data index's C/D clients (client order
-    is data index major) in two (C/D, n) fp32 matrices: ``split``, this
+    is data index major) as two ``collectives.SendRows`` of n columns
+    each, in the send layout of ``tp_columns(n, mesh)``: ``split``, this
     rank's pieces of the leaves split over "model" (they differ across the
     model ranks), and ``whole``, the leaves whole over "model" (the same
-    on every model rank).  Over the data axes one all_to_all each turns
-    them into (C, n/D) column shards (``collectives.ColumnShards``; a
-    remainder of fewer than D columns stays whole); each rank streams its
-    shards through K1 and K2 (K3), and only the (C,) cosine partials and
-    Krum's (C, C) Gram cross ranks, by one all-reduce each over the mesh,
-    where the whole leaves count on the first model rank only.  Nothing
-    else crosses the model axis.  Returns the aggregated rows of both
-    matrices, (n,) each, whole over the data axes.  Equal to ``aggregate``
-    of the whole (C, N) matrix up to the order of the cross-rank sums."""
+    on every model rank).  The pod step writes its grads there, so nothing
+    is packed; a caller with leaf-order rows packs them by
+    ``tp_columns(n, mesh).pack``.  Over the data axes one all_to_all each
+    turns them into (C, n/D) column shards (``collectives.ColumnShards``;
+    a remainder of fewer than D columns stays whole); each rank streams
+    its shards through K1 and K2 (K3), and
+    only the (C,) cosine partials and Krum's (C, C) Gram cross ranks, by
+    one all-reduce each over the mesh, where the whole leaves count on the
+    first model rank only.  Nothing else crosses the model axis.  Returns
+    the aggregated rows of both matrices, (n,) each, whole over the data
+    axes.  Equal to ``aggregate`` of the whole (C, N) matrix up to the
+    order of the cross-rank sums."""
     from repro_torch.kernels import robust_pipeline as rp
-    from repro_torch.sharding import collectives, dtensor, specs
+    from repro_torch.sharding import collectives, dtensor
 
     dp = tuple(a for a in mesh.axis_names if a in dtensor.DP_AXES)
-    data = mesh.over(dp)
     model = tuple(a for a in mesh.axis_names if a not in dp)
     first_model = not model or mesh.index(model) == 0
     mats, parts = [], []
     for x, counted in ((split, True), (whole, first_model)):
-        n = x.shape[1]
+        n = _width(x)
         if not n:
             continue
-        sizes = [s for s in (n - n % data.size, n % data.size) if s]
-        _, flags = specs.client_flat_specs(sizes, data, data.axis_names)
-        cols = collectives.ColumnShards(sizes, flags, data)
+        cols = tp_columns(n, mesh)
         sh, rep = cols.to_columns(x)
         mats.append((cols, sh.shape[1], rep.shape[1]))
-        parts += [(sh[None], counted), (rep[None], counted and data.rank == 0)]
+        parts += [(sh[None], counted),
+                  (rep[None], counted and cols.mesh.rank == 0)]
     parts = [(x, c) for x, c in parts if x.shape[-1]]
     outs = rp.fused_pipeline_sharded(
         [x for x, _ in parts], weights[None], mask[None],
@@ -304,13 +318,18 @@ def aggregate_tp(split, whole, weights, mask, cfg, mesh):
     outs = iter(o[0] for o in outs)
     res = []
     for cols, n_sh, n_rep in mats:
-        out_sh = next(outs) if n_sh else split.new_empty(0)
-        out_rep = next(outs) if n_rep else split.new_empty(0)
-        rows = cols.gather(out_sh, out_rep)
-        res.append(rows[0] if len(rows) == 1 else torch.cat(rows))
-    empty = split.new_empty(0)
-    return (res.pop(0) if split.shape[1] else empty,
-            res.pop(0) if whole.shape[1] else empty)
+        out_sh = next(outs) if n_sh else weights.new_empty(0)
+        out_rep = next(outs) if n_rep else weights.new_empty(0)
+        got = cols.gather(out_sh, out_rep)
+        res.append(got[0] if len(got) == 1 else torch.cat(got))
+    empty = weights.new_empty(0)
+    return tuple(res.pop(0) if width else empty
+                 for width in (_width(split), _width(whole)))
+
+
+def _width(x):
+    """The columns of a ``collectives.SendRows``."""
+    return x.send.shape[0] * x.send.shape[2] + x.rep.shape[1]
 
 
 def aggregate_sharded(updates, weights, mask, cfg, mesh, axes=None, *,
@@ -326,12 +345,15 @@ def aggregate_sharded(updates, weights, mask, cfg, mesh, axes=None, *,
     rank's clients, C/W of the C (rank r of the W has clients r C/W to
     (r + 1) C/W - 1): a tree of (C/W, ...) leaves, or with ``like`` (the
     params tree) one (C/W, N) buffer whose columns are ``like``'s leaves in
-    order (the pod step's grads, streamed in place).  ``weights`` and
+    order (the pod step's whole rows).  ``weights`` and
     ``mask`` are the whole (C,) columns.  Each leaf's flattened axis shards
     over the W ranks where its size divides W
-    (``specs.client_flat_specs``): the reshard (``ColumnShards.to_columns``:
-    one all_to_all at W > 1) turns the rows into (C, n/W) column shards,
-    and the body (``aggregate_columns``) aggregates them.  Returns the
+    (``specs.client_flat_specs``): the rows are copied once into the
+    reshard's send layout (``ColumnShards.pack``; open in ROADMAP §3, as
+    the pod step's producer writes leaf order here), the reshard
+    (``ColumnShards.to_columns``: one all_to_all at W > 1, no copy) turns
+    them into (C, n/W) column shards, and the body
+    (``aggregate_columns``) aggregates them.  Returns the
     aggregate, shaped like ``like`` (default: ``updates`` without its
     client axis), each leaf in its dtype.  Equal to ``aggregate`` up to
     the order of the cross-rank sums; at W = 1, with every leaf split,
@@ -341,11 +363,11 @@ def aggregate_sharded(updates, weights, mask, cfg, mesh, axes=None, *,
     sub = mesh.over(shard_axes(mesh, axes))
     if like is None:
         like = tree.map(lambda l: l[0], updates)
-        updates = tree.flatten_rows(updates)
+        updates = [l.reshape(l.shape[0], -1) for l in tree.leaves(updates)]
     sizes = [l.numel() for l in tree.leaves(like)]
     _, flags = specs.client_flat_specs(sizes, sub, sub.axis_names)
     cols = collectives.ColumnShards(sizes, flags, sub)
-    sh, rep = cols.to_columns(updates.float())
+    sh, rep = cols.to_columns(cols.pack(updates, torch.float32))
     return aggregate_columns(sh, rep, cols, weights, mask, cfg, like)
 
 

@@ -313,24 +313,44 @@ def make_train_step(model_cfg, fed_cfg, train_cfg, *, robust=None,
     def client_grads(params, batch):
         """Each of this data index's C/data clients' grads, by its own
         backward pass on the compute copy, written as fp32 rows into two
-        contiguous buffers: ``split`` (C/data, n), this rank's pieces of
-        the leaves the copy splits over "model", and ``whole`` (C/data,
-        n'), the leaves whole over "model", each in leaf order.  Returns
-        them, the copy's leaves, which leaves are split, and the
-        (C/data,) losses and accuracies."""
+        buffers: ``split`` (C/data, n), this rank's pieces of the leaves
+        the copy splits over "model", and ``whole`` (C/data, n'), the
+        leaves whole over "model", each with its columns in leaf order.
+        For the dense aggregation over the mesh (``aggregate_tp``) each
+        buffer is laid out in the reshard's send order
+        (``aggregation.tp_columns``: a ``collectives.SendRows``), so the
+        grads are copied once, into the buffer the all_to_all sends, as
+        the reference's producer emits the column layout; otherwise each
+        is one contiguous (C/data, n) matrix.  Returns them, the copy's
+        leaves, which leaves are split, and the (C/data,) losses and
+        accuracies."""
         cp = compute_copy(params)
         leaves = tree.leaves(cp)
         loc = [dtensor.local(q) for q in leaves]
         split = [dtensor.model_split(q) is not None for q in leaves]
         dev = _device(params)
-        bufs = [torch.empty(C_local, sum(x.numel() for x, f in zip(loc, split)
-                                         if f is want), device=dev)
-                for want in (True, False)]
-        views, off = [], [0, 0]
+        widths = [sum(x.numel() for x, f in zip(loc, split) if f is want)
+                  for want in (True, False)]
+        send_order = mesh is not None and tp_agg
+        if send_order:
+            cols = [aggregation.tp_columns(n, mesh) for n in widths]
+            bufs = [c.empty(C_local, dev) for c in cols]
+        else:
+            bufs = [torch.empty(C_local, n, device=dev) for n in widths]
+        spans, off = [], [0, 0]           # each leaf's buffer and columns
         for x, f in zip(loc, split):
             b = 0 if f else 1
-            views.append(bufs[b][:, off[b]:off[b] + x.numel()])
+            spans.append((b, off[b], x.numel()))
             off[b] += x.numel()
+
+        def write(c, g, span):
+            b, a, n = span
+            if not send_order:
+                bufs[b][c, a:a + n].copy_(g)
+                return
+            for dst, lo, hi in cols[b].views(bufs[b], c, a, n):
+                dst.copy_(g[lo:hi].view(dst.shape))
+
         req, p = _leaf_inputs(cp)
         bc = batch["targets"].shape[0] // C_local
         losses, accs = [], []
@@ -340,12 +360,12 @@ def make_train_step(model_cfg, fed_cfg, train_cfg, *, robust=None,
                 loss, m = transformer.loss_fn(p, model_cfg,
                                               _rows_of(batch, c, bc))
                 grads = torch.autograd.grad(loss, req)
-            for v, g, q in zip(views, grads, leaves):
+            for span, g, q in zip(spans, grads, leaves):
                 # this rank's piece, placed as its leaf (a partial sum over
                 # "model" reduced)
-                v[c].copy_(dtensor.local(dtensor.redistribute(
+                write(c, dtensor.local(dtensor.redistribute(
                     g, q.device_mesh, q.placements)
-                    if dtensor.is_dtensor(g) else g).reshape(-1))
+                    if dtensor.is_dtensor(g) else g).reshape(-1), span)
             del grads           # before the next client's backward
             losses.append(dtensor.plain(loss).detach())
             accs.append(dtensor.plain(m["acc"]).detach())

@@ -129,13 +129,14 @@ def _dp_groups(mesh):
 
 
 def train_setup(cfg, shape_name, mesh, params, variant="baseline",
-                n_clients=None):
+                n_clients=None, robust=None):
     """The placed train state, this rank's batch rows and the step, as
     ``lower_train`` runs them, from ``params`` (fake or real): C =
     min(data groups, global batch) clients (``n_clients`` overrides it),
     the state placed by ``param_specs`` (``param_specs_moe_ff`` under
     ``moe_ff`` / ``zero1_moe``), ZeRO-1's (compute, master) layouts under
-    ``zero1`` / ``zero1_moe``."""
+    ``zero1`` / ``zero1_moe``; ``robust="per_client"`` takes the
+    per-client step, aggregated over ``mesh``."""
     shape = inputs_lib._shape(shape_name)
     C = n_clients or min(_dp_groups(mesh), shape.global_batch)
     fed = FedConfig(n_clients=C)
@@ -159,19 +160,22 @@ def train_setup(cfg, shape_name, mesh, params, variant="baseline",
                            (sh.param_specs_zero1_moe, sh.param_specs_moe_ff))
         zero1 = (sh.named(mesh, compute(params, mesh=mesh)),
                  sh.named(mesh, master(params, mesh=mesh)))
-    step = pod.make_train_step(cfg, fed, tc, zero1_shardings=zero1)
+    step = pod.make_train_step(
+        cfg, fed, tc, zero1_shardings=zero1, robust=robust,
+        agg_mesh=mesh if robust == "per_client" else None)
     return state, batch, step
 
 
 def lower_train(cfg, shape_name, mesh, variant="baseline", *,
-                n_clients=None):
-    """One pod step (``robust=None``) on fake tensors over ``mesh``,
-    counted; returns (``Lowered``, the params' meta tree)."""
+                n_clients=None, robust=None):
+    """One pod step (``robust=None``, or ``"per_client"``) on fake tensors
+    over ``mesh``, counted; returns (``Lowered``, the params' meta
+    tree)."""
     params_s = _params_struct(cfg)
     with _fake_mode():
         state, batch, step = train_setup(cfg, shape_name, mesh,
                                          _fake_like(params_s), variant,
-                                         n_clients)
+                                         n_clients, robust)
         _, low = _count(step, state, batch)
     return low, params_s
 

@@ -34,6 +34,7 @@ from __future__ import annotations
 
 import contextlib
 import threading
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -60,39 +61,131 @@ def init_attention(generator, cfg, lead=(), cross=False):
     return p
 
 
-def _proj(params, name, x, heads, dh, dtype):
-    y = x @ params["w" + name].to(dtype)
+class _Heads(NamedTuple):
+    """How this call's heads run.  On plain params, and wherever the kv
+    heads split evenly over the projections' split (``n`` pieces of
+    ``wq``'s columns), the q heads run in (hkv, g) groups as the reference
+    writes them.  Where they do not (qwen2.5-14b's 8 kv heads on 16
+    ranks), the q heads run one by one, padded with zero heads to ``hp``, a
+    multiple of ``n``, as GSPMD pads such a split, and each q head reads its
+    own copy of its kv head (``kv`` below): the projections' weights are
+    read so (``dtensor.pad_units``), and the heads come out split evenly."""
+    hq: int
+    hkv: int
+    g: int
+    dh: int
+    hp: int
+    q: Optional[list]       # pad_units' index of the q heads (None: as is)
+    kv: Optional[list]      # and of the k / v heads
+
+
+def heads(params, cfg, pieces=None):
+    """The ``_Heads`` a call on ``params`` runs in: padded where the kv
+    heads do not split evenly over the ``pieces`` (default: the pieces
+    ``wq``'s columns are split into over the mesh)."""
+    hq, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    g = hq // hkv
+    n = pieces or dtensor.split_count(params["wq"], -1)
+    if hkv % n == 0:
+        return _Heads(hq, hkv, g, dh, hq, None, None)
+    hp = -(-hq // n) * n
+    return _Heads(hq, hkv, g, dh, hp, dtensor.pad_index(hq, hp),
+                  [j // g if j < hq else -1 for j in range(hp)])
+
+
+def _proj(params, name, x, units, index, dh, dtype):
+    """``x @ w<name> (+ b<name>)`` as (..., heads, dh), the weight's
+    columns (``units`` heads) read as ``index`` names them
+    (``dtensor.pad_units``)."""
+    w = dtensor.pad_units(params["w" + name].to(dtype), -1, units, dh, index)
+    y = x @ w
     if "b" + name in params:
-        y = y + params["b" + name].to(dtype)
-    # on DTensors a head count that does not split over "model" is whole
-    # there (ROADMAP §3)
-    return dtensor.whole_units(y, -1, heads).reshape(*x.shape[:-1], heads,
-                                                      dh)
+        y = y + dtensor.pad_units(params["b" + name].to(dtype), -1, units,
+                                  dh, index)
+    return y.reshape(*x.shape[:-1], -1, dh)
 
 
-def _sdpa(q, k, v, mask):
-    """q: (B, S, Hkv, G, dh); k/v: (B, T, Hkv, dh); mask broadcastable to
-    (B, 1, 1, S, T), or None for no mask -> (B, S, Hkv, G, dh) fp32.  On
-    DTensors it runs on each rank's rows and heads (the einsums flatten a
-    split head dim, which DTensor has no rule for; ROADMAP §3).  The rows
-    follow q's split, so q's rows are first split over the data axes as a
-    placed cache's are (a decode step's projection can leave them whole
-    there, which would gather the cache over the data axes)."""
+def _keys_split(k):
+    """Whether ``k`` is a placed cache split on its sequence over more than
+    one rank (``specs.cache_specs``)."""
+    return dtensor.is_dtensor(k) and dtensor.split_count(k, 1) > 1
+
+
+def _sdpa(q, k, v, mask, hd):
+    """q: (B, S, H, dh), H = hq or (heads run one by one) hd.hp; k/v: (B,
+    T, Hkv', dh), Hkv' = hkv or (projected for each q head) H; mask
+    broadcastable to (B, 1, 1, S, T), or None for no mask -> (B, S, hkv, g,
+    dh) or (B, S, H, 1, dh) fp32.  Keys of a cache split on its sequence
+    take ``_sdpa_split_keys``.  Otherwise, on DTensors, it runs on each
+    rank's rows and heads (the einsums flatten a split head dim, which
+    DTensor has no rule for; ROADMAP §3).  The rows follow q's split, so
+    q's rows are first split over the data axes as a placed cache's are (a
+    decode step's projection can leave them whole there, which would
+    gather the cache over the data axes)."""
+    if _keys_split(k):
+        return _sdpa_split_keys(q, k, v, mask, hd)
+    B, S, H, dh = q.shape
+    if hd.kv is None:
+        q = q.reshape(B, S, hd.hkv, hd.g, dh)
+    else:
+        k, v = (t if t.shape[2] == H else
+                dtensor.pad_units(t, 2, hd.hkv, 1, hd.kv) for t in (k, v))
+        q = q.reshape(B, S, H, 1, dh)
     return dtensor.local_op(_sdpa_local, dtensor.over_data(q, 0), k, v,
                             mask, rows=3, heads=(2, 2, 2))
 
 
-def _merge_heads(out):
-    """(B, S, Hkv, G, dh) -> (B, S, Hkv * G * dh).  On DTensors whose heads
-    are whole over "model" (a head count that does not split there) the
-    merge runs on the local tensors: the grad that comes back from ``wo``
-    is split on the merged dim, which DTensor cannot unflatten into
-    (Hkv, G, dh), so it is gathered first (ROADMAP §3)."""
-    merge = lambda o: o.reshape(*o.shape[:2], -1)
-    if dtensor.is_dtensor(out) and not any(
-            p.is_shard(2) for p in out.placements):
-        return dtensor.local_op(merge, out, rows=1)
-    return merge(out)
+def _sdpa_split_keys(q, k, v, mask, hd):
+    """Attention over a cache split on its sequence dim over the mesh
+    (decode, and prefill into a placed cache), as GSPMD partitions a
+    softmax over a sharded dim: each rank attends over its own keys (its
+    piece of T, the mask cut alike) with its local max, sum and
+    un-normalised output; the max is all-reduced, each rank rescales, and
+    the sums and the (B, S, Hkv, G, dh) outputs are all-reduced.  It moves
+    B S Hq (dh + 2) floats a layer, never the cache.  q's heads are taken
+    whole (a decode step's q is a few rows), the pad dropped; the output is
+    whole over every mesh dim but the rows' data split.  Serving only: it
+    runs no backward."""
+    from torch.distributed import _functional_collectives as funcol
+    from torch.distributed.tensor import DTensor, Shard
+    mesh = k.device_mesh
+    seq = [i for i, p in enumerate(k.placements) if p == Shard(1)]
+    rows = dtensor._row_placements(k)
+    T = k.shape[1]
+    B, S, _, dh = q.shape
+    ql = dtensor.redistribute(dtensor.over_data(q, 0), mesh,
+                              rows).to_local()[:, :, :hd.hq]
+    ql = ql.reshape(ql.shape[0], S, hd.hkv, hd.g, dh)
+    kl, vl = k.to_local(), v.to_local()
+    lo, n = dtensor.piece(mesh, k.placements, 1, T)
+    scores = torch.einsum("bshgd,bthd->bhgst", ql.float() * dh ** -0.5,
+                          kl.float())
+    if mask is not None:
+        mask = dtensor.plain(mask)
+        mask = mask.narrow(-1, lo, n) if mask.shape[-1] == T else mask
+        scores = torch.where(mask, scores, NEG_INF)
+
+    def over_keys(t, op):
+        for i in seq:
+            t = funcol.all_reduce(t, op, (mesh, i))
+        return funcol.wait_tensor(t)
+
+    m = over_keys(scores.amax(-1, keepdim=True), "max")
+    p = torch.exp(scores - m)
+    den = over_keys(p.sum(-1), "sum")                     # (B, Hkv, G, S)
+    o = over_keys(torch.einsum("bhgst,bthd->bshgd", p, vl.float()), "sum")
+    out = o / den.permute(0, 3, 1, 2)[..., None]
+    return DTensor.from_local(out, mesh, rows, run_check=False)
+
+
+def _out_proj(params, out, dtype, hd):
+    """(B, S, heads..., dh) -> (B, S, d): the heads merged and projected by
+    ``wo``, whose rows are read as the heads run (``_Heads``)."""
+    B, S = out.shape[:2]
+    out = out.reshape(B, S, -1).to(dtype)
+    index = hd.q if out.shape[-1] != hd.hq * hd.dh else None
+    return out @ dtensor.pad_units(params["wo"].to(dtype), 0, hd.hq, hd.dh,
+                                   index)
 
 
 def _sdpa_local(q, k, v, mask):
@@ -116,10 +209,11 @@ def causal_mask(s, t_offset=0, window=0, device=None):
 
 
 def attention_fwd(params, x, cfg, positions, *, window=0, cache=None,
-                  kv_source=None, layer_idx=0, rope=None):
+                  kv_source=None, layer_idx=0, rope=None, hd=None):
     """Returns (out, cache).  x: (B, S, d); ``rope``: the positions'
     ``layers.rope_table``, if the caller computed it; ``kv_source``: (B, T,
-    d) for cross-attention.  cache:
+    d) for cross-attention; ``hd``: the ``_Heads`` to run in (default
+    ``heads(params, cfg)``; a padded one computes the same).  cache:
       None                     -> full sequence, no cache returned
       {"k","v","length"}       -> full cache decode / prefill-fill
       {"k","v","pos"} (ring)   -> sliding-window ring cache
@@ -127,19 +221,17 @@ def attention_fwd(params, x, cfg, positions, *, window=0, cache=None,
       {"ck","cv"}              -> frozen cross-attention KV
     """
     dtype = x.dtype
-    hq, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
-    g = hq // hkv
+    hd = hd or heads(params, cfg)
+    hq, hkv, dh = hd.hq, hd.hkv, hd.dh
     B, S, _ = x.shape
 
-    # grouped as (hkv, g) below: on DTensors a query-head split that does
-    # not divide the kv heads is gathered first (ROADMAP §3)
-    q = dtensor.whole_units(_proj(params, "q", x, hq, dh, dtype), 2, hkv)
+    q = _proj(params, "q", x, hq, hd.q, dh, dtype)
     if kv_source is not None or (cache is not None and "ck" in cache):
-        return _cross_fwd(params, q, cache, kv_source, cfg)
+        return _cross_fwd(params, q, cache, kv_source, hd)
     q = apply_rope(q, positions, cfg.rope_theta, rope)
-    k_new = apply_rope(_proj(params, "k", x, hkv, dh, dtype), positions,
-                       cfg.rope_theta, rope)
-    v_new = _proj(params, "v", x, hkv, dh, dtype)
+    k_new = apply_rope(_proj(params, "k", x, hkv, hd.kv, dh, dtype),
+                       positions, cfg.rope_theta, rope)
+    v_new = _proj(params, "v", x, hkv, hd.kv, dh, dtype)
 
     if cache is None:
         if cfg.attn_impl == "pallas" and S >= 128:
@@ -147,41 +239,46 @@ def attention_fwd(params, x, cfg, positions, *, window=0, cache=None,
                 q, k_new, v_new, causal=True, window=window)
         else:
             mask = causal_mask(S, window=window, device=x.device)
-            out = _sdpa(q.reshape(B, S, hkv, g, dh), k_new, v_new,
-                        mask[None, None, None])
-        out = _merge_heads(out.to(dtype)) @ params["wo"].to(dtype)
-        return out, None
+            out = _sdpa(q, k_new, v_new, mask[None, None, None], hd)
+        return _out_proj(params, out, dtype, hd), None
 
     if "table" in cache:
-        return _paged_fwd(params, cache, q, k_new, v_new, cfg, window)
+        return _paged_fwd(params, cache, q, k_new, v_new, cfg, hd, window)
     if "pos" in cache:
-        return _ring_fwd(params, cache, q, k_new, v_new, cfg, window)
+        return _ring_fwd(params, cache, q, k_new, v_new, hd, window)
 
     # ---- full cache: prefill-fill or decode ----
     k, v, length = cache["k"], cache["v"], cache["length"]
     L = k.shape[1]
     start = length.clamp(0, L - S)                # dynamic_update_slice
-    dtensor.write_run_(k, 1, start, k_new.to(k.dtype))
-    dtensor.write_run_(v, 1, start, v_new.to(v.dtype))
+    dtensor.write_run_(k, 1, start, _cache_rows(k_new, hd, k.dtype))
+    dtensor.write_run_(v, 1, start, _cache_rows(v_new, hd, v.dtype))
     kpos = torch.arange(L, device=x.device)
     qpos = length + torch.arange(S, device=x.device)
     mask = kpos[None, :] <= qpos[:, None]
     if window:
         mask &= kpos[None, :] > qpos[:, None] - window
-    out = _sdpa(q.reshape(B, S, hkv, g, dh), k, v, mask[None, None, None])
-    out = _merge_heads(out).to(dtype) @ params["wo"].to(dtype)
+    out = _sdpa(q, k, v, mask[None, None, None], hd)
+    out = _out_proj(params, out, dtype, hd)
     length.add_(S)
     return out, cache
 
 
-def _cross_fwd(params, q, cache, kv_source, cfg):
+def _cache_rows(x, hd, dtype):
+    """New K / V rows as a cache holds them: the hkv real heads (where they
+    were read once for each q head, the first of each group, gathered whole
+    over the mesh's head split), in the cache's dtype."""
+    if hd.kv is not None:
+        x = dtensor.unpad_units(x, 2, x.shape[2], 1, range(0, hd.hq, hd.g))
+    return x.to(dtype)
+
+
+def _cross_fwd(params, q, cache, kv_source, hd):
     """Cross-attention: with ``kv_source`` (prefill, or no cache) K / V are
     its projections, stored into ``cache`` as ``ck`` / ``cv`` if there is
     one; without it (decode) they are the cache's.  Every query sees every
     key."""
     dtype = q.dtype
-    hq, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
-    B, S = q.shape[:2]
     if kv_source is None:
         k, v = cache["ck"], cache["cv"]
     else:
@@ -189,15 +286,14 @@ def _cross_fwd(params, q, cache, kv_source, cfg):
         # rounded to the compute dtype, the product in the wider of the two
         ct = torch.promote_types(kv_source.dtype, dtype)
         kv = kv_source.to(ct)
-        k, v = (dtensor.whole_units(kv @ params["w" + n].to(dtype).to(ct),
-                                    -1, hkv).reshape(*kv.shape[:2], hkv, dh)
-                for n in ("k", "v"))
+        k, v = ((kv @ dtensor.pad_units(params["w" + n].to(dtype).to(ct),
+                                        -1, hd.hkv, hd.dh, hd.kv)
+                 ).reshape(*kv.shape[:2], -1, hd.dh) for n in ("k", "v"))
         if cache is not None:
-            dtensor.copy_(cache["ck"], k)
-            dtensor.copy_(cache["cv"], v)
-    out = _sdpa(q.reshape(B, S, hkv, hq // hkv, dh), k, v, None)
-    out = _merge_heads(out).to(dtype) @ params["wo"].to(dtype)
-    return out, cache
+            dtensor.copy_(cache["ck"], _cache_rows(k, hd, k.dtype))
+            dtensor.copy_(cache["cv"], _cache_rows(v, hd, v.dtype))
+    out = _sdpa(q, k, v, None, hd)
+    return _out_proj(params, out, dtype, hd), cache
 
 
 class _RingCheck(threading.local):
@@ -220,7 +316,7 @@ def fresh_ring_caches():
         _RING_CHECK.on = True
 
 
-def _ring_fwd(params, cache, q, k_new, v_new, cfg, window):
+def _ring_fwd(params, cache, q, k_new, v_new, hd, window):
     """The sliding-window ring cache, (B, W, Hkv, dh) and the absolute
     position ``pos`` of the next token.
 
@@ -230,9 +326,7 @@ def _ring_fwd(params, cache, q, k_new, v_new, cfg, window):
     W`` and attends over the slots whose absolute position (the largest p
     <= pos with p = j mod W) lies in the window."""
     dtype = q.dtype
-    hq, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
-    g = hq // hkv
-    B, S = q.shape[:2]
+    S = q.shape[1]
     k, v, pos = cache["k"], cache["v"], cache["pos"]
     W = k.shape[1]
     dev = q.device
@@ -240,25 +334,24 @@ def _ring_fwd(params, cache, q, k_new, v_new, cfg, window):
         if _RING_CHECK.on and int(pos) != 0:
             raise ValueError("a ring-cache prefill starts at position 0")
         mask = causal_mask(S, window=window, device=dev)
-        out = _sdpa(q.reshape(B, S, hkv, g, dh), k_new, v_new,
-                    mask[None, None, None])
+        out = _sdpa(q, k_new, v_new, mask[None, None, None], hd)
         take = min(S, W)                # slots (S - take + t) mod W
-        dtensor.write_run_(k, 1, S - take, k_new[:, S - take:].to(k.dtype))
-        dtensor.write_run_(v, 1, S - take, v_new[:, S - take:].to(v.dtype))
+        dtensor.write_run_(k, 1, S - take,
+                           _cache_rows(k_new[:, S - take:], hd, k.dtype))
+        dtensor.write_run_(v, 1, S - take,
+                           _cache_rows(v_new[:, S - take:], hd, v.dtype))
         pos.fill_(S)
     else:
-        dtensor.write_run_(k, 1, pos % W, k_new.to(k.dtype))
-        dtensor.write_run_(v, 1, pos % W, v_new.to(v.dtype))
+        dtensor.write_run_(k, 1, pos % W, _cache_rows(k_new, hd, k.dtype))
+        dtensor.write_run_(v, 1, pos % W, _cache_rows(v_new, hd, v.dtype))
         j = torch.arange(W, device=dev)
         abs_pos = pos - (pos - j) % W
         valid = (abs_pos >= 0) & (abs_pos <= pos)
         if window:
             valid &= abs_pos > pos - window
-        out = _sdpa(q.reshape(B, S, hkv, g, dh), k, v,
-                    valid[None, None, None, None, :])
+        out = _sdpa(q, k, v, valid[None, None, None, None, :], hd)
         pos.add_(1)
-    out = _merge_heads(out).to(dtype) @ params["wo"].to(dtype)
-    return out, cache
+    return _out_proj(params, out, dtype, hd), cache
 
 
 def _paged_quant(x):
@@ -276,7 +369,7 @@ def _paged_quant(x):
     return q.reshape(x.shape), s.reshape(x.shape[:-1])
 
 
-def _paged_fwd(params, cache, q, k_new, v_new, cfg, window):
+def _paged_fwd(params, cache, q, k_new, v_new, cfg, hd, window):
     """Paged-pool branch of attention_fwd (serving; no sliding window, as
     in the JAX package).
 
@@ -294,8 +387,7 @@ def _paged_fwd(params, cache, q, k_new, v_new, cfg, window):
     through K8 (``attn_impl="pallas"``) or the dense gather reference.
     """
     dtype = k_new.dtype
-    hq, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
-    g = hq // hkv
+    hq, dh = hd.hq, hd.dh
     B, S = q.shape[0], q.shape[1]
     kp, vp, table = cache["kp"], cache["vp"], cache["table"]
     n_pages, page = kp.shape[0] - 1, kp.shape[1]
@@ -306,8 +398,8 @@ def _paged_fwd(params, cache, q, k_new, v_new, cfg, window):
 
     if S > 1:
         mask = causal_mask(S, window=window, device=dev)
-        out = _sdpa(q.reshape(B, S, hkv, g, dh), k_new, v_new,
-                    mask[None, None, None]).reshape(B, S, hq * dh)
+        out = _sdpa(q, k_new, v_new, mask[None, None, None],
+                    hd).reshape(B, S, hq * dh)
         pos = torch.arange(S, device=dev)
         valid = pos[None, :] < cache["new_valid"][:, None]         # (B, S)
         prow = (pos // page).clamp(0, maxp - 1)

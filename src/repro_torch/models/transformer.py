@@ -127,13 +127,18 @@ def cast_params(params, cfg):
 
 def _block_fwd(bp, kind, x, cfg, positions, cache, image_embeds, window,
                rope):
-    """One block -> (x, aux loss or None)."""
+    """One block -> (x, aux loss or None).  On DTensors the residual sum
+    ahead of the second norm is brought to the stream's layout
+    (``dtensor.residual``): the attention's output projection leaves a
+    partial sum over "model", and a norm passes a partial sum on, so
+    without it the FFN would run on every rank's partial sum with its
+    weights gathered whole (GSPMD reduces it there too)."""
     eps = cfg.norm_eps
     if kind in ("attn", "moe"):
         h, _ = attn_lib.attention_fwd(
             bp["attn"], rms_norm(x, bp["ln1"]["scale"], eps), cfg,
             positions, window=window, cache=cache, rope=rope)
-        x = x + h
+        x = dtensor.residual(x + h)
         y = rms_norm(x, bp["ln2"]["scale"], eps)
         if kind == "moe":
             m, aux = moe_lib.moe_fwd(bp["moe"], y, cfg)
@@ -149,14 +154,14 @@ def _block_fwd(bp, kind, x, cfg, positions, cache, image_embeds, window,
             state=None if cache is None else cache["mamba"])
         h = 0.5 * (rms_norm(ha, bp["lna"]["scale"], eps)
                    + rms_norm(hm, bp["lnm"]["scale"], eps))
-        x = x + h
+        x = dtensor.residual(x + h)
         y = rms_norm(x, bp["ln2"]["scale"], eps)
         return x + mlp_fwd(bp["mlp"], y, x.dtype), None
     if kind == "xattn":
         h, _ = attn_lib.attention_fwd(
             bp["xattn"], rms_norm(x, bp["ln1"]["scale"], eps), cfg,
             positions, cache=cache, kv_source=image_embeds)
-        x = x + torch.tanh(bp["gate"]).to(x.dtype) * h
+        x = dtensor.residual(x + torch.tanh(bp["gate"]).to(x.dtype) * h)
         y = rms_norm(x, bp["ln2"]["scale"], eps)
         return x + mlp_fwd(bp["mlp"], y, x.dtype), None
     if kind in ("mlstm", "slstm"):
@@ -248,7 +253,7 @@ def forward(params, cfg, *, tokens=None, embeds=None, image_embeds=None,
                                 preserve_rng_state=False)
         else:
             x, aux = unit_fwd(u, x, aux, *units[u])
-    x = rms_norm(x, params["ln_f"]["scale"], cfg.norm_eps)
+    x = rms_norm(dtensor.residual(x), params["ln_f"]["scale"], cfg.norm_eps)
     if not collect_logits:
         return x, cache, aux
     return lm_head(params, cfg, x), cache, aux

@@ -55,16 +55,30 @@ def init_mlstm(generator, cfg, lead=()):
     }
 
 
-def _mlstm_inputs(params, xm, H, dtype):
+def _mlstm_heads(params, H):
+    """The heads the mLSTM runs in: ``H`` rounded up to a multiple of the
+    number of pieces ``wq``'s columns are split into over the mesh (GSPMD
+    pads such a split; xlstm-350m's 4 heads on 16 ranks run as 16, the
+    last 12 zero); ``H`` on plain params or an even split."""
+    n = dtensor.split_count(params["wq"], -1)
+    return -(-H // n) * n
+
+
+def _mlstm_inputs(params, xm, H, Hp, dtype):
+    """q, k / sqrt(dh), v as (..., Hp, dh) and the gates' logs (..., Hp):
+    the projections' columns read padded from ``H`` to ``Hp`` heads
+    (``dtensor.pad_units``: a pad head is zero in and takes no part in any
+    result), so on a placed state the heads split evenly over "model"."""
     di = params["wq"].shape[0]
     dh = di // H
     lead = xm.shape[:-1]
-    # on DTensors a head count that does not split over "model" is whole
-    # there (ROADMAP §3)
-    q, k, v = (dtensor.whole_units(xm @ params[w].to(dtype), -1, H).reshape(
-        *lead, H, dh) for w in ("wq", "wk", "wv"))
-    li = (xm @ params["wi"].to(dtype)).float() + params["bi"]
-    lf = _log_sigmoid((xm @ params["wf"].to(dtype)).float() + params["bf"])
+    pad = dtensor.pad_index(H, Hp)
+    q, k, v = ((xm @ dtensor.pad_units(params[w].to(dtype), -1, H, dh, pad))
+               .reshape(*lead, Hp, dh) for w in ("wq", "wk", "wv"))
+    gate = lambda w, b: dtensor.pad_units(
+        (xm @ params[w].to(dtype)).float() + params[b], -1, H, 1, pad)
+    li = gate("wi", "bi")
+    lf = _log_sigmoid(gate("wf", "bf"))
     # jnp.sqrt(dh) in fp32, cast to the compute dtype (a device fill)
     root = torch.full((), dh ** 0.5, device=xm.device).to(dtype)
     return q, k / root, v, li, lf
@@ -117,13 +131,34 @@ def _mlstm_chunkwise(q, k, v, li, lf, C_prev, n_prev, m_prev, L):
 
 
 def _head_norm(h, scale, H):
-    """The mLSTM's per-head group norm of (B, S, H dh) rows.  On DTensors
-    it runs on each rank's rows with the heads whole: the grad that comes
-    back from ``down`` is split over "model" on the merged head dim, which
-    DTensor cannot unflatten into H heads that do not split there (ROADMAP
-    §3)."""
-    return dtensor.local_op(lambda h_, g_: group_norm(h_, g_, H), h, scale,
-                            rows=1)
+    """The mLSTM's per-head group norm of (B, S, Hp dh) rows, the pad heads
+    (past ``H``; ``_mlstm_heads``) dropped first.  On DTensors it runs on
+    each rank's rows with the heads whole: the grad that comes back from
+    ``down`` is split over "model" on the merged head dim, which DTensor
+    cannot unflatten into H heads that do not split there (ROADMAP §3)."""
+    n = scale.shape[-1]
+    return dtensor.local_op(
+        lambda h_, g_: group_norm(h_.narrow(-1, 0, n), g_, H), h, scale,
+        rows=1)
+
+
+def _state_heads(state, Hp):
+    """The recurrent state ``state`` (C (B, H, dh, dh), n (B, H, dh), m (B,
+    H)) padded to ``Hp`` heads (zeros: a pad head's output stays 0)."""
+    H = state["m"].shape[1]
+    return tuple(dtensor.pad_units(state[key], 1, H, 1,
+                                   dtensor.pad_index(H, Hp))
+                 for key in ("C", "n", "m"))
+
+
+def _write_state(state, vals):
+    """The carried (C, n, m, conv) written back into ``state``, the pad
+    heads dropped."""
+    H = state["m"].shape[1]
+    for key, val in zip(("C", "n", "m", "conv"), vals):
+        if key != "conv" and val.shape[1] != H:
+            val = dtensor.unpad_units(val, 1, val.shape[1], 1, range(H))
+        dtensor.copy_(state[key], val)
 
 
 def _mlstm_step(q, k, v, li, lf, C0, n0, m0):
@@ -148,24 +183,23 @@ def mlstm_fwd(params, x, cfg, state=None):
     state or None)."""
     dtype = x.dtype
     H = cfg.n_heads
+    Hp = _mlstm_heads(params, H)
     xm, z = (x @ params["up"].to(dtype)).chunk(2, dim=-1)
 
     if state is not None and x.shape[1] == 1:   # ---- one recurrent step
         xc, conv_state = causal_depthwise_conv(
             xm, params["conv_w"], params["conv_b"], state["conv"])
         xc = F.silu(xc)
-        q, k, v, li, lf = _mlstm_inputs(params, xc[:, 0], H, dtype)
-        # row-local; on DTensors the heads are gathered around it, as in
-        # the chunkwise form (ROADMAP §3)
+        q, k, v, li, lf = _mlstm_inputs(params, xc[:, 0], H, Hp, dtype)
+        # row-local and local to a head: on DTensors each rank runs its
+        # rows and its heads (ROADMAP §3)
         h, C, n, m_new = dtensor.local_op(
-            _mlstm_step, q, k, v, li, lf, state["C"], state["n"],
-            state["m"], rows=8)
+            _mlstm_step, q, k, v, li, lf, *_state_heads(state, Hp), rows=8,
+            heads=(1,) * 8, out_heads=(1, 1, 1, 1))
         h = h.reshape(x.shape[0], 1, -1).to(dtype)
         h = _head_norm(h, params["gn"], H)
         out = (h * F.silu(z)) @ params["down"].to(dtype)
-        for key, val in (("C", C), ("n", n), ("m", m_new),
-                         ("conv", conv_state)):
-            dtensor.copy_(state[key], val)
+        _write_state(state, (C, n, m_new, conv_state))
         return out, state
 
     # ---- chunkwise-parallel form (train, or prefill when state given)
@@ -177,24 +211,25 @@ def mlstm_fwd(params, x, cfg, state=None):
         xc, conv_tail = causal_conv_carried(xm, params["conv_w"],
                                             params["conv_b"], state["conv"])
     xc = F.silu(xc)
-    q, k, v, li, lf = _mlstm_inputs(params, xc, H, dtype)  # (B,S,H,dh) (B,S,H)
+    # (B, S, Hp, dh), (B, S, Hp)
+    q, k, v, li, lf = _mlstm_inputs(params, xc, H, Hp, dtype)
     dh = q.shape[-1]
     if state is not None:
-        C_prev, n_prev, m_prev = state["C"], state["n"], state["m"]
+        C_prev, n_prev, m_prev = _state_heads(state, Hp)
     else:
-        C_prev = x.new_zeros((B, H, dh, dh), dtype=torch.float32)
-        n_prev = x.new_zeros((B, H, dh), dtype=torch.float32)
-        m_prev = x.new_full((B, H), M_INIT, dtype=torch.float32)
-    # row-local; on DTensors the heads are gathered around it (ROADMAP §3)
+        C_prev = x.new_zeros((B, Hp, dh, dh), dtype=torch.float32)
+        n_prev = x.new_zeros((B, Hp, dh), dtype=torch.float32)
+        m_prev = x.new_full((B, Hp), M_INIT, dtype=torch.float32)
+    # row-local and local to a head: on DTensors each rank runs its rows
+    # and its heads (ROADMAP §3)
     h, C_prev, n_prev, m_prev = dtensor.local_op(
         lambda *a: _mlstm_chunkwise(*a, min(cfg.scan_chunk, S)),
-        q, k, v, li, lf, C_prev, n_prev, m_prev, rows=8)
+        q, k, v, li, lf, C_prev, n_prev, m_prev, rows=8,
+        heads=(2, 2, 2, 2, 2, 1, 1, 1), out_heads=(2, 1, 1, 1))
     h = _head_norm(h.to(dtype), params["gn"], H)
     out = (h * F.silu(z)) @ params["down"].to(dtype)
     if state is not None:
-        for key, val in (("C", C_prev), ("n", n_prev), ("m", m_prev),
-                         ("conv", conv_tail)):
-            dtensor.copy_(state[key], val)
+        _write_state(state, (C_prev, n_prev, m_prev, conv_tail))
         return out, state
     return out, None
 

@@ -2,15 +2,20 @@
 group (``launch/mesh.py``): the counterparts of what GSPMD inserts around
 the JAX package's ``shard_map`` (``aggregation.aggregate_sharded``).
 
-A rank holds the rows of its own clients, (C/W, N) with the columns in leaf
-order.  ``ColumnShards.to_columns`` turns them into the (C, n/W) column
-shards of every split leaf by one ``all_to_all`` (the reshard that JAX's
-``with_sharding_constraint`` folds into the producer) and gathers the rows
-of the leaves that stay whole; ``ColumnShards.gather`` all-gathers each
-leaf's aggregated shards back into its (n,) row.  At W = 1 the all_to_all is the
-identity and is not called (the rows are already the columns); every other
-collective goes through ``torch.distributed`` at every world size, so a
-world-size-1 run takes the same path as a wider one.  Every call is safe
+A rank holds the rows of its own clients, C/W of them, in the send layout
+(``SendRows``): each split leaf's W column blocks rank-major, (W, C/W,
+n_sh), and the leaves that stay whole beside them, (C/W, n_rep).  The
+producer writes them there (the pod step's per-client grads), as JAX's
+``with_sharding_constraint`` has the producer emit the column layout; a
+caller that holds (C/W, N) rows in leaf order packs them once
+(``ColumnShards.pack``).  ``ColumnShards.to_columns`` turns the send layout
+into the (C, n/W) column shards of every split leaf by one ``all_to_all``,
+with no copy, and gathers the rows of the leaves that stay whole;
+``ColumnShards.gather`` all-gathers each leaf's aggregated shards back into
+its (n,) row.  At W = 1 the all_to_all is the identity and is not called
+(the rows are already the columns); every other collective goes through
+``torch.distributed`` at every world size, so a world-size-1 run takes the
+same path as a wider one.  Every call is safe
 to record as a CUDA graph: the buffers come from ``torch.empty`` and the
 collectives are NCCL's (``launch/mesh.py`` starts the group).
 
@@ -20,6 +25,8 @@ mesh ``Mesh.over(axes)``, and "W" below is then that sub-group's size,
 "rank" this rank's index in it.
 """
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 import torch.distributed as dist
@@ -50,6 +57,14 @@ def all_gather_rows(x, mesh):
     return out
 
 
+class SendRows(NamedTuple):
+    """A rank's client rows in ``ColumnShards``' send layout: ``send`` (W,
+    r, n_sh), block p the columns of every split leaf that go to rank p,
+    and ``rep`` (r, n_rep), the leaves that stay whole."""
+    send: torch.Tensor
+    rep: torch.Tensor
+
+
 class ColumnShards:
     """The split of a matrix whose columns are leaves of ``sizes``: leaf l
     with ``flags[l]`` (``specs.client_flat_specs``) splits into W equal
@@ -68,34 +83,80 @@ class ColumnShards:
                          if f]
         self.rep_sizes = [n for n, f in zip(self.sizes, self.flags) if not f]
         self.whole = all(self.flags)
+        # each leaf's column offset in the send block or in ``rep``
+        self.dst, o = [], [0, 0]
+        for n, f in zip(self.sizes, self.flags):
+            self.dst.append(o[0] if f else o[1])
+            o[0 if f else 1] += n // self.w if f else n
 
-    def _cols(self, x, sharded, p=0):
-        """The columns of ``x`` (rows, N) that go to the shard matrix of rank
-        ``p`` (``sharded``) or to the matrix of whole leaves, in leaf order."""
+    def empty(self, r, device, dtype=torch.float32):
+        """Uninitialised ``SendRows`` for ``r`` client rows."""
+        return SendRows(
+            torch.empty(self.w, r, sum(self.sh_sizes), device=device,
+                        dtype=dtype),
+            torch.empty(r, sum(self.rep_sizes), device=device, dtype=dtype))
+
+    def views(self, rows, c, a, m):
+        """Where columns [a, a + m) of client row ``c`` lie in ``rows`` (a
+        ``SendRows``): (destination view, first column, end) pieces, each
+        written as ``dst.copy_(g[lo:hi].view(dst.shape))`` from the (m,)
+        values ``g``.  A split leaf that lies wholly in the range is one
+        strided (W, n / W) piece."""
         out = []
-        for n, f, a in zip(self.sizes, self.flags, self.offsets):
-            if f and sharded:
-                b = n // self.w
-                out.append(x[:, a + p * b:a + (p + 1) * b])
-            elif not f and not sharded:
-                out.append(x[:, a:a + n])
+        for n, f, at, o in zip(self.sizes, self.flags, self.offsets,
+                               self.dst):
+            s, e = max(a, at), min(a + m, at + n)
+            if s >= e:
+                continue
+            if not f:
+                out.append((rows.rep[c, o + s - at:o + e - at], s - a, e - a))
+                continue
+            b = n // self.w
+            if (s, e) == (at, at + n):
+                out.append((rows.send[:, c, o:o + b], s - a, e - a))
+                continue
+            for p in range((s - at) // b, (e - 1 - at) // b + 1):
+                lo, hi = max(s, at + p * b), min(e, at + (p + 1) * b)
+                q = lo - at - p * b
+                out.append((rows.send[p, c, o + q:o + q + hi - lo],
+                            lo - a, hi - a))
         return out
 
-    def to_columns(self, x):
-        """This rank's clients' rows ``x`` (C/W, N) -> ``(sh, rep)``: the
-        (C, sum sh_sizes) shard matrix and the (C, sum rep_sizes) whole
-        leaves, both contiguous, rows in client order."""
-        r = x.shape[0]
-        if self.w == 1 and self.whole:
-            return x.contiguous(), x[:, :0]
-        send = torch.stack([torch.cat(self._cols(x, True, p), 1)
-                            if self.sh_sizes else x[:, :0]
-                            for p in range(self.w)])      # (W, r, n_sh)
+    def pack(self, x, dtype=None):
+        """Client rows in leaf order -> their ``SendRows`` (in ``dtype``,
+        default ``x``'s): the one place rows are copied into the send
+        layout, for a caller whose producer wrote leaf order.  ``x`` is one
+        (r, N) matrix or a list of each leaf's (r, n) rows (a tree's
+        leaves, read in place).  At W = 1 with every leaf split, a
+        matrix in its dtype is a view."""
+        leaves = (x if isinstance(x, (list, tuple)) else
+                  [x[:, at:at + n] for at, n in zip(self.offsets,
+                                                    self.sizes)])
+        r, dtype = leaves[0].shape[0], dtype or leaves[0].dtype
+        if (self.w == 1 and self.whole and isinstance(x, torch.Tensor)
+                and x.dtype == dtype):
+            return SendRows(x.contiguous()[None], x[:, :0])
+        rows = self.empty(r, leaves[0].device, dtype)
+        for x_l, n, f, o in zip(leaves, self.sizes, self.flags, self.dst):
+            if f:
+                b = n // self.w
+                rows.send[:, :, o:o + b].copy_(
+                    x_l.reshape(r, self.w, b).transpose(0, 1))
+            else:
+                rows.rep[:, o:o + n].copy_(x_l)
+        return rows
+
+    def to_columns(self, rows):
+        """This rank's clients' ``SendRows`` -> ``(sh, rep)``: the (C, sum
+        sh_sizes) shard matrix and the (C, sum rep_sizes) whole leaves,
+        both contiguous, rows in client order.  No copy of the rows: the
+        send buffer goes to the all_to_all as it is."""
+        send, rep = rows
+        r = rep.shape[0]
         sh = send if self.w == 1 else all_to_all(send, self.mesh)
         sh = sh.reshape(self.w * r, -1)
-        rep = (all_gather_rows(torch.cat(self._cols(x, False), 1),
-                               self.mesh)
-               if self.rep_sizes else x.new_empty(self.w * r, 0))
+        rep = (all_gather_rows(rep, self.mesh) if self.rep_sizes
+               else rep.new_empty(self.w * r, 0))
         return sh, rep
 
     def gather(self, out_sh, out_rep):

@@ -75,7 +75,7 @@ class _ContiguousGrad(torch.autograd.Function):
         return g.contiguous()
 
 
-def local_op(fn, *args, rows=0, heads=()):
+def local_op(fn, *args, rows=0, heads=(), out_heads=None):
     """``fn(*args)`` on plain tensors, for an op with no DTensor sharding
     strategy.  The first ``rows`` args are batch-row tensors: they keep
     their split over the data axes (``fn`` must then be row-local).
@@ -85,7 +85,9 @@ def local_op(fn, *args, rows=0, heads=()):
     head).  Every other split is redistributed to ``Replicate``; ``fn``
     runs on the local tensors, and its tensor outputs come back as
     DTensors placed as the first arg was (``Replicate`` if there are no
-    row args).  Without a DTensor among ``args`` it is ``fn(*args)``."""
+    row args), or, with ``out_heads`` (the head dim of each output), split
+    on their own head dims.  Without a DTensor among ``args`` it is
+    ``fn(*args)``."""
     from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
     ref = _any_dtensor(args)
@@ -131,56 +133,233 @@ def local_op(fn, *args, rows=0, heads=()):
         loc.append(a)
     out = fn(*loc)
 
-    def wrap(o):
+    def wrap(o, h=None):
+        pl = out_pl
+        if h is not None:
+            pl = list(row_pl)
+            for m in split:
+                pl[m] = Shard(h)
         if isinstance(o, torch.Tensor):     # contiguous: DTensor views it
-            return DTensor.from_local(o.contiguous(), mesh, out_pl,
+            return DTensor.from_local(o.contiguous(), mesh, pl,
                                       run_check=False)
         return o
 
     if isinstance(out, tuple):
-        return tuple(wrap(o) for o in out)
-    return wrap(out)
+        hs = out_heads or (None,) * len(out)
+        return tuple(wrap(o, h) for o, h in zip(out, hs))
+    return wrap(out, out_heads[0] if out_heads else None)
 
 
-def whole_units(x, dim, units):
-    """``x`` with its split of dim ``dim`` over the mesh gathered where
-    ``units`` (the heads that dim holds) do not split evenly over it, so
-    it can be unflattened into (units, unit size); otherwise, and for a
-    plain ``x``, ``x`` itself.  GSPMD pads an uneven split; DTensor refuses
-    it, so such an arch's heads are whole on every rank of that axis."""
+def split_count(x, dim):
+    """The number of pieces ``x``'s dim ``dim`` is split into over the mesh
+    (the product of the sizes of the mesh dims that shard it); 1 for a plain
+    ``x``."""
     if not (isinstance(x, torch.Tensor) and is_dtensor(x)):
-        return x
-    from torch.distributed.tensor import Replicate, Shard
+        return 1
+    from torch.distributed.tensor import Shard
     dim %= x.dim()
     n = 1
     for i, p in enumerate(x.placements):
         if p == Shard(dim):
             n *= x.device_mesh.size(i)
-    if units % n == 0:
+    return n
+
+
+def piece(mesh, placements, dim, length):
+    """(offset, size) of this rank's piece of a dim of ``length`` placed
+    ``Shard(dim)`` on the mesh dims of ``placements`` that say so (an even
+    split, nested in mesh-dim order as DTensor nests it)."""
+    from torch.distributed.tensor import Shard
+    coord = mesh.get_coordinate()
+    off, size = 0, length
+    for i, p in enumerate(placements):
+        if p == Shard(dim):
+            size //= mesh.size(i)
+            off += coord[i] * size
+    return off, size
+
+
+def whole_local(x, split=()):
+    """``x`` gathered whole over every mesh dim, as its plain local tensor
+    (``x`` itself if plain).  Its grad is a partial sum over the mesh dims
+    in ``split``, where each rank reads its own part of it, and whole
+    elsewhere (the grad comes back to ``x``'s placements by a
+    reduce-scatter or a local slice)."""
+    if not (isinstance(x, torch.Tensor) and is_dtensor(x)):
         return x
-    pl = [Replicate() if p == Shard(dim) else p for p in x.placements]
-    return redistribute(x, x.device_mesh, pl)
+    from torch.distributed.tensor import Partial, Replicate
+    mesh = x.device_mesh
+    full = [Replicate()] * mesh.ndim
+    return redistribute(x, mesh, full).to_local(grad_placements=[
+        Partial() if i in split else Replicate() for i in range(mesh.ndim)])
+
+
+class _SumPartial(torch.autograd.Function):
+    """Each rank's local part of a sum over the mesh dims in ``split``,
+    reduced into ``target``'s placements (a reduce-scatter onto a split
+    dim, an all-reduce onto a whole one); the grad of every part is the
+    whole grad."""
+
+    @staticmethod
+    def forward(ctx, part, mesh, split, target):
+        from torch.distributed.tensor import DTensor, Partial, Replicate
+        ctx.mesh, ctx.target = mesh, target
+        pl = [Partial() if i in split else Replicate()
+              for i in range(mesh.ndim)]
+        x = DTensor.from_local(part, mesh, pl, run_check=False)
+        return redistribute(x, mesh, target).to_local()
+
+    @staticmethod
+    def backward(ctx, g):
+        from torch.distributed.tensor import DTensor, Replicate
+        mesh = ctx.mesh
+        x = DTensor.from_local(g.contiguous(), mesh, ctx.target,
+                               run_check=False)
+        return (redistribute(x, mesh, [Replicate()] * mesh.ndim).to_local(),
+                None, None, None)
+
+
+def sum_partial(part, mesh, split, target):
+    """The DTensor placed by ``target`` whose value is the sum over the
+    mesh dims in ``split`` of each rank's plain ``part`` (the same on the
+    other dims): the collective of GSPMD's partial sum, deterministic
+    (NCCL's reduce-scatter and all-reduce, a relabel on dims of one
+    rank)."""
+    from torch.distributed.tensor import DTensor
+    out = _SumPartial.apply(part, mesh, frozenset(split), list(target))
+    return DTensor.from_local(out, mesh, target, run_check=False)
+
+
+def pad_units(x, dim, units, unit, index):
+    """``x``'s dim ``dim``, which holds ``units`` units of ``unit`` entries
+    (heads), read as the ``len(index)`` units ``index`` names: unit j of the
+    result is ``x``'s unit ``index[j]``, or zeros where ``index[j] < 0``.
+    ``index`` pads a head split that does not divide, as GSPMD pads it
+    (zero heads on the last ranks), and can repeat a unit (a kv head read
+    once for each of its q heads).  On a DTensor whose dim is split over
+    the mesh the result is split evenly (``len(index)`` a multiple of the
+    split's rank count), each rank reading only its own units: its piece
+    of ``x`` is gathered over the split first; a dim that is whole stays
+    whole.  A pad unit takes no part in any result (zero in, its grads
+    dropped); a repeated unit's grads add up.  ``x`` itself where
+    ``index`` is None.
+
+    The models read the projection weights so (``wq`` / ``wk`` / ``wv``
+    columns, ``wo`` rows): the heads come out padded and split evenly, the
+    stored params and their layouts stay as they are."""
+    if index is None:
+        return x
+    dim %= x.dim()
+
+    def take(t, lo, n):
+        # units [lo, lo + n) of the result, from t (the whole dim)
+        at = [units if i < 0 else i for i in index[lo:lo + n]]
+        t = t.unflatten(dim, (units, unit))
+        zero = torch.zeros_like(t.narrow(dim, 0, 1))
+        t = torch.cat([t, zero], dim).index_select(
+            dim, torch.tensor(at, device=t.device))
+        return t.flatten(dim, dim + 1)
+
+    if not (isinstance(x, torch.Tensor) and is_dtensor(x)):
+        return take(x, 0, len(index))
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    mesh = x.device_mesh
+    split = [i for i, p in enumerate(x.placements) if p == Shard(dim)]
+    # the dim whole (a partial sum reduced); the rest as it is
+    whole = [p if isinstance(p, Shard) and i not in split else Replicate()
+             for i, p in enumerate(x.placements)]
+    loc = redistribute(x, mesh, whole).to_local(grad_placements=[
+        Partial() if i in split else p for i, p in enumerate(whole)])
+    lo, n = piece(mesh, x.placements, dim, len(index))
+    mine = take(loc, lo, n).contiguous()
+    shape = list(x.shape)
+    shape[dim] = len(index) * unit
+    pl = [p if i in split else q for i, (p, q) in enumerate(zip(
+        x.placements, whole))]
+    return DTensor.from_local(mine, mesh, pl, run_check=False,
+                              shape=torch.Size(shape),
+                              stride=_contiguous_stride(shape))
+
+
+def unpad_units(x, dim, units, unit, index):
+    """The units ``index`` names of ``x``'s dim ``dim`` (``units`` units of
+    ``unit``), whole: on a DTensor gathered over every mesh dim but the
+    batch rows' data split (a ``local_op``).  ``x`` itself where ``index``
+    is None."""
+    if index is None:
+        return x
+    dim %= x.dim()
+
+    def take(t):
+        at = torch.tensor(list(index), device=t.device)
+        return t.unflatten(dim, (units, unit)).index_select(
+            dim, at).flatten(dim, dim + 1)
+
+    return local_op(take, x, rows=1)
+
+
+def pad_index(units, to):
+    """``pad_units``' index of ``units`` units padded with zero units to
+    ``to``; None where there is nothing to pad."""
+    if to == units:
+        return None
+    return list(range(units)) + [-1] * (to - units)
+
+
+def _contiguous_stride(shape):
+    stride, s = [], 1
+    for n in reversed(shape):
+        stride.append(s)
+        s *= n
+    return tuple(reversed(stride))
+
+
+class _GradLike(torch.autograd.Function):
+    """The identity on a DTensor, whose backward brings the grad to the
+    forward's placements (a partial sum reduced): the all-reduce in the
+    backward of a tensor-parallel block's input, as in Megatron's and
+    GSPMD's partitioning."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.mesh, ctx.pl = x.device_mesh, list(x.placements)
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        if is_dtensor(g):
+            return redistribute(g, ctx.mesh, ctx.pl)
+        return g
 
 
 def residual(x):
     """The residual stream at a block boundary in one layout: the batch
     rows split over the data axes (where they divide), whole over every
-    other mesh dim (a partial sum reduced, a split gathered).  Without it a
-    block's layout, and so its collectives and flops, would follow the
-    layout the block before it left, and a layer's cost would depend on
-    its neighbours.  A plain ``x`` is returned as it is."""
+    other mesh dim (a partial sum reduced, a split gathered), and its grad
+    brought to that layout too.  Without it a block's layout, and so its
+    collectives and flops, would follow the layout the block before it
+    left, and a layer's cost would depend on its neighbours; and the grad
+    of a tensor-parallel block's input (a partial sum over "model") would
+    reach the block before it unreduced, where DTensor would rather gather
+    a weight whole than reduce the grad, and run that block's backward on
+    every rank's partial sum.  A plain ``x``, and a DTensor on a mesh of one
+    rank (where every layout is the same local tensor and a redistribution
+    costs only DTensor's host dispatch), is returned as it is."""
     if not (isinstance(x, torch.Tensor) and is_dtensor(x)):
         return x
     from torch.distributed.tensor import Replicate, Shard
     mesh = x.device_mesh
+    if mesh.size() == 1:
+        return x
     data = [i for i, n in enumerate(mesh.mesh_dim_names or ())
             if n in DP_AXES]
     n = 1
     for i in data:
         n *= mesh.size(i)
     row = Shard(0) if x.shape[0] % n == 0 else Replicate()
-    return redistribute(x, mesh, [row if i in data else Replicate()
-                                  for i in range(mesh.ndim)])
+    x = redistribute(x, mesh, [row if i in data else Replicate()
+                               for i in range(mesh.ndim)])
+    return _GradLike.apply(x) if x.requires_grad else x
 
 
 def copy_(dst, src):
@@ -195,20 +374,6 @@ def copy_(dst, src):
     dst.to_local().copy_((redistribute(src, mesh, pl) if is_dtensor(src)
                           else _cut(src, mesh, pl)).to_local())
     return dst
-
-
-def _shard_offset(x, dim):
-    """(offset, length) of this rank's piece of ``x``'s dim ``dim``: its
-    splits there are even (the cache layouts split a dim only where it
-    divides), nested in mesh-dim order as DTensor nests them."""
-    from torch.distributed.tensor import Shard
-    coord = x.device_mesh.get_coordinate()
-    off, size = 0, x.shape[dim]
-    for i, p in enumerate(x.placements):
-        if p == Shard(dim):
-            size //= x.device_mesh.size(i)
-            off += coord[i] * size
-    return off, size
 
 
 def write_run_(dst, dim, start, src):
@@ -231,16 +396,16 @@ def write_run_(dst, dim, start, src):
            else _cut(src, dst.device_mesh, pl)).to_local()
     start = local(start)
     loc = dst.to_local()
-    lo, m = _shard_offset(dst, dim)
+    lo, m = piece(dst.device_mesh, dst.placements, dim, dst.shape[dim])
     shape = [1] * loc.dim()
     for c in range(0, T, m):
-        piece = src.narrow(dim, c, min(m, T - c))
-        slot = (start + c + torch.arange(piece.shape[dim],
+        run = src.narrow(dim, c, min(m, T - c))
+        slot = (start + c + torch.arange(run.shape[dim],
                                          device=loc.device)) % n
         at = (slot - lo) % m
-        shape[dim] = piece.shape[dim]
+        shape[dim] = run.shape[dim]
         mine = ((slot >= lo) & (slot < lo + m)).reshape(shape)
-        loc.index_copy_(dim, at, torch.where(mine, piece,
+        loc.index_copy_(dim, at, torch.where(mine, run,
                                              loc.index_select(dim, at)))
     return dst
 

@@ -40,6 +40,15 @@ KINDS = {
     "xlstm": ARCHS["xlstm-350m"].reduced().replace(**SMALL),
     "xattn": ARCHS["llama-3.2-vision-90b"].reduced().replace(
         cross_attn_every=2, **SMALL),
+    # head counts that do not split over a "model" axis of 2: 3 q heads in
+    # one kv group (padded to 2 groups), and 3 mLSTM heads (padded to 4)
+    "attn_uneven": ARCHS["tiny-lm"].replace(
+        **dict(SMALL, n_heads=3, n_kv_heads=1)),
+    "xlstm_uneven": ARCHS["xlstm-350m"].reduced().replace(
+        **dict(SMALL, d_model=48, n_heads=3, n_kv_heads=3)),
+    # granite at small widths with a capacity that drops routed pairs
+    "moe_drop": ARCHS["granite-moe-1b-a400m"].reduced().replace(
+        capacity_factor=0.5, **SMALL),
 }
 C, GB, S = 4, 8, 16             # clients, global batch, sequence
 ROBUST = {"none": (None, {}),
@@ -190,21 +199,23 @@ def tp_updates():
 
 def run_tp(mesh):
     """``aggregation.aggregate_tp`` on each rank's rows (its data index's
-    clients) of its block of the split columns and of the whole ones, for
-    every aggregator."""
+    clients) of its block of the split columns and of the whole ones,
+    packed into the send layout (``tp_columns(n, mesh).pack``), for every
+    aggregator."""
     from repro_torch.core import aggregation
     D, M = mesh.shape
     d, m = mesh.coords()
     split, whole = tp_updates()
     rows = slice(d * AGG_C // D, (d + 1) * AGG_C // D)
     cols = slice(m * TP_SPLIT // M, (m + 1) * TP_SPLIT // M)
+    send = [aggregation.tp_columns(x.shape[1], mesh).pack(torch.from_numpy(
+        x.copy())) for x in (split[rows, cols], whole[rows])]
     w, mask = agg_wm()
     out = {}
     for agg in ("fedavg", "median", "trimmed_mean", "krum"):
         cfg = FedConfig(n_clients=AGG_C, aggregator=agg)
         out[agg] = tuple(o.numpy() for o in aggregation.aggregate_tp(
-            torch.from_numpy(split[rows, cols].copy()),
-            torch.from_numpy(whole[rows].copy()), w, mask, cfg, mesh))
+            *send, w, mask, cfg, mesh))
     return out
 
 
@@ -326,6 +337,102 @@ def run_remat(kind, mesh=None):
     return out
 
 
+def run_dispatch(mesh):
+    """``moe.placed_dispatch`` of routing keys placed as a batch's rows
+    (split over "data") on ``mesh``, for the dropping config: (order, tok,
+    keep, dest) as numpy."""
+    from repro_torch.models import moe
+    cfg = KINDS["moe_drop"]
+    top_e = dispatch_keys()
+    placed = dtensor.place({"e": top_e}, specs.named(mesh, specs.batch_specs(
+        {"e": top_e}, mesh)))["e"]
+    order, tok, _, _, _, keep, dest = moe.placed_dispatch(
+        placed, top_e.shape[0], cfg)
+    return [t.numpy() for t in (order, tok, keep, dest)]
+
+
+def dispatch_keys():
+    """(N, K) routing keys of the dropping config, skewed so that experts
+    overflow their capacity."""
+    cfg = KINDS["moe_drop"]
+    rng = np.random.default_rng(11)
+    p = np.array([0.55, 0.25, 0.15, 0.05])[:cfg.n_experts]
+    keys = np.stack([rng.choice(cfg.n_experts, cfg.top_k, replace=False,
+                                p=p / p.sum()) for _ in range(GB * S)])
+    return torch.from_numpy(keys)
+
+
+DECODE_STEPS = 4
+
+
+def run_greedy(kind, mesh=None):
+    """``Model.prefill`` of a (4, 8) prompt and DECODE_STEPS greedy
+    ``Model.decode`` steps, each fed the argmax of the last logits, on
+    plain tensors or (``mesh``) on params placed by ``param_specs`` and a
+    cache placed by ``cache_specs`` (split on its sequence over "model")
+    -> (the logits of each call, whole; the tokens chosen)."""
+    from repro_torch.models.model import build
+    cfg = SERVE_KINDS.get(kind, KINDS.get(kind))
+    model = build(cfg)
+    params = model.init(torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(3)
+    prompt = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                           (SERVE_B, SERVE_S)))
+    cache = model.init_cache(SERVE_B, SERVE_LEN, dtype=torch.float32)
+    place = lambda b: b
+    if mesh is not None:
+        params = dtensor.place(params, specs.named(
+            mesh, specs.param_specs(params, mesh=mesh)))
+        cache = dtensor.place(cache, specs.named(mesh, specs.cache_specs(
+            cache, mesh)))
+        place = lambda b: dtensor.place(b, specs.named(
+            mesh, specs.batch_specs(b, mesh)))
+    logits, tokens = [], []
+    with torch.no_grad():
+        out, cache = model.prefill(params, place({"tokens": prompt}), cache)
+        for t in range(DECODE_STEPS):
+            out = dtensor.plain(out)
+            logits.append(out.numpy())
+            tok = out[:, -1].argmax(-1)
+            tokens.append(tok.numpy())
+            out, cache = model.decode(params, place({"tokens": tok[:, None]}),
+                                      cache, SERVE_S + t)
+        logits.append(dtensor.plain(out).numpy())
+    return logits, np.stack(tokens)
+
+
+LSE_SHAPE = (2, 3, 2, 2, 16)          # q: (B, S, Hkv, G, dh)
+LSE_T = 16
+
+
+def lse_inputs():
+    """q, k, v and a mask that leaves some keys of every query masked
+    (whole pieces of T among them)."""
+    rng = np.random.default_rng(9)
+    B, S, H, G, dh = LSE_SHAPE
+    q = rng.standard_normal(LSE_SHAPE).astype(np.float32)
+    k, v = (rng.standard_normal((B, LSE_T, H, dh)).astype(np.float32)
+            for _ in range(2))
+    kpos = np.arange(LSE_T)[None, :]
+    mask = kpos <= (np.arange(S)[:, None] + 5)
+    return [torch.from_numpy(x) for x in (q, k, v, mask[None, None, None])]
+
+
+def run_lse(mesh):
+    """``attention._sdpa`` with k and v placed as a cache is (T split over
+    "model") and q whole: the log-sum-exp combine across the ranks."""
+    from repro_torch.models import attention
+    q, k, v, mask = lse_inputs()
+    kv = dtensor.place({"k": k[None], "v": v[None]}, specs.named(
+        mesh, specs.cache_specs({"k": k[None], "v": v[None]}, mesh)))
+    B, S, H, G, dh = LSE_SHAPE
+    hd = attention._Heads(H * G, H, G, dh, H * G, None, None)
+    q = q.reshape(B, S, H * G, dh)
+    qd = dtensor.place(q, specs.named(mesh, specs.P(*([None] * q.dim()))))
+    out = attention._sdpa(qd, kv["k"][0], kv["v"][0], mask, hd)
+    return dtensor.plain(out).numpy()
+
+
 def _worker(rank, shape, cases, store_dir, out_q):
     try:
         torch.set_num_threads(1)
@@ -338,6 +445,9 @@ def _worker(rank, shape, cases, store_dir, out_q):
                                    else run_serve(*c, mesh) if k == "serve"
                                    else run_remat(c, mesh) if k == "remat"
                                    else run_write(mesh) if k == "write"
+                                   else run_dispatch(mesh) if k == "dispatch"
+                                   else run_greedy(c, mesh) if k == "greedy"
+                                   else run_lse(mesh) if k == "lse"
                                    else run(k, c, mesh))
                           for k, c in cases}))
     except Exception:                   # reported by the test, not lost
